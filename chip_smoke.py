@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (holoscene_tpu_torch) runs on an
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, then trains the Stage-4 Gaussian-on-Mesh slice through its
-CLI at full width (512^2 frames, >= 100k gaussians, SH degree 3).
+PyTorch version, then drives the Stage-4 Gaussian-on-Mesh paths through their
+entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -10,14 +10,39 @@ Phases, one '== ' line each:
   1 environment  torch / CUDA versions and the card (nvidia-smi name, power
                  limit); refuses to run without CUDA
   2 build        nvcc csrc/*.cu -> holoscene_tpu_torch/build (seconds)
-  3 kernels      K1/K2 vs their plain versions on a random 128^2 scene
-  4 slice        exp_runner_gaussian.main on a generated 512^2 scene: every
+  3 kernels      K1-K4 vs their plain versions on a random 128^2 scene
+  4 flat slice   exp_runner_gaussian.main on a generated 512^2 scene: every
                  loss finite, l1 falls, K1/K2 launched every step, eval PSNR
                  finite, exports written; steps/s and splats/s
-  5 kernels      K1/K2 vs plain again, at one training frame's bins (max abs
-                 error, kernel ms beside plain ms)
-Then the kernel table as one JSON line, and last the device line
+  5 top-K slice  Stage4Runner(GoMConfig(use_flat=False, max_per_tile=0)) on
+                 the same scene: the calibrated K, every loss finite, l1
+                 falls, K3/K4 launched every step; steps/s and splats/s
+  6 invisible    analytic orthographic 256^2 packs of the two spheres loaded
+                 into a flat runner: K1/K2 and K3/K4 launched every
+                 iteration, the invisible-view l1 finite, and falling on
+                 fixed probe views (each step's own l1 is taken against a
+                 random background, whose draw moves it more than training
+                 does)
+  7 gs_render    the renderer CLI on the exported gauss_scene.ply: PNGs and
+                 metrics.json written, PSNR finite, K3 launched per view
+  8 kernels      K1-K4 vs plain again, at one training frame's shapes (max
+                 abs error, kernel ms beside plain ms and the card's bound)
+The launch counts are set to 0 just before each of the paths 4-7 and read
+just after. Then the kernel table as one JSON line and last the device line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
+
+The bound of a kernel is the larger of two times, both from this run's
+inputs. Bytes: the candidate rows of the chunks the walk really took (8 KB
+each), the per-tile ints and tile blocks it reads, and every output byte
+written once (K2/K4: all of the zero-initialised gradient array), over
+3.35 TB/s. Operations: per walked (candidate, pixel) the 17 float32
+operations up to the 1/255 test (quadratic form, one exp, the clamp), and
+per live one (alpha >= 1/255) 13 more in the forward (exp of the running
+sum, weight, four multiply-adds unfused, log1p) or 51 more in the backward
+(log1p, exp, the closed form, ten gradient terms and their ten sums over the
+tile's pixels), each special function counted as ONE operation, over the
+card's 67 TFLOP/s float32 rate. No PyTorch call computes any of the four
+functions, so library_ms is null.
 """
 
 from __future__ import annotations
@@ -29,8 +54,8 @@ import tempfile
 import time
 from pathlib import Path
 
-FWD_ATOL = 2e-4               # K1 vs plain (all 8 output channels)
-BWD_ATOL, BWD_RTOL = 5e-4, 5e-3   # K2 vs plain
+FWD_ATOL = 2e-4               # K1/K3 vs plain (all 8 output channels)
+BWD_ATOL, BWD_RTOL = 5e-4, 5e-3   # K2/K4 vs plain
 RES = 512
 N_IMAGES = 8
 MESH_RES = 32                 # marching-tetrahedra grid of the analytic meshes
@@ -39,14 +64,28 @@ AREA = 2e-4                   # face-area cap: ~123k gaussians at MESH_RES 32
 # (first/last-third means 0.1934 -> 0.1977 over 30 steps, 0.1780 -> 0.1543
 # over 150, on an H100 80GB HBM3 at 700 W); 100 steps show the trend
 STEPS = 100
-SMALL_RES, SMALL_N = 128, 5000
+TOPK_STEPS = 90
+INVIS_ITERS = 60
+PACK_RES, PACK_VIEWS = 256, 4
+SMALL_RES, SMALL_N, SMALL_K = 128, 5000, 256
+MEM_BYTES_S = 3.35e12         # H100 SXM HBM3
+FP32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores
+OPS_TEST, OPS_LIVE_FWD, OPS_LIVE_BWD = 17, 13, 51
 
-K1 = dict(name="K1 splat_flat_fwd", route="cuda",
-          source="holoscene_tpu_torch/csrc/splat_flat_fwd.cu",
-          replaces="holoscene_tpu/ops/splat_flat.py:601")
-K2 = dict(name="K2 splat_flat_bwd", route="cuda",
-          source="holoscene_tpu_torch/csrc/splat_flat_bwd.cu",
-          replaces="holoscene_tpu/ops/splat_flat.py:710")
+KERNELS = {
+    "K1": dict(name="K1 splat_flat_fwd", route="cuda",
+               source="holoscene_tpu_torch/csrc/splat_flat_fwd.cu",
+               replaces="holoscene_tpu/ops/splat_flat.py:601"),
+    "K2": dict(name="K2 splat_flat_bwd", route="cuda",
+               source="holoscene_tpu_torch/csrc/splat_flat_bwd.cu",
+               replaces="holoscene_tpu/ops/splat_flat.py:710"),
+    "K3": dict(name="K3 splat_topk_fwd", route="cuda",
+               source="holoscene_tpu_torch/csrc/splat_topk_fwd.cu",
+               replaces="holoscene_tpu/ops/splat_pallas.py:49"),
+    "K4": dict(name="K4 splat_topk_bwd", route="cuda",
+               source="holoscene_tpu_torch/csrc/splat_topk_bwd.cu",
+               replaces="holoscene_tpu/ops/splat_pallas.py:166"),
+}
 
 
 def log(msg: str) -> None:
@@ -75,55 +114,165 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_kernels(cand, cs, cc, tiles_x, width, height, seed, timed):
-    """K1/K2 vs plain on the card; raises on disagreement. Returns
-    {"K1": (max_abs_err, ms, plain_ms), "K2": ...} (ms None if not timed)."""
+def reset_counts() -> None:
+    from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.ops import splat_topk as st
+
+    sf.flat_fwd.launches = sf.flat_bwd.launches = 0
+    st.composite_fwd.launches = st.composite_bwd.launches = 0
+
+
+def read_counts() -> dict:
+    import torch
+
+    from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.ops import splat_topk as st
+
+    torch.cuda.synchronize()
+    return {"K1": sf.flat_fwd.launches, "K2": sf.flat_bwd.launches,
+            "K3": st.composite_fwd.launches, "K4": st.composite_bwd.launches}
+
+
+def walk_work(chunks, cs, used, px, py):
+    """What a walk over these inputs needs: (chunks walked, (candidate,
+    pixel) pairs, live pairs with alpha >= 1/255)."""
     import torch
 
     from holoscene_tpu_torch.ops import splat_flat as sf
 
-    geom = (tiles_x, 16, width, height)
-    ref = sf.flat_fwd_plain(cand, cs, cc, *geom)
-    out = sf.flat_fwd(cand, cs, cc, *geom)
+    cs, used = cs.long(), used.long()
+    live = 0
+    for j in range(int(used.max()) if used.numel() else 0):
+        act = j < used
+        keep = sf._chunk_alpha(px[act], py[act], chunks[(cs + j)[act]])[6]
+        live += int(keep.sum())
+    walked = int(used.sum())
+    return walked, walked * sf.CHUNK * px.shape[1], live
+
+
+def bound_ms(n_bytes: int, n_ops: int):
+    by_bytes = n_bytes / MEM_BYTES_S * 1e3
+    by_ops = n_ops / FP32_OPS_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def compare_walks(names, chunks, cs, px, py, fwd, fwd_plain, bwd, bwd_plain,
+                  extra_in_bytes, seed, timed):
+    """One forward/backward kernel pair vs plain on the card; raises on
+    disagreement. fwd() -> (out [T,P,8], used [T]); bwd(out, used, v) ->
+    d cand. Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} (the times None unless timed)."""
+    import torch
+
+    kf, kb = names
+    ref, ref_used = fwd_plain()
+    out, used = fwd()
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
-        raise RuntimeError("K1 output is not finite")
+        raise RuntimeError(f"{kf} output is not finite")
+    if not torch.equal(used.long(), ref_used.long()):
+        raise RuntimeError(f"{kf} walked other chunk counts than plain")
     err_f = float((out - ref).abs().max())
     if err_f > FWD_ATOL:
         bad = (out - ref).abs().amax(dim=(1,))   # per tile, per channel
-        raise RuntimeError(f"K1 disagrees with plain: max abs err {err_f} > "
-                           f"{FWD_ATOL}; worst channel errors "
+        raise RuntimeError(f"{kf} disagrees with plain: max abs err {err_f} "
+                           f"> {FWD_ATOL}; worst channel errors "
                            f"{bad.amax(0).tolist()}")
-    gen = torch.Generator(device=cand.device).manual_seed(seed)
-    v = torch.randn(ref.shape, generator=gen, device=cand.device)
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    v = torch.randn(ref.shape, generator=gen, device=out.device)
     v[..., 5:] = 0.0   # the diagnostics channels carry no cotangent
-    dref = sf.flat_bwd_plain(cand, cs, ref, v, *geom)
-    dker = sf.flat_bwd(cand, cs, ref, v, *geom)
+    dref = bwd_plain(ref, ref_used, v)
+    dker = bwd(ref, ref_used, v)
     torch.cuda.synchronize()
     err_b = float((dker - dref).abs().max())
     over = ((dker - dref).abs() > BWD_ATOL + BWD_RTOL * dref.abs()).sum()
     if not torch.isfinite(dker).all() or int(over):
-        raise RuntimeError(f"K2 disagrees with plain: {int(over)} values "
+        raise RuntimeError(f"{kb} disagrees with plain: {int(over)} values "
                            f"outside atol {BWD_ATOL} rtol {BWD_RTOL}; max abs "
                            f"err {err_b}")
-    res = {"K1": [err_f, None, None], "K2": [err_b, None, None]}
+    res = {kf: dict(max_abs_err=err_f, ms=None, plain_ms=None),
+           kb: dict(max_abs_err=err_b, ms=None, plain_ms=None)}
+    walked, pairs, live = walk_work(chunks, cs, ref_used, px, py)
+    read = walked * chunks[0].numel() * 4 + extra_in_bytes
+    block = out.numel() * 4
+    res[kf]["bound_ms"], res[kf]["bound_by"] = bound_ms(
+        read + block, pairs * OPS_TEST + live * OPS_LIVE_FWD)
+    res[kb]["bound_ms"], res[kb]["bound_by"] = bound_ms(
+        read + 2 * block + dker.numel() * 4,
+        pairs * OPS_TEST + live * OPS_LIVE_BWD)
+    for k in names:
+        res[k].update(walked_chunks=walked, candidate_pixels=pairs,
+                      live_candidate_pixels=live, library_ms=None)
     if timed:
-        res["K1"][1] = cuda_ms(lambda: sf.flat_fwd(cand, cs, cc, *geom), 20)
-        res["K1"][2] = cuda_ms(lambda: sf.flat_fwd_plain(cand, cs, cc, *geom),
-                               3)
-        res["K2"][1] = cuda_ms(lambda: sf.flat_bwd(cand, cs, ref, v, *geom),
-                               20)
-        res["K2"][2] = cuda_ms(
-            lambda: sf.flat_bwd_plain(cand, cs, ref, v, *geom), 3)
+        # the candidate rows (tens of MB) are left warm in the 50 MB L2, as
+        # the gather that precedes each walk in a training step leaves them
+        res[kf]["ms"] = cuda_ms(fwd, 20)
+        res[kf]["plain_ms"] = cuda_ms(fwd_plain, 3)
+        res[kb]["ms"] = cuda_ms(lambda: bwd(ref, ref_used, v), 20)
+        res[kb]["plain_ms"] = cuda_ms(lambda: bwd_plain(ref, ref_used, v), 3)
     return res
 
 
-def random_scene_inputs(dev):
-    """A random 128^2 scene of SMALL_N gaussians -> walk inputs."""
-    import numpy as np
+def compare_flat(cand, cs, cc, tiles_x, width, height, seed, timed):
+    from holoscene_tpu_torch.ops import splat_flat as sf
+
+    geom = (tiles_x, 16, width, height)
+    px, py, _ = sf._tile_pixels(cs.shape[0], *geom, cand.device)
+
+    def with_used(out):
+        return out, out[:, 0, 5].int()
+
+    return compare_walks(
+        ("K1", "K2"), cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS), cs, px, py,
+        lambda: with_used(sf.flat_fwd(cand, cs, cc, *geom)),
+        lambda: with_used(sf.flat_fwd_plain(cand, cs, cc, *geom)),
+        lambda o, _u, v: sf.flat_bwd(cand, cs, o, v, *geom),
+        lambda o, _u, v: sf.flat_bwd_plain(cand, cs, o, v, *geom),
+        2 * cs.numel() * 4, seed, timed)
+
+
+def compare_topk(cand, origins, counts, width, height, seed, timed):
     import torch
 
     from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.ops import splat_topk as st
+
+    geom = (16, width, height)
+    px, py, _ = sf.tile_pixels_at(origins, *geom)
+    cs = torch.arange(cand.shape[0], device=cand.device) \
+        * (cand.shape[1] // sf.CHUNK)
+    return compare_walks(
+        ("K3", "K4"), cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS), cs, px, py,
+        lambda: st.composite_fwd(cand, origins, counts, *geom),
+        lambda: st.composite_fwd_plain(cand, origins, counts, *geom),
+        lambda o, u, v: st.composite_bwd(cand, origins, u, o, v, *geom),
+        lambda o, u, v: st.composite_bwd_plain(cand, origins, u, o, v, *geom),
+        origins.numel() * 4 + counts.numel() * 4, seed, timed)
+
+
+def topk_lists(xy, depth, conic, radius, valid, opac, rgb, width, height, k):
+    """The top-K walk's inputs as render_gaussians builds them: gated,
+    K-padded cand [T,K,16], origins [T,2], counts [T] int32."""
+    import torch
+
+    from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.ops.splat import select_topk
+    from holoscene_tpu_torch.ops.splat_topk import gate_and_pad
+
+    k = min(k, xy.shape[0])
+    top_idx, live, origins = select_topk(xy, depth, radius, valid, width,
+                                         height, 16, k)
+    cand = sf.gather_payload(xy, depth, conic, opac, rgb,
+                             top_idx.reshape(-1)).reshape(-1, k, sf.CAND_ROWS)
+    return (gate_and_pad(cand, live.float()), origins,
+            live.sum(1).to(torch.int32))
+
+
+def random_scene(dev):
+    """A random 128^2 scene of SMALL_N projected gaussians."""
+    import numpy as np
+    import torch
+
     from holoscene_tpu_torch.ops.gaussians import project_gaussians_fused
 
     rng = np.random.default_rng(0)
@@ -131,7 +280,7 @@ def random_scene_inputs(dev):
     means = np.stack([rng.uniform(-0.7, 0.7, n), rng.uniform(-0.7, 0.7, n),
                       rng.uniform(1.2, 3.0, n)], -1)
     f32 = dict(dtype=torch.float32, device=dev)
-    xy, depth, conic, _, valid = project_gaussians_fused(
+    xy, depth, conic, radius, valid = project_gaussians_fused(
         torch.as_tensor(means, **f32),
         torch.as_tensor(rng.normal(size=(n, 4)), **f32),
         torch.as_tensor(rng.uniform(0.01, 0.05, (n, 3)), **f32),
@@ -140,6 +289,12 @@ def random_scene_inputs(dev):
                       [0, 0, 1.0]], device=dev), res, res)
     opac = torch.as_tensor(rng.uniform(0.2, 0.95, n), **f32)
     rgb = torch.as_tensor(rng.uniform(0, 1, (n, 3)), **f32)
+    return xy, depth, conic, radius, valid, opac, rgb
+
+
+def flat_inputs(xy, depth, conic, valid, opac, rgb, res):
+    from holoscene_tpu_torch.ops import splat_flat as sf
+
     tiles = res // 16
     plan = sf.plan_flat(xy, conic, opac, valid, tiles, tiles, 16)
     bins = sf.build_flat_bins(xy, depth, conic, opac, valid, tiles_x=tiles,
@@ -148,30 +303,31 @@ def random_scene_inputs(dev):
     return cand, bins["tile_chunk_start"], bins["tile_chunk_cnt"], tiles
 
 
-def frame_inputs(runner, frame: int):
-    """One training frame's walk inputs at the slice's shapes."""
+def frame_projection(runner, frame: int):
+    """One training frame's projected, shaded gaussians at the slice's
+    shapes: (xy, depth, conic, radius, valid, opac, rgb, w, h)."""
     import torch
 
     from holoscene_tpu_torch.models import gom
-    from holoscene_tpu_torch.ops.gaussians import view_matrix
-    from holoscene_tpu_torch.ops.splat import project_and_shade
-    from holoscene_tpu_torch.ops.splat_flat import gather_payload
+    from holoscene_tpu_torch.ops.gaussians import (
+        project_gaussians_fused,
+        view_matrix,
+    )
+    from holoscene_tpu_torch.ops.splat import shade
 
     p, st, cfg = runner.params, runner.static, runner.cfg
     h, w = runner.dataset.img_res
     pose, intr = runner._pose_intr(frame)
-    bins = runner._get_bins(frame, pose, intr)
     with torch.no_grad():
+        means = gom.gom_means(p, st, cfg)
+        viewmat = view_matrix(pose, pose.device)
+        xy, depth, conic, radius, valid = project_gaussians_fused(
+            means, gom.gom_quats(p, st, cfg), gom.gom_scales(p, st, cfg),
+            viewmat, intr, w, h)
         colors = torch.cat([p["features_dc"][:, None], p["features_rest"]], 1)
-        xy, depth, conic, _valid, rgb = project_and_shade(
-            gom.gom_means(p, st, cfg), gom.gom_quats(p, st, cfg),
-            gom.gom_scales(p, st, cfg), colors,
-            view_matrix(pose, pose.device), intr, w, h,
-            sh_degree=cfg.sh_degree)
-        cand = gather_payload(xy, depth, conic, gom.gom_opacities(p), rgb,
-                              bins["gidx"])
-    return cand, bins["tile_chunk_start"], bins["tile_chunk_cnt"], \
-        -(-w // cfg.tile_size), w, h
+        rgb = shade(means, colors, viewmat, cfg.sh_degree)
+        return (xy, depth, conic, radius, valid, gom.gom_opacities(p), rgb,
+                w, h)
 
 
 def write_slice_inputs(work: Path):
@@ -194,6 +350,78 @@ def write_slice_inputs(work: Path):
         f"dataset{{\n data_root_dir = {work / 'data'}\n data_dir = scene_0\n"
         f" img_res = [{RES}, {RES}]\n test_split = True\n}}\n")
     return conf, plots
+
+
+def invis_probe_l1(runner) -> float:
+    """The invisible-view l1 without the noise of the random background:
+    every object's first two pack views rendered as the invisible-view step
+    renders them, on mid-grey."""
+    import torch
+
+    from holoscene_tpu_torch import as_tensor
+    from holoscene_tpu_torch.models.gom import render_gom
+
+    dev = runner.device
+    bg = torch.full((3,), 0.5, device=dev)
+    vals = []
+    with torch.no_grad():
+        for obj_i, packs in enumerate(runner.vis_info_list):
+            for pack in packs[:2]:
+                h, w = pack["mask"].shape
+                half = float(pack["half_extent"])
+                intr = torch.tensor([[w / (2 * half), 0.0, w / 2.0],
+                                     [0.0, h / (2 * half), h / 2.0],
+                                     [0.0, 0.0, 1.0]], device=dev)
+                out = render_gom(
+                    runner.params, runner.static, runner.cfg,
+                    as_tensor(pack["pose"], dev), intr, w, h, bg,
+                    visible_mask=runner._visible_mask(obj_i), ortho=True)
+                m = as_tensor(pack["mask"], dev)[..., None]
+                gt = as_tensor(pack["rgb"], dev) * m + (1 - m) * bg
+                vals.append(float((out["rgb"] - gt).abs().mean()))
+    return sum(vals) / len(vals)
+
+
+def finite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def thirds(hist, keys):
+    """Means of the first and the last third of the logged steps: each step
+    draws a random frame and background, so single steps are noisy."""
+    third = max(len(hist) // 3, 1)
+    return {k: (sum(h[k] for h in hist[:third]) / third,
+                sum(h[k] for h in hist[-third:]) / third) for k in keys}
+
+
+def check_training(tag, runner, hist, steps, launches, per_step, card):
+    """The checks shared by the training paths; logs rates. per_step: the
+    kernels that must have launched at least once per step."""
+    n_gauss = runner.static["num_gaussians"]
+    if len(hist) != steps or not all(finite(h["loss"]) for h in hist):
+        raise RuntimeError(f"{tag}: {len(hist)} logged steps for {steps}, or "
+                           f"a non-finite loss: {[h['loss'] for h in hist]}")
+    trend = thirds(hist, ("loss", "l1", "acm_loss", "depth_loss", "psnr"))
+    log("   first/last third means: " + ", ".join(
+        f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items()))
+    if not (trend["l1"][1] < trend["l1"][0]
+            and trend["loss"][1] < trend["loss"][0]):
+        raise RuntimeError(f"{tag}: l1 or loss did not fall over "
+                           f"{len(hist)} logged steps: {trend}")
+    if n_gauss < 100_000 or runner.cfg.sh_degree != 3:
+        raise RuntimeError(f"{tag}: not the full-width slice: {n_gauss} "
+                           f"gaussians, sh_degree {runner.cfg.sh_degree}")
+    if any(launches[k] < steps for k in per_step):
+        raise RuntimeError(f"{tag}: kernels {per_step} not on the path: "
+                           f"{launches} launches for {steps} steps")
+    steps_s = steps / runner.run_seconds
+    steady_s = (steps - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
+    log(f"   {n_gauss} gaussians, sh_degree 3, {RES}^2, {steps} steps in "
+        f"{runner.run_seconds:.3f} s: {steps_s:.3f} steps/s, "
+        f"{n_gauss * steps_s:.6g} splats/s (first step included); steps "
+        f"2..{steps}: {steady_s:.3f} steps/s, {1e3 / steady_s:.2f} ms/step, "
+        f"{n_gauss * steady_s:.6g} splats/s; on {card}")
+    return trend
 
 
 def main() -> int:
@@ -224,57 +452,44 @@ def main() -> int:
             log(f"   ptxas: {line.strip()}")
 
     # 3 kernels vs plain, small random scene
-    cand, cs, cc, tiles = random_scene_inputs(dev)
-    small = compare_kernels(cand, cs, cc, tiles, SMALL_RES, SMALL_RES, 1,
-                            timed=False)
+    xy, depth, conic, radius, valid, opac, rgb = random_scene(dev)
+    cand, cs, cc, tiles = flat_inputs(xy, depth, conic, valid, opac, rgb,
+                                      SMALL_RES)
+    small = compare_flat(cand, cs, cc, tiles, SMALL_RES, SMALL_RES, 1,
+                         timed=False)
+    lists = topk_lists(xy, depth, conic, radius, valid, opac, rgb, SMALL_RES,
+                       SMALL_RES, SMALL_K)
+    small.update(compare_topk(*lists, SMALL_RES, SMALL_RES, 3, timed=False))
     log(f"== 3 kernels vs plain, random {SMALL_RES}^2 scene of {SMALL_N} "
-        f"gaussians ({cand.shape[0] // sf.CHUNK} chunks): K1 max abs err "
-        f"{small['K1'][0]:.3g} (atol {FWD_ATOL}), K2 max abs err "
-        f"{small['K2'][0]:.3g} (atol {BWD_ATOL} rtol {BWD_RTOL})")
+        f"gaussians ({cand.shape[0] // sf.CHUNK} flat chunks, top-K lists of "
+        f"{lists[0].shape[1]}): max abs err "
+        + ", ".join(f"{k} {small[k]['max_abs_err']:.3g}" for k in KERNELS)
+        + f" (forward atol {FWD_ATOL}, backward atol {BWD_ATOL} rtol "
+        f"{BWD_RTOL})")
 
-    # 4 the slice through its CLI; counts reset just before, read just after
-    from holoscene_tpu_torch.training import exp_runner_gaussian
+    from holoscene_tpu_torch.datasets.synthetic import write_vis_info
+    from holoscene_tpu_torch.models.gom import GoMConfig
+    from holoscene_tpu_torch.training import exp_runner_gaussian, gs_render
+    from holoscene_tpu_torch.training.stage4 import Stage4Runner
 
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="holoscene_smoke_") as tmp:
         work = Path(tmp)
         t0 = time.perf_counter()
         conf, plots = write_slice_inputs(work)
-        log(f"== 4 slice: scene {N_IMAGES} x {RES}^2 + meshes written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        sf.flat_fwd.launches = 0
-        sf.flat_bwd.launches = 0
+        log(f"== 4 flat slice: scene {N_IMAGES} x {RES}^2 + meshes written "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        # 4 the flat slice through its CLI
+        reset_counts()
         runner = exp_runner_gaussian.main(
             ["--conf", str(conf), "--exps_folder", str(work / "exps"),
              "--max_niters", str(STEPS), "--area_to_subdivide", str(AREA),
              "--log_every", "1", "--quiet", "--device", "cuda"])
-        torch.cuda.synchronize()
-        launches = {"K1": sf.flat_fwd.launches, "K2": sf.flat_bwd.launches}
-
-        n_gauss = runner.static["num_gaussians"]
-        hist = runner.history
-        losses = [h["loss"] for h in hist]
-        if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
-            raise RuntimeError(f"non-finite loss in {losses}")
-        # each step draws a random frame and background, so single steps are
-        # noisy: compare the means of the first and the last third
-        third = max(len(hist) // 3, 1)
-        trend = {k: (sum(h[k] for h in hist[:third]) / third,
-                     sum(h[k] for h in hist[-third:]) / third)
-                 for k in ("loss", "l1", "acm_loss", "depth_loss", "psnr")}
-        log("   first/last third means: " + ", ".join(
-            f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items()))
-        if len(hist) != STEPS or not (trend["l1"][1] < trend["l1"][0]
-                                      and trend["loss"][1] < trend["loss"][0]):
-            raise RuntimeError(f"l1 or loss did not fall over {len(hist)} "
-                               f"logged steps: {trend}")
-        if n_gauss < 100_000 or runner.cfg.sh_degree != 3:
-            raise RuntimeError(f"not the full-width slice: {n_gauss} "
-                               f"gaussians, sh_degree {runner.cfg.sh_degree}")
-        if launches["K1"] < STEPS or launches["K2"] < STEPS:
-            raise RuntimeError(f"kernels not on the main path: {launches} "
-                               f"launches for {STEPS} steps")
-        psnr = runner.test_metrics["psnr"]
-        if psnr != psnr or abs(psnr) == float("inf"):
+        paths["flat"] = read_counts()
+        check_training("flat slice", runner, runner.history, STEPS,
+                       paths["flat"], ("K1", "K2"), card)
+        if not finite(runner.test_metrics["psnr"]):
             raise RuntimeError(f"eval PSNR not finite: {runner.test_metrics}")
         outs = [plots / "gauss_scene.ply", plots / "gauss_scene.usdz"] + [
             plots / f"gauss_obj_{i}.ply"
@@ -282,33 +497,138 @@ def main() -> int:
         missing = [str(p) for p in outs if not p.exists()]
         if missing:
             raise RuntimeError(f"exports missing: {missing}")
-        steps_s = STEPS / runner.run_seconds
-        steady_s = (STEPS - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
-        log(f"   {n_gauss} gaussians, sh_degree 3, {RES}^2, {STEPS} steps "
-            f"in {runner.run_seconds:.3f} s: {steps_s:.3f} steps/s, "
-            f"{n_gauss * steps_s:.6g} splats/s (first step included); "
-            f"steps 2..{STEPS}: {steady_s:.3f} steps/s, "
-            f"{n_gauss * steady_s:.6g} splats/s; on {card}")
         log(f"   test {runner.test_metrics}, rebins {runner.rebin_count}, "
-            f"trim {runner._trim_active}, launches {launches}")
+            f"trim {runner._trim_active}, launches {paths['flat']}")
 
-        # 5 kernels vs plain at the slice's shapes (one training frame)
-        cand, cs, cc, tiles_x, w, h = frame_inputs(runner, 0)
-        big = compare_kernels(cand, cs, cc, tiles_x, w, h, 2, timed=True)
-        n_chunks = cand.shape[0] // sf.CHUNK
-        log(f"== 5 kernels vs plain, training frame 0 ({n_chunks} chunks, "
-            f"{cs.shape[0]} tiles) on {card}:")
-        for k in ("K1", "K2"):
-            err, ms, plain = big[k]
-            log(f"   {k}: max abs err {err:.3g}, kernel {ms:.3f} ms, plain "
-                f"{plain:.3f} ms")
+        # 5 the top-K slice: same scene, same meshes, K auto-calibrated
+        t0 = time.perf_counter()
+        reset_counts()
+        topk = Stage4Runner(
+            runner.meshes, runner.dataset,
+            cfg=GoMConfig(use_flat=False, max_per_tile=0),
+            area_to_subdivide=AREA, max_total_iters=TOPK_STEPS,
+            out_dir=str(work / "topk_out"), quiet=True, device="cuda")
+        probes = read_counts()["K3"]
+        log(f"== 5 top-K slice: calibrated max_per_tile "
+            f"{topk.cfg.max_per_tile} under the p99 overlap bound "
+            f"{topk.k_geom} ({probes} probe renders, runner built in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if topk.use_flat or not 64 <= topk.cfg.max_per_tile <= 1024:
+            raise RuntimeError(f"top-K runner: use_flat {topk.use_flat}, K "
+                               f"{topk.cfg.max_per_tile}")
+        reset_counts()
+        topk.run(log_every=1)
+        paths["topk"] = read_counts()
+        check_training("top-K slice", topk, topk.history, TOPK_STEPS,
+                       paths["topk"], ("K3", "K4"), card)
+        log(f"   launches {paths['topk']}")
 
+        # 6 the invisible-view path on a fresh flat runner
+        packs = write_vis_info(str(plots), n_views=PACK_VIEWS, res=PACK_RES)
+        invis = Stage4Runner(
+            runner.meshes, runner.dataset, cfg=GoMConfig(max_per_tile=0),
+            area_to_subdivide=AREA, max_total_iters=2 * INVIS_ITERS,
+            out_dir=str(work / "invis_out"), quiet=True, device="cuda")
+        invis.load_vis_info(str(plots))
+        probe0 = invis_probe_l1(invis)
+        reset_counts()
+        invis.run(n_iters=INVIS_ITERS, log_every=1)
+        paths["invisible"] = read_counts()
+        probe1 = invis_probe_l1(invis)
+        hist = invis.history
+        trend = thirds(hist, ("invis_l1", "l1"))
+        log(f"== 6 invisible-view path: {len(packs)} pack files of "
+            f"{PACK_VIEWS} orthographic {PACK_RES}^2 views, K "
+            f"{invis.cfg.max_per_tile}; {INVIS_ITERS} iterations (flat step "
+            f"+ invisible-view step) in {invis.run_seconds:.3f} s, "
+            f"{1e3 * invis.run_seconds / INVIS_ITERS:.2f} ms/iteration, "
+            f"first iteration included; first/last third means: "
+            + ", ".join(f"{k} {a:.4f} -> {b:.4f}"
+                        for k, (a, b) in trend.items())
+            + f"; invisible-view l1 on fixed probe views {probe0:.4f} -> "
+            f"{probe1:.4f}; launches {paths['invisible']}; on {card}")
+        if len(hist) != INVIS_ITERS or invis.invis_steps != INVIS_ITERS \
+                or not all(finite(h["invis_l1"]) and finite(h["loss"])
+                           for h in hist):
+            raise RuntimeError("invisible-view run: a step is missing or "
+                               f"not finite: {hist}")
+        if not (finite(probe1) and probe1 < probe0):
+            raise RuntimeError("invisible-view l1 on the fixed probe views "
+                               f"did not fall: {probe0} -> {probe1}")
+        if min(paths["invisible"].values()) < INVIS_ITERS:
+            raise RuntimeError("invisible-view run: not every kernel "
+                               f"launched every iteration: "
+                               f"{paths['invisible']}")
+
+        # 7 the standalone renderer on the flat run's export
+        reset_counts()
+        out_dir = work / "renders"
+        t0 = time.perf_counter()
+        summary = gs_render.main(
+            ["--ply", str(plots / "gauss_scene.ply"), "--dataset", "ns",
+             "--data_root", str(work / "data" / "scene_0"), "--split",
+             "train", "--out", str(out_dir), "--device", "cuda"])
+        paths["gs_render"] = read_counts()
+        pngs = sorted(out_dir.glob("render_*.png"))
+        log(f"== 7 gs_render: {len(pngs)} views in "
+            f"{time.perf_counter() - t0:.1f} s, mean {summary}, launches "
+            f"{paths['gs_render']}")
+        if len(pngs) != N_IMAGES or not (out_dir / "metrics.json").exists() \
+                or not finite(summary["psnr"]):
+            raise RuntimeError(f"gs_render: {len(pngs)} PNGs, {summary}")
+        if paths["gs_render"]["K3"] < N_IMAGES + 1:
+            raise RuntimeError("gs_render: K3 not launched once per view "
+                               f"plus the probes: {paths['gs_render']}")
+
+        # 8 kernels vs plain at the slices' shapes (training frame 0)
+        xy, depth, conic, radius, valid, opac, rgb, w, h = frame_projection(
+            runner, 0)
+        pose, intr = runner._pose_intr(0)
+        bins = runner._get_bins(0, pose, intr)
+        cand = sf.gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
+        big = compare_flat(cand, bins["tile_chunk_start"],
+                           bins["tile_chunk_cnt"], -(-w // 16), w, h, 2,
+                           timed=True)
+        proj = frame_projection(topk, 0)[:7]
+        k_top = topk.cfg.max_per_tile
+        lists = topk_lists(*proj, w, h, k_top)
+        big.update(compare_topk(*lists, w, h, 4, timed=True))
+        # what surrounds the walks in a step: binning / selection, gathers
+        from holoscene_tpu_torch.ops.splat import select_topk
+
+        top_idx = select_topk(*proj[:2], *proj[3:5], w, h, 16, k_top)[0]
+        around = {
+            "flat rebin (build_flat_bins, full plan)": cuda_ms(
+                lambda: runner._rebin(pose, intr, None), 5),
+            "flat payload gather": cuda_ms(lambda: sf.gather_payload(
+                xy, depth, conic, opac, rgb, bins["gidx"]), 20),
+            f"top-K selection (select_topk, k={k_top})": cuda_ms(
+                lambda: select_topk(*proj[:2], *proj[3:5], w, h, 16, k_top),
+                5),
+            "top-K payload gather": cuda_ms(lambda: sf.gather_payload(
+                *proj[:3], *proj[5:7], top_idx.reshape(-1)), 20),
+        }
+        log(f"== 8 kernels vs plain, training frame 0 "
+            f"({cand.shape[0] // sf.CHUNK} flat chunks; top-K lists "
+            f"{tuple(lists[0].shape)}) on {card}:")
+        for k in KERNELS:
+            b = big[k]
+            log(f"   {k}: max abs err {b['max_abs_err']:.3g}, kernel "
+                f"{b['ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+                f"({b['walked_chunks']} chunks walked, "
+                f"{b['live_candidate_pixels']} of {b['candidate_pixels']} "
+                f"candidate-pixels live)")
+        log("   around the walks (forward only, CUDA events): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in around.items()))
+
+    main_path = {"K1": "flat", "K2": "flat", "K3": "topk", "K4": "topk"}
     table = []
-    for k, meta in (("K1", K1), ("K2", K2)):
-        err, ms, plain = big[k]
-        table.append({**meta, "launches": launches[k],
-                      "max_abs_err": max(err, small[k][0]), "ms": ms,
-                      "plain_ms": plain})
+    for k, meta in KERNELS.items():
+        b = dict(big[k])
+        b["max_abs_err"] = max(b["max_abs_err"], small[k]["max_abs_err"])
+        table.append({**meta, "launches": paths[main_path[k]][k], **b,
+                      "launches_by_path": {p: c[k] for p, c in paths.items()}})
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,17 +4,23 @@ H100 (Hopper, sm_90a).
 The JAX package `holoscene_tpu/` stays the reference; every module here keeps
 its counterpart's path and names (`holoscene_tpu_torch/ops/splat_flat.py` <->
 `holoscene_tpu/ops/splat_flat.py`) and is parity-tested against it on the CPU
-(tests/test_torch_*.py). This package imports torch and never jax; it reuses
-the reference's jax-free host modules (config, datasets, mesh I/O, marching
-tetrahedra, USDZ export, numpy PSNR/SSIM) instead of copying them.
+(tests/test_torch_*.py). This package imports torch, never jax, and nothing
+of `holoscene_tpu`: it keeps its own copy of the host-side modules it needs
+(config, datasets, utils/{mesh,mc,eval_rgb}, export/gs_usdz; numpy / PIL /
+scipy only).
 
-Layer map (the Stage-4 Gaussian-on-Mesh training slice):
+Layer map (the Stage-4 Gaussian-on-Mesh slice):
   ops/        projection + SH (gaussians), SSIM, flat tile binning and the
-              K1/K2 tile-walk kernels (splat_flat), the image epilogue
-              (splat), the mesh mask/depth rasterizer
+              K1/K2 tile-walk kernels (splat_flat), the K3/K4 top-K walks
+              (splat_topk), the renderer entry with per-tile selection and
+              the image epilogue (splat), the mesh mask/depth rasterizer
   csrc/       hand-written CUDA for sm_90a (built by kernels.py on first use)
   models/     Gaussian-on-Mesh seeding, reparameterisations, render, loss
-  training/   Stage4Runner and the exp_runner_gaussian CLI
+  training/   Stage4Runner, the exp_runner_gaussian CLI, the gs_render CLI
+  datasets/   the synthetic scene with analytic meshes and packs, loaders
+  utils/      mesh I/O, marching tetrahedra, PSNR/SSIM (host, numpy)
+  export/     gaussian USDZ
+  config.py   HOCON-subset config parser
   convert.py  JAX params/static (as numpy) <-> torch tensors
 """
 

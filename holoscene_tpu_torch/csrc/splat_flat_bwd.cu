@@ -30,14 +30,11 @@
 // pixel of a warp reaches (alpha < 1/255 everywhere) contributes exact
 // zeros, so that warp skips its reduction (__any_sync vote).
 
-#include <cuda_runtime.h>
+#include "splat_walk.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;
-constexpr int kRows = 16;
-constexpr int kGradRows = 10;
-constexpr float kAlphaEps = 1.0f / 255.0f;
+using namespace splat_walk;
 
 __global__ void splat_flat_bwd_kernel(const float* __restrict__ cand,
                                       const int* __restrict__ cs,
@@ -64,75 +61,20 @@ __global__ void splat_flat_bwd_kernel(const float* __restrict__ cand,
   const size_t pix = static_cast<size_t>(t) * n_pix + p;
   const int used = static_cast<int>(fwd[static_cast<size_t>(t) * n_pix * 8 + 5]);
   const float total = fwd[pix * 8 + 6];
-  const float v0 = v[pix * 8 + 0], v1 = v[pix * 8 + 1], v2 = v[pix * 8 + 2];
-  const float v3 = v[pix * 8 + 3], v4 = v[pix * 8 + 4];
+  const float vp[5] = {v[pix * 8 + 0], v[pix * 8 + 1], v[pix * 8 + 2],
+                       v[pix * 8 + 3], v[pix * 8 + 4]};
   const int c0 = cs[t];
 
   float suffix = 0.f;   // sum log(1 - a) over later candidates
   float s_after = 0.f;  // sum w s over later candidates
   for (int j = 0; j < used; ++j) {
-    const size_t chunk = static_cast<size_t>(c0 + used - 1 - j);
-    const float4* src =
-        reinterpret_cast<const float4*>(cand + chunk * kChunk * kRows);
-    float4* dst = reinterpret_cast<float4*>(sc);
-    for (int i = p; i < kChunk * kRows / 4; i += n_pix) dst[i] = src[i];
+    const size_t row0 = static_cast<size_t>(c0 + used - 1 - j) * kChunk * kRows;
+    stage_chunk(sc, cand + row0, p, n_pix);
     for (int i = p; i < kChunk * kGradRows; i += n_pix) sg[i] = 0.f;
     __syncthreads();
-
-    for (int k = kChunk - 1; k >= 0; --k) {
-      const float* c = sc + k * kRows;
-      const float dx = px - c[0];
-      const float dy = py - c[1];
-      const float ca = c[2], cb = c[3], cc = c[4];
-      const float power = -0.5f * (ca * dx * dx + 2.0f * cb * dx * dy +
-                                   cc * dy * dy);
-      const float e = expf(fminf(power, 0.0f));
-      const float a_pre = c[5] * e;
-      const float a = fminf(0.999f, a_pre);
-      const bool keep = a >= kAlphaEps;
-      float g[kGradRows];
-#pragma unroll
-      for (int r = 0; r < kGradRows; ++r) g[r] = 0.f;
-      if (keep) {
-        const float log1m = log1pf(-a);
-        const float tr = in_img ? expf(total - suffix - log1m) : 0.0f;
-        const float w = a * tr;
-        const float s = v0 * c[6] + v1 * c[7] + v2 * c[8] + v3 * c[9] +
-                        v4 * c[10];
-        const float da =
-            a_pre < 0.999f ? tr * s - s_after / (1.0f - a) : 0.0f;
-        const float dpow = power < 0.0f ? da * a : 0.0f;
-        g[0] = dpow * (ca * dx + cb * dy);
-        g[1] = dpow * (cb * dx + cc * dy);
-        g[2] = dpow * (-0.5f * dx * dx);
-        g[3] = dpow * (-dx * dy);
-        g[4] = dpow * (-0.5f * dy * dy);
-        g[5] = da * e;
-        g[6] = v0 * w;
-        g[7] = v1 * w;
-        g[8] = v2 * w;
-        g[9] = v3 * w;
-        suffix += log1m;
-        s_after += w * s;
-      }
-      if (__any_sync(0xffffffffu, keep)) {
-#pragma unroll
-        for (int r = 0; r < kGradRows; ++r) {
-          float x = g[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            x += __shfl_down_sync(0xffffffffu, x, off);
-          }
-          if (lane == 0) atomicAdd(&sg[k * kGradRows + r], x);
-        }
-      }
-    }
+    backprop_chunk(sc, sg, px, py, in_img, total, vp, suffix, s_after, lane);
     __syncthreads();
-    for (int i = p; i < kChunk * kGradRows; i += n_pix) {
-      const int k = i / kGradRows;
-      const int r = i - k * kGradRows;
-      dcand[(chunk * kChunk + k) * kRows + r] = sg[i];
-    }
+    store_chunk_grads(dcand + row0, sg, p, n_pix);
     __syncthreads();
   }
 }

@@ -28,16 +28,14 @@
 // major transpose: that layout only served the TPU's DMA engine); candidates
 // whose alpha is below 1/255 skip the exp/log1p work; the tile-wide
 // termination vote is one __syncthreads_or per chunk, which is also the
-// barrier that protects the staging buffer.
+// barrier that protects the staging buffer. The per-chunk arithmetic is
+// splat_walk.cuh's, shared with K2-K4.
 
-#include <cuda_runtime.h>
+#include "splat_walk.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;
-constexpr int kRows = 16;
-constexpr float kTermEps = 1e-4f;
-constexpr float kAlphaEps = 1.0f / 255.0f;
+using namespace splat_walk;
 
 __global__ void splat_flat_fwd_kernel(const float* __restrict__ cand,
                                       const int* __restrict__ cs,
@@ -66,28 +64,11 @@ __global__ void splat_flat_fwd_kernel(const float* __restrict__ cand,
   int kc = 0;
   int live = __syncthreads_or(trans > kTermEps);
   while (kc < m && live) {
-    const float4* src = reinterpret_cast<const float4*>(
-        cand + static_cast<size_t>(c0 + kc) * kChunk * kRows);
-    float4* dst = reinterpret_cast<float4*>(sc);
-    for (int i = p; i < kChunk * kRows / 4; i += n_pix) dst[i] = src[i];
+    stage_chunk(sc, cand + static_cast<size_t>(c0 + kc) * kChunk * kRows, p,
+                n_pix);
     __syncthreads();
-
-    float cum = 0.f;  // sum log(1 - alpha) of this chunk's earlier rows
-    for (int k = 0; k < kChunk; ++k) {
-      const float* c = sc + k * kRows;
-      const float dx = px - c[0];
-      const float dy = py - c[1];
-      const float power =
-          -0.5f * (c[2] * dx * dx + 2.0f * c[3] * dx * dy + c[4] * dy * dy);
-      const float a = fminf(0.999f, c[5] * expf(fminf(power, 0.0f)));
-      if (a < kAlphaEps) continue;
-      const float w = a * expf(cum) * trans;
-      acc_r += w * c[6];
-      acc_g += w * c[7];
-      acc_b += w * c[8];
-      acc_z += w * c[9];
-      cum += log1pf(-a);
-    }
+    const float cum =
+        composite_chunk(sc, px, py, trans, acc_r, acc_g, acc_b, acc_z);
     trans *= expf(cum);
     tot += cum;
     ++kc;

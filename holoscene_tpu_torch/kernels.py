@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
-`nvcc` compiles every csrc/*.cu into one shared library with a plain C
-interface (build/libholoscene_kernels.so), loaded with ctypes: no PyTorch
-headers, so a cold build takes seconds. The build happens on first use and
-again whenever a source is newer than the library. Importing this module
+`nvcc` compiles every csrc/*.cu (one process per source, all started
+together) and links them into one shared library with a plain C interface
+(build/libholoscene_kernels.so), loaded with ctypes: no PyTorch headers, so
+a cold build takes seconds. The build happens on first use and again
+whenever a source is newer than the library. Importing this module
 builds nothing (the tests on machines without nvcc import every module).
 """
 
@@ -26,8 +27,7 @@ LIB = BUILD / "libholoscene_kernels.so"
 # versions; with contraction a candidate sitting at the 1/255 cut flips
 # between kernel and plain, moving the total log(1-alpha) by 3.9e-3.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +38,12 @@ _SIGNATURES = {
     # cand, cs, fwd, v, dcand, n_tiles, tiles_x, tile_size, img_w, img_h,
     # stream
     "splat_flat_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # cand, origins, counts, out, used, n_tiles, k_total, tile_size, img_w,
+    # img_h, stream
+    "splat_topk_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # cand, origins, used, fwd, v, dcand, n_tiles, k_total, tile_size,
+    # img_w, img_h, stream
+    "splat_topk_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -62,17 +68,33 @@ def build(force: bool = False) -> dict:
             >= max(p.stat().st_mtime for p in deps)):
         return {"seconds": 0.0, "log": ""}
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_name(f"{LIB.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objects = [BUILD / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = LIB.with_name(f"{LIB.name}.{tag}")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB)
-    return {"seconds": seconds, "log": proc.stdout + proc.stderr}
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({done.returncode}): "
+                               f"{' '.join(link)}\n{done.stdout}\n"
+                               f"{done.stderr}")
+        os.replace(tmp, LIB)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return {"seconds": time.perf_counter() - t0, "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)

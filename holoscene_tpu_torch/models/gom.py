@@ -17,7 +17,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from holoscene_tpu.utils.mesh import Mesh
 from holoscene_tpu_torch import as_tensor
 from holoscene_tpu_torch.ops.gaussians import (
     axis_angle_to_quat,
@@ -32,6 +31,7 @@ from holoscene_tpu_torch.ops.splat import render_gaussians
 from holoscene_tpu_torch.ops.splat_flat import build_flat_bins
 from holoscene_tpu_torch.ops.ssim import ssim as ssim_fn
 from holoscene_tpu_torch.ops.ssim import ssim_chw
+from holoscene_tpu_torch.utils.mesh import Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +50,13 @@ class GoMConfig:
     use_scale_regularization: bool = False
     max_gauss_ratio: float = 10.0
     tile_size: int = 16
-    # flat sorted-candidate pipeline (the only ported compositor): None or
-    # True = flat; False asks for the top-K path and raises
+    # top-K compositing depth per tile; 0 = picked at trainer start from the
+    # scene's p99 tile overlap and a saturation calibration (ops/splat.py)
+    max_per_tile: int = 512
+    # training renders: None or True = the flat sorted-candidate pipeline
+    # (exact, no K truncation; kernels K1/K2), False = the top-K pipeline
+    # (kernels K3/K4). Orthographic invisible-view renders and renders at
+    # another resolution than the dataset's are top-K either way.
     use_flat: bool | None = None
     # per-frame-VISIT refresh cadence of the cached binning plans
     rebin_every: int = 8
@@ -291,33 +296,44 @@ def gom_quats(params, static, cfg: GoMConfig) -> torch.Tensor:
     return quat_multiply(static["faces_quats"], quat_multiply(tilt, spin))
 
 
-def gom_opacities(params) -> torch.Tensor:
-    """Sigmoid opacity."""
-    return torch.sigmoid(params["opacities"][:, 0])
+def gom_opacities(params, visible_mask=None) -> torch.Tensor:
+    """Sigmoid opacity; gaussians outside `visible_mask` [N] bool are pinned
+    to sigmoid(logit(1e-6)) ~ 0 and receive no gradient."""
+    logits = params["opacities"][:, 0]
+    if visible_mask is not None:
+        off = float(np.log(1e-6 / (1.0 - 1e-6)))
+        logits = torch.where(visible_mask, logits,
+                             torch.full_like(logits, off))
+    return torch.sigmoid(logits)
 
 
 def render_gom(
     params, static, cfg: GoMConfig, pose_c2w, intrinsics,
     width: int, height: int, background: torch.Tensor,
+    visible_mask=None, ortho: bool = False,
     flat_plan=None, flat_bins: dict | None = None, chw: bool = False,
 ):
-    """Full GoM render: dict(rgb, depth, accumulation) plus the flat-path
-    telemetry. chw=True renders rgb as [3,H,W]."""
+    """Full GoM render: dict(rgb, depth, accumulation) plus the compositor's
+    telemetry. chw=True renders rgb as [3,H,W]; visible_mask [N] bool hides
+    every other gaussian; ortho=True renders an orthographic view
+    (intrinsics hold pixels per world unit). Without a flat_plan the render
+    goes through the top-K compositor at cfg.max_per_tile."""
     dev = static["tri"].device
     means = gom_means(params, static, cfg)
     colors = torch.cat(
         [params["features_dc"][:, None, :], params["features_rest"]], dim=1)
     out = render_gaussians(
         means, gom_quats(params, static, cfg), gom_scales(params, static, cfg),
-        gom_opacities(params), colors,
+        gom_opacities(params, visible_mask), colors,
         view_matrix(pose_c2w, dev), as_tensor(intrinsics, dev),
-        width, height, tile_size=cfg.tile_size, sh_degree=cfg.sh_degree,
-        background=background, flat_plan=flat_plan, flat_bins=flat_bins,
-        chw=chw,
+        width, height, tile_size=cfg.tile_size,
+        max_per_tile=cfg.max_per_tile, sh_degree=cfg.sh_degree,
+        background=background, ortho=ortho, flat_plan=flat_plan,
+        flat_bins=flat_bins, chw=chw,
     )
     res = {"rgb": torch.clamp(out["rgb"], 0.0, 1.0), "depth": out["depth"],
            "accumulation": out["alpha"]}
-    # flat-path telemetry MUST survive this layer: the trainer's saturation
+    # the walk telemetry MUST survive this layer: the trainer's saturation
     # trim feeds on used_chunks and re-plans on stale/overflow (a dropped
     # used_chunks once capped every tile at trim_slack chunks in the
     # reference — silently truncated renders, diverging training)

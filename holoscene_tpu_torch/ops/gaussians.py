@@ -100,6 +100,65 @@ def view_matrix(pose_c2w, device) -> torch.Tensor:
     return viewmat
 
 
+def covariance_3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[N,4],[N,3] -> [N,3,3] covariance R diag(s^2) R^T."""
+    m = quat_to_rotmat(quats) * scales[..., None, :]
+    return m @ m.transpose(-1, -2)
+
+
+def project_gaussians(
+    means: torch.Tensor,
+    cov3d: torch.Tensor,
+    viewmat: torch.Tensor,
+    intrinsics: torch.Tensor,
+    width: int,
+    height: int,
+    near: float = 0.01,
+    blur: float = 0.3,
+    ortho: bool = False,
+):
+    """EWA projection in matrix form (the counterpart's project_gaussians;
+    `ortho=True`: intrinsics hold pixels per world unit). Same returns as
+    project_gaussians_fused. Only `tile_overlap_counts` uses it, because the
+    counterpart's overlap probe does: the 3-sigma radius is a `ceil`, and the
+    fused form's different rounding could move a gaussian across it, so the
+    probe's integer counts are only equal when the formulation is."""
+    r = viewmat[:3, :3]
+    cam = means @ r.T + viewmat[:3, 3]
+    x, y, z = cam[:, 0], cam[:, 1], cam[:, 2]
+    zc = torch.clamp(z, min=near)
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    zero = torch.zeros_like(zc)
+    if ortho:
+        one = torch.ones_like(zc)
+        j = torch.stack([torch.stack([fx * one, zero, zero], -1),
+                         torch.stack([zero, fy * one, zero], -1)], dim=-2)
+        xy = torch.stack([fx * x + cx, fy * y + cy], dim=-1)
+    else:
+        lim_x = 1.3 * (width / (2 * fx))
+        lim_y = 1.3 * (height / (2 * fy))
+        tx = torch.clamp(x / zc, -lim_x, lim_x) * zc
+        ty = torch.clamp(y / zc, -lim_y, lim_y) * zc
+        j = torch.stack(
+            [torch.stack([fx / zc, zero, -fx * tx / zc ** 2], -1),
+             torch.stack([zero, fy / zc, -fy * ty / zc ** 2], -1)], dim=-2)
+        xy = torch.stack([fx * x / zc + cx, fy * y / zc + cy], dim=-1)
+    w_cov = torch.einsum("ij,njk,lk->nil", r, cov3d, r)
+    cov2d = torch.einsum("nij,njk,nlk->nil", j, w_cov, j)
+    cov2d = cov2d + blur * torch.eye(2, device=means.device)
+
+    a, b, c = cov2d[:, 0, 0], cov2d[:, 0, 1], cov2d[:, 1, 1]
+    det = torch.clamp(a * c - b * b, min=1e-12)
+    conic = torch.stack([c / det, -b / det, a / det], dim=-1)
+    mid = 0.5 * (a + c)
+    eig = mid + torch.sqrt(torch.clamp(mid * mid - det, min=1e-12))
+    radius = torch.ceil(3.0 * torch.sqrt(eig))
+    on_screen = ((xy[:, 0] + radius > 0) & (xy[:, 0] - radius < width)
+                 & (xy[:, 1] + radius > 0) & (xy[:, 1] - radius < height))
+    return xy, z, conic, radius, (z > near) & on_screen
+
+
 def project_gaussians_fused(
     means: torch.Tensor,
     quats: torch.Tensor,

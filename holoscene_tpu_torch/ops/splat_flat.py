@@ -274,17 +274,24 @@ def build_flat_bins(xy, depth, conic, opac, valid,
 # ---------------------------------------------------------------------------
 
 
-def _tile_pixels(n_tiles, tiles_x, tile_size, img_w, img_h, device):
-    """Pixel centres [T, P] and the in-image mask of every tile's pixels."""
-    t = torch.arange(n_tiles, device=device)[:, None]
-    pid = torch.arange(tile_size * tile_size, device=device)[None, :]
-    px = ((t % tiles_x) * tile_size + pid % tile_size).float() + 0.5
-    py = ((t // tiles_x) * tile_size + pid // tile_size).float() + 0.5
+def tile_pixels_at(origins, tile_size, img_w, img_h):
+    """Pixel centres [T, P] of tiles at pixel `origins` [T, 2] (float) and
+    their in-image mask (all true when img_w / img_h are 0)."""
+    pid = torch.arange(tile_size * tile_size, device=origins.device)[None, :]
+    px = origins[:, 0:1] + (pid % tile_size).float() + 0.5
+    py = origins[:, 1:2] + (pid // tile_size).float() + 0.5
     if img_w > 0 and img_h > 0:
         in_img = (px < float(img_w)) & (py < float(img_h))
     else:
         in_img = torch.ones_like(px, dtype=torch.bool)
     return px, py, in_img
+
+
+def _tile_pixels(n_tiles, tiles_x, tile_size, img_w, img_h, device):
+    """tile_pixels_at for the row-major tile grid."""
+    t = torch.arange(n_tiles, device=device)
+    origins = torch.stack([t % tiles_x, t // tiles_x], dim=-1) * tile_size
+    return tile_pixels_at(origins.float(), tile_size, img_w, img_h)
 
 
 def _chunk_alpha(px, py, c):
@@ -303,23 +310,22 @@ def _chunk_alpha(px, py, c):
     return dx, dy, power, e, a_pre, a, keep
 
 
-def flat_fwd_plain(cand, cs, cc, tiles_x: int, tile_size: int,
-                   img_w: int, img_h: int) -> torch.Tensor:
-    """Plain PyTorch K1 (the CPU path and the card's reference): per tile,
-    walk chunks [cs, cs+cc) front to back while the tile's max
-    transmittance exceeds TERM_EPS, all live tiles one chunk at a time.
-    Differentiable (autograd), which the tests use to check K2.
+def walk_fwd_plain(chunks, cs, cc, px, py, in_img) -> torch.Tensor:
+    """The forward tile walk in plain PyTorch, shared by K1's and K3's plain
+    versions (as csrc/splat_walk.cuh is by the kernels): tile t walks chunks
+    [cs[t], cs[t] + cc[t]) of `chunks` [n_chunks, 128, 16] front to back at
+    its pixel centres px/py [T, P] while its max transmittance exceeds
+    TERM_EPS, all live tiles one chunk at a time; pixels outside `in_img`
+    start at transmittance 0. Differentiable (autograd), which the tests use
+    to check the closed-form backward.
 
-    cand [c_max, 16] f32 rows; cs/cc [T] int32. Returns [T, P, 8]: rgb(3),
-    depth_acc, 1 - T, used_chunks, total log(1 - alpha), ended-live."""
+    Returns [T, P, 8]: rgb(3), depth_acc, 1 - T, used_chunks, total
+    log(1 - alpha), ended-live."""
     n_tiles = cs.shape[0]
-    chunks = cand.reshape(-1, CHUNK, CAND_ROWS)
-    px, py, in_img = _tile_pixels(n_tiles, tiles_x, tile_size, img_w, img_h,
-                                  cand.device)
     cs, cc = cs.long(), cc.long()
-    trans = in_img.to(cand.dtype)
-    acc = cand.new_zeros(n_tiles, px.shape[1], 4)
-    tot = cand.new_zeros(n_tiles, px.shape[1])
+    trans = in_img.to(chunks.dtype)
+    acc = chunks.new_zeros(n_tiles, px.shape[1], 4)
+    tot = chunks.new_zeros(n_tiles, px.shape[1])
     kc = torch.zeros_like(cc)
     max_m = int(cc.max()) if n_tiles else 0
     for j in range(max_m):
@@ -339,30 +345,26 @@ def flat_fwd_plain(cand, cs, cc, tiles_x: int, tile_size: int,
         tot = torch.where(act, tot + csum, tot)
         kc = kc + active.long()
     live = trans.amax(1) > TERM_EPS
-    ended = ((kc >= cc) & live).to(cand.dtype)
+    ended = ((kc >= cc) & live).to(chunks.dtype)
     bcast = torch.ones_like(tot)
     return torch.cat([
-        acc, (1.0 - trans)[..., None], (kc.to(cand.dtype)[:, None] * bcast)
+        acc, (1.0 - trans)[..., None], (kc.to(chunks.dtype)[:, None] * bcast)
         [..., None], tot[..., None], (ended[:, None] * bcast)[..., None],
     ], dim=-1)
 
 
-def flat_bwd_plain(cand, cs, fwd_out, v, tiles_x: int, tile_size: int,
-                   img_w: int, img_h: int) -> torch.Tensor:
-    """Plain PyTorch K2 in closed form (not autograd): reverse walk over
-    the `used` chunks of each tile (fwd_out[:, 0, 5]) with
+def walk_bwd_plain(chunks, cs, used, total, v, px, py, in_img):
+    """The reverse tile walk in closed form (not autograd), shared by K2's
+    and K4's plain versions: tile t walks its `used[t]` chunks from the last
+    back to cs[t] with
       log T_k = total - sum_{r >= k} log(1 - a_r)   (no division),
       dL/da_k = T_k s_k - (sum_{r > k} w_r s_r) / (1 - a_k),
-    s_k = v . payload_k. Returns dcand [c_max, 16]; rows never walked and
-    columns 10-15 are zero."""
+    s_k = v . payload_k; total [T, P] is the forward's log-transmittance
+    over the walked chunks, v [T, P, 8] the cotangent. Returns d chunks
+    [n_chunks, 128, 16]; chunks never walked and columns 10-15 are zero."""
     n_tiles = cs.shape[0]
-    chunks = cand.reshape(-1, CHUNK, CAND_ROWS)
     dchunks = torch.zeros_like(chunks)
-    px, py, in_img = _tile_pixels(n_tiles, tiles_x, tile_size, img_w, img_h,
-                                  cand.device)
-    cs = cs.long()
-    used = fwd_out[:, 0, 5].long()
-    total = fwd_out[..., 6]
+    cs, used = cs.long(), used.long()
     suffix = torch.zeros_like(total)      # sum log(1-a) of later chunks
     s_after = torch.zeros_like(total)     # sum w s of later chunks
     max_used = int(used.max()) if n_tiles else 0
@@ -398,6 +400,32 @@ def flat_bwd_plain(cand, cs, fwd_out, v, tiles_x: int, tile_size: int,
         act = active[:, None]
         suffix = torch.where(act, suffix + log1m.sum(-1), suffix)
         s_after = torch.where(act, s_after + ws.sum(-1), s_after)
+    return dchunks
+
+
+def flat_fwd_plain(cand, cs, cc, tiles_x: int, tile_size: int,
+                   img_w: int, img_h: int) -> torch.Tensor:
+    """Plain PyTorch K1 (the CPU path and the card's reference):
+    walk_fwd_plain over the flat chunk ranges at the tiles' own pixels.
+
+    cand [c_max, 16] f32 rows; cs/cc [T] int32. Returns [T, P, 8]: rgb(3),
+    depth_acc, 1 - T, used_chunks, total log(1 - alpha), ended-live."""
+    px, py, in_img = _tile_pixels(cs.shape[0], tiles_x, tile_size, img_w,
+                                  img_h, cand.device)
+    return walk_fwd_plain(cand.reshape(-1, CHUNK, CAND_ROWS), cs, cc, px, py,
+                          in_img)
+
+
+def flat_bwd_plain(cand, cs, fwd_out, v, tiles_x: int, tile_size: int,
+                   img_w: int, img_h: int) -> torch.Tensor:
+    """Plain PyTorch K2: walk_bwd_plain over the `used` chunks of each tile
+    (fwd_out[:, 0, 5]) from K1's stored total (fwd_out[..., 6]). Returns
+    dcand [c_max, 16]; rows never walked and columns 10-15 are zero."""
+    px, py, in_img = _tile_pixels(cs.shape[0], tiles_x, tile_size, img_w,
+                                  img_h, cand.device)
+    dchunks = walk_bwd_plain(
+        cand.reshape(-1, CHUNK, CAND_ROWS), cs, fwd_out[:, 0, 5],
+        fwd_out[..., 6], v, px, py, in_img)
     return dchunks.reshape(cand.shape)
 
 

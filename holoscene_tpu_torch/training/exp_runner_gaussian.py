@@ -17,12 +17,12 @@ import argparse
 import glob
 import os
 
-from holoscene_tpu.config import ConfigFactory
-from holoscene_tpu.datasets.ns_dataset import NSDataset
-from holoscene_tpu.utils.mesh import read_obj, read_ply
+from holoscene_tpu_torch.config import ConfigFactory
+from holoscene_tpu_torch.datasets.ns_dataset import NSDataset
 from holoscene_tpu_torch.models.gom import GoMConfig
 from holoscene_tpu_torch.training.checkpoints import latest_timestamp
 from holoscene_tpu_torch.training.stage4 import Stage4Runner
+from holoscene_tpu_torch.utils.mesh import read_obj, read_ply
 
 
 def _sorted_by_index(paths):
@@ -38,6 +38,11 @@ def main(argv=None):
     parser.add_argument("--max_niters", type=int, default=None)
     parser.add_argument("--area_to_subdivide", type=float, default=1e-5)
     parser.add_argument("--quiet", action="store_true")
+    parser.add_argument(
+        "--max_per_tile", type=int, default=0,
+        help="top-K compositing depth per tile; 0 = auto-pick (p99 tile "
+             "overlap + saturation calibration; 256 for the invisible-view "
+             "renders of the flat trainer)")
     parser.add_argument("--log_every", type=int, default=20,
                         help="record (and print) the metrics every N steps")
     parser.add_argument(
@@ -81,7 +86,8 @@ def main(argv=None):
 
     runner = Stage4Runner(
         meshes, dataset,
-        cfg=GoMConfig(rebin_every=args.rebin_every,
+        cfg=GoMConfig(max_per_tile=args.max_per_tile,
+                      rebin_every=args.rebin_every,
                       rebin_drift_px=args.rebin_drift_px),
         area_to_subdivide=args.area_to_subdivide,
         max_total_iters=args.max_niters,

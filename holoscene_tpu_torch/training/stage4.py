@@ -1,10 +1,17 @@
 """Stage-4 runner: Gaussian-on-Mesh appearance training (port of
-holoscene_tpu/training/stage4.py, flat-pipeline path).
+holoscene_tpu/training/stage4.py).
 
-Each step: GoM reparameterisation -> EWA projection -> cached flat binning
--> K1 forward walk -> image epilogue -> gom_loss with SSIM -> K2 backward
-walk -> payload-gather transpose -> Adam. The mesh mask/depth of every
-training frame is rasterized once at init (the mesh is frozen in Stage 4).
+Each step: GoM reparameterisation -> EWA projection -> compositing -> image
+epilogue -> gom_loss with SSIM -> backward -> payload-gather transpose ->
+Adam. Compositing is the flat pipeline by default (cached binning, K1
+forward walk, K2 backward walk) and the top-K pipeline with
+GoMConfig(use_flat=False) (per-tile selection, K3 forward, K4 backward; K
+from the config or auto-calibrated at start). With Stage-2 generated-view
+packs loaded (`load_vis_info`), every iteration adds one invisible-view
+step: one object's gaussians alone, rendered orthographically through the
+top-K pipeline against the pack's image and mask. The mesh mask/depth of
+every training frame is rasterized once at init (the mesh is frozen in
+Stage 4).
 
 TF32 is switched off for the process when the runner is built: cuDNN would
 otherwise run SSIM's float32 blur convolutions in TF32 (about three decimal
@@ -14,32 +21,41 @@ the tests compute.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import pickle
 import time
-import warnings
 
 import numpy as np
 import torch
 
-from holoscene_tpu.utils.eval_rgb import psnr as psnr_np
-from holoscene_tpu.utils.eval_rgb import ssim as ssim_np
-from holoscene_tpu.utils.mesh import Mesh
 from holoscene_tpu_torch import as_tensor, resolve_device
+from holoscene_tpu_torch.export.gs_usdz import export_from_gaussian_dict
 from holoscene_tpu_torch.models.gom import (
     GoMConfig,
     compose_for_export,
     gom_flat_bins,
     gom_loss,
+    gom_means,
     gom_opacities,
     gom_project,
+    gom_quats,
     gom_scales,
     init_gom_params,
     render_gom,
     seed_gaussians_from_meshes,
     write_gaussian_ply,
 )
+from holoscene_tpu_torch.ops.gaussians import view_matrix
 from holoscene_tpu_torch.ops.rasterizer import rasterize_mesh_list
+from holoscene_tpu_torch.ops.splat import (
+    auto_max_per_tile,
+    calibrate_max_per_tile,
+    tile_overlap_counts,
+)
 from holoscene_tpu_torch.ops.splat_flat import FlatPlan, plan_flat, plan_trimmed
+from holoscene_tpu_torch.utils.eval_rgb import eval_rgb
+from holoscene_tpu_torch.utils.mesh import Mesh
 
 GS_LRS = {
     "means_2d": 1.6e-4,
@@ -65,16 +81,6 @@ def make_gs_optimizer(params: dict, total_iters: int, lr_scale: float = 1.0):
     return opt, torch.optim.lr_scheduler.ExponentialLR(opt, gamma=decay)
 
 
-def _eval_rgb(pred: np.ndarray, gt: np.ndarray) -> dict:
-    """PSNR/SSIM (numpy, skimage-compatible); LPIPS is reported as NaN with
-    a warning, which Python's default filter shows once per process (no
-    AlexNet backbone is available to the port)."""
-    warnings.warn("LPIPS unavailable: reporting lpips=NaN in eval metrics",
-                  stacklevel=2)
-    return {"psnr": psnr_np(pred, gt), "ssim": ssim_np(pred, gt),
-            "lpips": float("nan")}
-
-
 class Stage4Runner:
     def __init__(
         self,
@@ -89,10 +95,6 @@ class Stage4Runner:
         quiet: bool = False,
         device: str | torch.device = "cuda",
     ):
-        if cfg.use_flat is False:
-            raise NotImplementedError(
-                "the top-K splat path (Pallas kernels K3/K4) is not ported "
-                "yet; use_flat must be None or True (see ROADMAP.md)")
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,11 +111,22 @@ class Stage4Runner:
         self.instance_ranges = self.static["instance_ranges"]
         self.params = init_gom_params(self.static, cfg)
 
+        self.use_flat = cfg.use_flat is not False
+        self.k_geom = None   # p99 overlap bound, set by the auto-K probe
         self.flat_plan = None
+        self.flat_plan_full = None
         self._flat_margin = 1.3
         self._bins_cache: dict[int, dict] = {}
         self._bins_age: dict[int, int] = {}
-        self._init_flat_plan()
+        if self.use_flat:
+            if cfg.max_per_tile <= 0:
+                # the flat path has no K, but the orthographic invisible-
+                # view renders still go through the top-K compositor
+                self.cfg = cfg = dataclasses.replace(cfg, max_per_tile=256)
+            self._init_flat_plan()
+        elif cfg.max_per_tile <= 0:
+            self.cfg = cfg = dataclasses.replace(
+                cfg, max_per_tile=self._auto_max_per_tile())
 
         n_iters = max_total_iters or 200 * len(meshes)
         self.max_total_iters = n_iters
@@ -134,10 +147,41 @@ class Stage4Runner:
         self._trim_active = False
         self.stale_steps = 0
         self.rebin_count = 0
+        self.vis_info_list: list[list[dict]] = [[] for _ in meshes]
+        self.invis_steps = 0
         for f in range(self.dataset.n_images):
             self._frame_mesh_raster(f)
 
-    # -- flat plan ----------------------------------------------------------
+    # -- compositing depth / flat plan --------------------------------------
+
+    @torch.no_grad()
+    def _auto_max_per_tile(self) -> int:
+        """Top-K depth for this scene: the p99 tile overlap of frame 0
+        bounds the search, the saturation calibration (render at K vs 2K
+        until the image stops changing) picks the depth; compositing cost
+        is linear in K and deep tiles are mostly saturated."""
+        cfg = self.cfg
+        h, w = self.dataset.img_res
+        pose, intr = self._pose_intr(0)
+        counts = tile_overlap_counts(
+            gom_means(self.params, self.static, cfg),
+            gom_quats(self.params, self.static, cfg),
+            gom_scales(self.params, self.static, cfg),
+            view_matrix(pose, self.device), intr, int(w), int(h),
+            tile_size=cfg.tile_size)
+        self.k_geom = auto_max_per_tile(counts)
+        bg = torch.zeros(3, device=self.device)
+
+        def render_k(k):
+            kcfg = dataclasses.replace(cfg, max_per_tile=int(k))
+            return render_gom(self.params, self.static, kcfg, pose, intr,
+                              int(w), int(h), bg)["rgb"]
+
+        k = calibrate_max_per_tile(render_k, hi=self.k_geom)
+        if not self.quiet:
+            print(f"[stage4] auto max_per_tile={k} (saturation-calibrated "
+                  f"under the p99 overlap bound {self.k_geom})")
+        return k
 
     def _pose_intr(self, frame_idx: int, split_poses=None):
         poses = self.dataset.pose_all if split_poses is None else split_poses
@@ -238,8 +282,9 @@ class Stage4Runner:
 
     def _step(self, pose, intr, image, acm, mesh_depth, bins, bg):
         """One Adam step on one frame. image arrives channels-major
-        [3, H, W]; bg [3] is the random background. Returns (metrics
-        dict of 0-dim tensors, used_chunks [T], stale [], drift [])."""
+        [3, H, W]; bg [3] is the random background; bins is None on the
+        top-K path. Returns (metrics dict of 0-dim tensors, used_chunks
+        [T], stale [], drift [])."""
         cfg = self.cfg
         h, w = image.shape[1], image.shape[2]
         out = render_gom(self.params, self.static, cfg, pose, intr, w, h, bg,
@@ -266,9 +311,35 @@ class Stage4Runner:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         metrics["psnr"] = psnr
-        # flat-path walk telemetry feeds the trim; required, never defaulted
-        drift = out.get("xy_drift", torch.zeros((), device=self.device))
-        return metrics, out["used_chunks"], out["stale"], drift
+        # used_chunks feeds the flat trim: required, never defaulted; the
+        # stale flag and the drift exist on the flat path only
+        zero = torch.zeros((), device=self.device)
+        return (metrics, out["used_chunks"], out.get("stale", zero.int()),
+                out.get("xy_drift", zero))
+
+    def _invis_step(self, pose, half_extent: float, image, mask,
+                    visible_mask, bg):
+        """Invisible-view supervision: one Adam step on ONE object's
+        gaussians (visible_mask) rendered from a generated orthographic
+        view through the top-K compositor. image [H, W, 3], mask [H, W],
+        bg [3]. Returns the l1 (0-dim tensor)."""
+        h, w = image.shape[0], image.shape[1]
+        intr = torch.tensor(
+            [[w / (2 * half_extent), 0.0, w / 2.0],
+             [0.0, h / (2 * half_extent), h / 2.0],
+             [0.0, 0.0, 1.0]], device=self.device)
+        out = render_gom(self.params, self.static, self.cfg, pose, intr, w,
+                         h, bg, visible_mask=visible_mask, ortho=True)
+        m = mask[..., None]
+        gt = image * m + (1 - m) * bg
+        l1 = torch.mean(torch.abs(out["rgb"] - gt))
+        acm = torch.mean(torch.abs(out["accumulation"] - mask))
+        self.optimizer.zero_grad(set_to_none=True)
+        (l1 + acm).backward()
+        self.optimizer.step()
+        self.scheduler.step()
+        self.invis_steps += 1
+        return l1.detach()
 
     def _frame_mesh_raster(self, frame_idx: int, max_faces: int = 150_000):
         """Cached mesh mask + depth of a training frame (meshes above the
@@ -293,20 +364,30 @@ class Stage4Runner:
         return self._mesh_cache[frame_idx]
 
     def load_vis_info(self, plots_dir: str):
-        """Stage-2 generated-view packs drive the invisible-view step, which
-        needs the top-K orthographic renderer (K3/K4): not ported yet."""
+        """Attach Stage-2 generated-view packs (bg_info.pkl for mesh 0,
+        vis_info_{i}.pkl for mesh i; each a pickled list of dicts with
+        pose, half_extent, rgb, mask) for invisible-view supervision. The
+        packs are this pipeline's own files: unpickle nothing from
+        elsewhere."""
         for i in range(len(self.meshes)):
             name = "bg_info.pkl" if i == 0 else f"vis_info_{i}.pkl"
-            if os.path.exists(os.path.join(plots_dir, name)):
-                raise NotImplementedError(
-                    f"{name}: the invisible-view step needs the top-K "
-                    "orthographic renderer, not ported yet (see ROADMAP.md)")
+            p = os.path.join(plots_dir, name)
+            if os.path.exists(p):
+                with open(p, "rb") as f:
+                    self.vis_info_list[i] = pickle.load(f)
+
+    def _visible_mask(self, obj_i: int) -> torch.Tensor:
+        lo, hi = self.instance_ranges[obj_i]
+        idx = torch.arange(self.static["num_gaussians"], device=self.device)
+        return (idx >= lo) & (idx < hi)
 
     def run(self, n_iters: int | None = None, log_every: int = 20):
         end = self.iter_step + (n_iters
                                 or self.max_total_iters - self.iter_step)
         h, w = self.dataset.img_res
         t0 = time.perf_counter()
+        vis_objs = [i for i, v in enumerate(self.vis_info_list) if v]
+        invis_l1 = None
         pending_stale = None  # (frame_idx, device scalar), read next iter
         pending_drift = None
         for it in range(self.iter_step, end):
@@ -331,18 +412,36 @@ class Stage4Runner:
                 pending_drift = None
                 if float(dv) > self.cfg.rebin_drift_px:
                     self._bins_cache.pop(df, None)
-            bins = self._get_bins(frame_idx, pose, intr)
+            bins = (self._get_bins(frame_idx, pose, intr)
+                    if self.use_flat else None)
             bg = torch.rand(3, generator=self.generator, device=self.device)
             metrics, used, stale, drift = self._step(
                 pose, intr, image, acm, mesh_depth, bins, bg)
-            self._used_cache[frame_idx] = used
-            if self._trim_active:
-                pending_stale = (frame_idx, stale)
-            if self.cfg.rebin_drift_px > 0:
-                pending_drift = (frame_idx, drift)
-            self._maybe_trim_plan()
+            if self.use_flat:
+                self._used_cache[frame_idx] = used
+                if self._trim_active:
+                    pending_stale = (frame_idx, stale)
+                if self.cfg.rebin_drift_px > 0:
+                    pending_drift = (frame_idx, drift)
+                self._maybe_trim_plan()
+            if vis_objs:
+                # one random object's generated view per iteration
+                obj_i = int(self.rng.choice(vis_objs))
+                packs = self.vis_info_list[obj_i]
+                pack = packs[int(self.rng.integers(len(packs)))]
+                if "half_extent" in pack and "rgb" in pack:
+                    bg = torch.rand(3, generator=self.generator,
+                                    device=self.device)
+                    invis_l1 = self._invis_step(
+                        as_tensor(pack["pose"], self.device),
+                        float(pack["half_extent"]),
+                        as_tensor(pack["rgb"], self.device),
+                        as_tensor(pack["mask"], self.device),
+                        self._visible_mask(obj_i), bg)
             if it % log_every == 0 or it == end - 1:
                 m = {k: float(v) for k, v in metrics.items()}
+                if invis_l1 is not None:
+                    m["invis_l1"] = float(invis_l1)
                 elapsed = time.perf_counter() - t0
                 m["iter"] = it
                 m["elapsed_s"] = elapsed   # since run() began, host clock
@@ -362,21 +461,29 @@ class Stage4Runner:
         return self.history
 
     @torch.no_grad()
+    def render_eval(self, pose, intr, h: int, w: int) -> dict:
+        """Render on a zero background. At the dataset's resolution on the
+        flat path the render bins fresh (exact, no staleness) under the FULL
+        plan: a trimmed capacity without per-frame used counts would
+        overflow. Any other resolution, and the top-K trainer, go through
+        the top-K compositor."""
+        at_ds = (h, w) == tuple(self.dataset.img_res)
+        return render_gom(
+            self.params, self.static, self.cfg, pose, intr, w, h,
+            torch.zeros(3, device=self.device),
+            flat_plan=self.flat_plan_full if at_ds else None)
+
     def eval_split(self, split: str = "test", max_frames: int = 8):
-        """PSNR/SSIM/LPIPS over a split; renders bin fresh (exact) under the
-        full plan on a zero background."""
+        """PSNR/SSIM/LPIPS over a split (LPIPS is NaN, with a warning)."""
         src = self.dataset.test if split == "test" else None
         poses = src["pose_all"] if src else self.dataset.pose_all
         gts = src["rgb_images"] if src else self.dataset.rgb_images
         h, w = self.dataset.img_res
-        bg = torch.zeros(3, device=self.device)
         metrics = []
         for i in range(min(len(poses), max_frames)):
-            pose, intr = self._pose_intr(i, poses)
-            out = render_gom(self.params, self.static, self.cfg, pose, intr,
-                             w, h, bg, flat_plan=self.flat_plan_full)
-            metrics.append(_eval_rgb(out["rgb"].cpu().numpy(),
-                                     gts[i].reshape(h, w, 3)))
+            out = self.render_eval(*self._pose_intr(i, poses), h, w)
+            metrics.append(eval_rgb(out["rgb"].cpu().numpy(),
+                                    gts[i].reshape(h, w, 3)))
         return {k: float(np.mean([m[k] for m in metrics]))
                 for k in metrics[0]}
 
@@ -393,8 +500,6 @@ class Stage4Runner:
         g_all = compose_for_export(self.params, self.static, self.cfg)
         p_all = os.path.join(self.out_dir, "gauss_scene.ply")
         write_gaussian_ply(p_all, g_all)
-        from holoscene_tpu.export.gs_usdz import export_from_gaussian_dict
-
         usdz = os.path.join(self.out_dir, "gauss_scene.usdz")
         export_from_gaussian_dict(usdz, g_all, sh_degree=self.cfg.sh_degree)
         return paths + [p_all, usdz]

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1/K2 (holoscene_tpu_torch/csrc) against
+"""The hand-written CUDA kernels K1-K4 (holoscene_tpu_torch/csrc) against
 their plain PyTorch versions, on the card. CUDA kernels have no CPU mode, so
 every test here needs an NVIDIA GPU with nvcc and skips without one; run
 them on the card with
@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from holoscene_tpu_torch.ops import gaussians as tg
+from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_flat as tflat
+from holoscene_tpu_torch.ops import splat_topk as ttopk
 
 pytestmark = pytest.mark.cuda
 
@@ -105,4 +107,89 @@ def test_composite_autograd_on_card_matches_cpu(cuda):
         (r.square().mean() + a.mean() + 0.01 * d.mean()).backward()
         grads.append([x.grad.cpu().numpy() for x in xs if x.requires_grad])
     for gc, gk in zip(*grads):
+        np.testing.assert_allclose(gk, gc, atol=BWD_ATOL, rtol=BWD_RTOL)
+
+
+def _topk_lists(n, res, k, seed, wall=False):
+    """Per-tile top-k lists (CPU tensors): gated cand [T,K,16] with K padded
+    to 128, origins [T,2], counts [T] int32."""
+    xy, depth, conic, opac, valid, rgb = _projected(n, res, seed, wall)
+    # 3-sigma radius from the conic (the inverse 2D covariance)
+    det = conic[:, 0] * conic[:, 2] - conic[:, 1] ** 2
+    mid = 0.5 * (conic[:, 0] + conic[:, 2]) / det
+    radius = torch.ceil(3.0 * torch.sqrt(
+        mid + torch.sqrt(torch.clamp(mid * mid - 1.0 / det, min=0.0))))
+    top_idx, live, origins = tsplat.select_topk(xy, depth, radius, valid, res,
+                                                res, 16, k)
+    cand = tflat.gather_payload(xy, depth, conic, opac, rgb,
+                                top_idx.reshape(-1)).reshape(-1, k, 16)
+    return (ttopk.gate_and_pad(cand, live.float()), origins,
+            live.sum(1).to(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["random64", "random40", "saturated",
+                                  "count0"])
+def test_topk_kernels_match_plain(cuda, case):
+    res, n, k, seed, wall = {"random64": (64, 800, 256, 0, False),
+                             "random40": (40, 400, 200, 1, False),
+                             "saturated": (48, 1400, 512, 2, True),
+                             "count0": (48, 300, 128, 3, False)}[case]
+    cand, origins, counts = _topk_lists(n, res, k, seed, wall)
+    if case == "count0":
+        counts[0] = 0
+    ref, ref_used = ttopk.composite_fwd(cand, origins, counts, 16, res, res)
+    n_fwd = ttopk.composite_fwd.launches
+    out, used = ttopk.composite_fwd(cand.to(cuda), origins.to(cuda),
+                                    counts.to(cuda), 16, res, res)
+    torch.cuda.synchronize()
+    assert ttopk.composite_fwd.launches == n_fwd + 1
+    np.testing.assert_array_equal(used.cpu().numpy(), ref_used.numpy())
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=FWD_ATOL)
+    if wall:
+        assert (ref_used < -(-counts // 128)).any()
+    if case == "count0":
+        assert int(used[0]) == 0 and not out[0, :, :5].any()
+
+    v = torch.as_tensor(np.random.default_rng(seed).normal(size=ref.shape),
+                        dtype=torch.float32)
+    v[..., 5:] = 0.0
+    dref = ttopk.composite_bwd(cand, origins, ref_used, ref, v, 16, res, res)
+    n_bwd = ttopk.composite_bwd.launches
+    dker = ttopk.composite_bwd(cand.to(cuda), origins.to(cuda),
+                               ref_used.to(cuda), ref.to(cuda), v.to(cuda),
+                               16, res, res)
+    torch.cuda.synchronize()
+    assert ttopk.composite_bwd.launches == n_bwd + 1
+    np.testing.assert_allclose(dker.cpu().numpy(), dref.numpy(),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    assert not dker.cpu()[cand[..., 5] == 0].any()   # dead slots: exact 0
+
+
+@pytest.mark.parametrize("ortho", [False, True])
+def test_topk_render_autograd_on_card_matches_cpu(cuda, ortho):
+    """render_gaussians without a flat plan, values and gradients, card
+    against CPU. The gather's transpose is an index_add: atomics on the
+    card, so its sums come in no fixed order (covered by the tolerance)."""
+    rng = np.random.default_rng(11)
+    n, res = 500, 48
+    host = [np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n),
+                      rng.uniform(1.2, 3.0, n)], -1),
+            rng.normal(size=(n, 4)), rng.uniform(0.02, 0.08, (n, 3)),
+            rng.uniform(0.2, 0.95, n), rng.uniform(0, 1, (n, 3))]
+    f = res * (0.4 if ortho else 0.8)
+    results = []
+    for dev in ("cpu", cuda):
+        xs = [torch.tensor(a, dtype=torch.float32, device=dev,
+                           requires_grad=True) for a in host]
+        intr = torch.tensor([[f, 0, res / 2], [0, f, res / 2], [0, 0, 1.0]],
+                            device=dev)
+        out = tsplat.render_gaussians(
+            *xs, torch.eye(4, device=dev), intr, res, res, max_per_tile=200,
+            ortho=ortho)
+        (out["rgb"].square().mean() + out["alpha"].mean()
+         + 0.01 * out["depth"].mean()).backward()
+        results.append((out["rgb"].detach().cpu().numpy(),
+                        [x.grad.cpu().numpy() for x in xs]))
+    np.testing.assert_allclose(results[1][0], results[0][0], atol=FWD_ATOL)
+    for gc, gk in zip(results[0][1], results[1][1]):
         np.testing.assert_allclose(gk, gc, atol=BWD_ATOL, rtol=BWD_RTOL)

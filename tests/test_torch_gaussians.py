@@ -12,6 +12,7 @@ from holoscene_tpu.ops import gaussians as jg
 from holoscene_tpu.ops import ssim as jssim
 from holoscene_tpu_torch.ops import gaussians as tg
 from holoscene_tpu_torch.ops import ssim as tssim
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 ATOL = 1e-5
 

@@ -1,7 +1,9 @@
 """Gaussian-on-Mesh model of the port against holoscene_tpu.models.gom:
 seeding and init (directly and through convert.py), the reparameterised
-means/scales/quats/opacities, render_gom (chw, flat path), gom_loss, the
-flat telemetry keys render_gom must forward, and the PLY round trip."""
+means/scales/quats/opacities (with a visible mask too), render_gom (chw,
+flat path; top-K path with a visible mask, perspective and orthographic),
+gom_loss, the flat telemetry keys render_gom must forward, and the PLY round
+trip."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from holoscene_tpu_torch import convert
 from holoscene_tpu_torch.datasets.synthetic import scene_meshes
 from holoscene_tpu_torch.models import gom as tgom
 from holoscene_tpu_torch.ops import splat_flat as tflat
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 AREA = 0.05
 FWD_ATOL = 2e-4       # K1's parity tolerance (tests/test_torch_splat_flat.py)
@@ -146,6 +149,63 @@ def test_render_gom_and_loss_match_jax(setup):
     for k in jl:
         np.testing.assert_allclose(tl[k].item(), float(jl[k]),
                                    rtol=LOSS_RTOL, atol=1e-7, err_msg=k)
+
+
+def test_opacities_with_visible_mask_match_jax(setup):
+    _ds, _m, _jcfg, _tcfg, jstatic, jparams = setup
+    tparams = convert.gom_params_from_jax(jparams)
+    lo, hi = jstatic["instance_ranges"][1]
+    mask = np.zeros(jstatic["num_gaussians"], bool)
+    mask[lo:hi] = True
+    got = tgom.gom_opacities(tparams, torch.as_tensor(mask))
+    np.testing.assert_allclose(
+        _np(got), np.asarray(jgom.gom_opacities(jparams, jnp.asarray(mask))),
+        atol=1e-7)
+    assert float(got.detach()[~torch.as_tensor(mask)].max()) < 2e-6
+    got.sum().backward()
+    grad = _np(tparams["opacities"].grad)[:, 0]
+    assert not grad[~mask].any() and grad[mask].all()
+
+
+@pytest.mark.parametrize("ortho", [False, True])
+def test_render_gom_topk_visible_mask_matches_jax(setup, ortho):
+    """The top-K path of render_gom (no flat plan) on one object's
+    gaussians, as the invisible-view step renders it."""
+    import dataclasses
+
+    ds, _m, jcfg, tcfg, jstatic, jparams = setup
+    jcfg = dataclasses.replace(jcfg, max_per_tile=200, use_pallas=True)
+    tcfg = dataclasses.replace(tcfg, max_per_tile=200)
+    tstatic = convert.gom_static_from_jax(jstatic)
+    tparams = convert.gom_params_from_jax(jparams)
+    h, w = ds.img_res
+    pose = ds.pose_all[1]
+    if ortho:
+        half = 0.6
+        intr = np.array([[w / (2 * half), 0, w / 2], [0, h / (2 * half), h / 2],
+                         [0, 0, 1]], np.float32)
+    else:
+        intr = np.asarray(ds.intrinsics[:3, :3], np.float32)
+    lo, hi = jstatic["instance_ranges"][1]
+    mask = np.zeros(jstatic["num_gaussians"], bool)
+    mask[lo:hi] = True
+    bg = np.array([0.2, 0.5, 0.7], np.float32)
+    jout = jgom.render_gom(jparams, jstatic, jcfg, jnp.asarray(pose),
+                           jnp.asarray(intr), w, h, jnp.asarray(bg),
+                           visible_mask=jnp.asarray(mask), ortho=ortho)
+    tout = tgom.render_gom(tparams, tstatic, tcfg, pose, intr, w, h,
+                           torch.as_tensor(bg),
+                           visible_mask=torch.as_tensor(mask), ortho=ortho)
+    assert tout["rgb"].shape == (h, w, 3)
+    for k in ("rgb", "accumulation"):
+        np.testing.assert_allclose(_np(tout[k]), np.asarray(jout[k]),
+                                   atol=FWD_ATOL, err_msg=k)
+    cover = np.asarray(jout["accumulation"]) > 0.1
+    assert 0.02 < cover.mean() < 0.9      # the object, not the room
+    np.testing.assert_allclose(_np(tout["depth"])[cover],
+                               np.asarray(jout["depth"])[cover],
+                               atol=FWD_ATOL, rtol=1e-4)
+    assert "used_chunks" in tout and "stale" not in tout
 
 
 def test_ply_round_trip(setup, tmp_path):

@@ -1,8 +1,11 @@
-"""The port imports torch and never jax: importing every module of
-holoscene_tpu_torch in a fresh interpreter leaves jax out of sys.modules
-(checked in a subprocess, since the test session's conftest imports jax)."""
+"""The port imports torch, never jax and nothing of the JAX package:
+importing every module of holoscene_tpu_torch in a fresh interpreter leaves
+jax and holoscene_tpu out of sys.modules (checked in a subprocess, since the
+test run's conftest imports jax), and no source line of the port or of
+chip_smoke.py imports either."""
 
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,10 +23,13 @@ def _port_modules():
 
 def test_port_lists_its_slice_modules():
     mods = set(_port_modules())
-    for name in ("convert", "kernels", "ops.gaussians", "ops.ssim",
-                 "ops.splat_flat", "ops.splat", "ops.rasterizer",
-                 "models.gom", "training.stage4", "training.checkpoints",
-                 "training.exp_runner_gaussian"):
+    for name in ("convert", "kernels", "config", "ops.gaussians", "ops.ssim",
+                 "ops.splat_flat", "ops.splat_topk", "ops.splat",
+                 "ops.rasterizer", "models.gom", "training.stage4",
+                 "training.checkpoints", "training.exp_runner_gaussian",
+                 "training.gs_render", "datasets.synthetic",
+                 "datasets.ns_dataset", "datasets.gs_datasets", "utils.mesh",
+                 "utils.mc", "utils.eval_rgb", "export.gs_usdz"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 
@@ -32,7 +38,6 @@ def test_kernel_signatures_match_sources():
     declares, pointers (and the stream) as void*, ints as int: a mismatch
     is a crash on the card that no CPU test would otherwise see."""
     import ctypes
-    import re
 
     from holoscene_tpu_torch import kernels
 
@@ -51,8 +56,9 @@ def test_port_imports_no_jax():
         f"mods = {_port_modules()!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith(('jax.', 'jaxlib', 'flax', 'optax')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'holoscene_tpu')"
+        " or k.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
+        "'holoscene_tpu.')))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -60,3 +66,18 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(_port_modules())
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    """Also the imports inside functions, which importing a module does not
+    run."""
+    pat = re.compile(
+        r"^\s*(from|import)\s+(holoscene_tpu|jax|jaxlib|flax|optax)([.\s]|$)")
+    files = sorted((REPO / "holoscene_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pat.match(line)]
+    assert not bad, bad

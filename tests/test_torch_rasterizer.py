@@ -12,6 +12,7 @@ from holoscene_tpu.ops.rasterizer import rasterize_mesh_list as jraster
 from holoscene_tpu_torch.datasets.synthetic import scene_meshes
 from holoscene_tpu_torch.ops.rasterizer import BIG_DEPTH
 from holoscene_tpu_torch.ops.rasterizer import rasterize_mesh_list as traster
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 MASK_MISMATCH = 0.005   # fraction of pixels (coverage-boundary sampling)
 DEPTH_ATOL = 1e-4

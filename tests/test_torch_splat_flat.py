@@ -12,6 +12,7 @@ import torch
 from holoscene_tpu.ops import splat_flat as jflat
 from holoscene_tpu.ops.gaussians import project_gaussians_fused as jproject
 from holoscene_tpu_torch.ops import splat_flat as tflat
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 CHUNK = tflat.CHUNK
 # K1: JAX's default bf16x2 triangular prefix matmul is ~f32-accurate

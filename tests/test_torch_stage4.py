@@ -1,5 +1,7 @@
-"""The whole Stage-4 slice of the port against the JAX Stage4Runner: one
-training step from identical state (losses, gradients, Adam update).
+"""The whole Stage-4 slice of the port against the JAX Stage4Runner, each
+from identical state (losses, gradients, Adam update): one flat training
+step, one top-K training step with the auto-calibrated depth, and one
+invisible-view step on an analytic pack.
 The port-only run, the CLI and the device rule are in
 test_torch_stage4_run.py (split to keep each file's time short)."""
 
@@ -15,13 +17,23 @@ from holoscene_tpu.datasets.synthetic import generate_scene
 from holoscene_tpu.models import gom as jgom
 from holoscene_tpu.training.stage4 import Stage4Runner as JaxStage4Runner
 from holoscene_tpu_torch.convert import gom_params_from_jax
-from holoscene_tpu_torch.datasets.synthetic import scene_meshes
+from holoscene_tpu_torch.datasets.synthetic import (
+    DEFAULT_SPHERES,
+    scene_meshes,
+    sphere_view_packs,
+)
 from holoscene_tpu_torch.models.gom import GoMConfig
 from holoscene_tpu_torch.training.stage4 import Stage4Runner
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 AREA = 5e-3
 LOSS_RTOL = 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-4, 5e-3   # as the JAX flat backward's own test
+# The compositor's alpha has two discontinuities (the 1/255 cut and the 0.999
+# clamp): a candidate sitting on one flips between the two frameworks' exp
+# roundings and moves one gaussian's gradient by more than any tolerance on
+# sums. FRAME is a training frame of this scene on which no candidate does.
+FRAME = 2
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +48,8 @@ def meshes():
     return scene_meshes(12)
 
 
-def _port_runner(meshes, ds, out_dir, **kw):
-    cfg = GoMConfig(sh_degree=1, tile_size=16, use_flat=True, **kw)
+def _port_runner(meshes, ds, out_dir, use_flat=True, **kw):
+    cfg = GoMConfig(sh_degree=1, tile_size=16, use_flat=use_flat, **kw)
     return Stage4Runner(meshes, ds, cfg=cfg, area_to_subdivide=AREA,
                         max_total_iters=40, out_dir=out_dir, quiet=True,
                         device="cpu")
@@ -53,23 +65,15 @@ def test_one_step_matches_jax(scene, meshes, tmp_path):
     assert tr.static["num_gaussians"] == jr.static["num_gaussians"]
     assert tr.instance_ranges == jr.instance_ranges
     assert tr.flat_plan == type(tr.flat_plan)(**vars(jr.flat_plan))
-    # identical starting state (the port seeds the same numbers; copy to be
-    # exact to the last bit)
-    jp = {k: np.asarray(v) for k, v in jr.params.items()}
-    for k, v in gom_params_from_jax(jp).items():
-        np.testing.assert_allclose(tr.params[k].detach().numpy(),
-                                   v.detach().numpy(), atol=1e-6, rtol=1e-5,
-                                   err_msg=k)
-        with torch.no_grad():
-            tr.params[k].copy_(v)
+    before = _copy_state(tr, jr)
 
     h, w = ds.img_res
-    acm, mesh_depth = jr._frame_mesh_raster(0)
-    image = ds.rgb_images[0].reshape(h, w, 3).transpose(2, 0, 1)
-    pose = jnp.asarray(ds.pose_all[0])
+    acm, mesh_depth = jr._frame_mesh_raster(FRAME)
+    image = ds.rgb_images[FRAME].reshape(h, w, 3).transpose(2, 0, 1)
+    pose = jnp.asarray(ds.pose_all[FRAME])
     intr = jnp.asarray(ds.intrinsics[:3, :3])
     bg = jax.random.uniform(jax.random.PRNGKey(3), (3,))
-    jbins = jr._get_bins(0, pose, intr)
+    jbins = jr._get_bins(FRAME, pose, intr)
     static = {**jr._static_host, **jr._static_arr}
 
     def loss_fn(p):      # stage4.step_fn's loss, with bg passed in
@@ -88,12 +92,11 @@ def test_one_step_matches_jax(scene, meshes, tmp_path):
     upd, _ = jr.optimizer.update(jgrads, jr.opt_state, jr.params)
     jnew = optax.apply_updates(jr.params, upd)
 
-    tbins = tr._get_bins(0, *tr._pose_intr(0))
+    tbins = tr._get_bins(FRAME, *tr._pose_intr(FRAME))
     for k in ("tile_chunk_start", "tile_chunk_cnt"):
         np.testing.assert_array_equal(tbins[k].numpy(), np.asarray(jbins[k]))
-    before = {k: v.detach().clone() for k, v in tr.params.items()}
     metrics, used, _stale, _drift = tr._step(
-        *tr._pose_intr(0), *(torch.tensor(np.array(x)) for x in (
+        *tr._pose_intr(FRAME), *(torch.tensor(np.array(x)) for x in (
             image, acm, mesh_depth)), tbins, torch.tensor(np.array(bg)))
 
     np.testing.assert_allclose(float(metrics["loss"]), float(jtotal),
@@ -102,6 +105,23 @@ def test_one_step_matches_jax(scene, meshes, tmp_path):
         np.testing.assert_allclose(float(metrics[k]), float(jlosses[k]),
                                    rtol=LOSS_RTOL, err_msg=k)
     assert int(used.max()) >= 1
+    _check_grads_and_update(tr, before, jgrads, jnew)
+
+
+def _copy_state(tr, jr):
+    """Start the port's runner from the JAX runner's parameters (the port
+    seeds the same numbers; copy to be exact to the last bit)."""
+    jp = {k: np.asarray(v) for k, v in jr.params.items()}
+    for k, v in gom_params_from_jax(jp).items():
+        np.testing.assert_allclose(tr.params[k].detach().numpy(),
+                                   v.detach().numpy(), atol=1e-6, rtol=1e-5,
+                                   err_msg=k)
+        with torch.no_grad():
+            tr.params[k].copy_(v)
+    return {k: v.detach().clone() for k, v in tr.params.items()}
+
+
+def _check_grads_and_update(tr, before, jgrads, jnew):
     moved = 0.0
     for k, p in tr.params.items():
         g = np.asarray(jgrads[k])
@@ -116,3 +136,113 @@ def test_one_step_matches_jax(scene, meshes, tmp_path):
     # regression guard: a step must change the params
     assert moved > 0.0
 
+
+def test_one_topk_step_matches_jax(scene, meshes, tmp_path):
+    """GoMConfig(use_flat=False, max_per_tile=0): both runners calibrate
+    the same compositing depth, and one step through the top-K compositor
+    (the Pallas kernels in interpret mode on the JAX side) moves the
+    parameters alike."""
+    ds, _ = scene
+    jcfg = jgom.GoMConfig(sh_degree=1, tile_size=16, use_flat=False,
+                          max_per_tile=0, use_pallas=True)
+    jr = JaxStage4Runner(meshes, ds, cfg=jcfg, area_to_subdivide=AREA,
+                         max_total_iters=40, out_dir=str(tmp_path / "j"),
+                         quiet=True)
+    tr = _port_runner(meshes, ds, str(tmp_path / "t"), use_flat=False,
+                      max_per_tile=0)
+    assert not tr.use_flat and tr.flat_plan is None
+    assert 64 <= tr.cfg.max_per_tile == jr.cfg.max_per_tile <= tr.k_geom
+    before = _copy_state(tr, jr)
+
+    h, w = ds.img_res
+    acm, mesh_depth = jr._frame_mesh_raster(FRAME)
+    image = ds.rgb_images[FRAME].reshape(h, w, 3).transpose(2, 0, 1)
+    pose = jnp.asarray(ds.pose_all[FRAME])
+    intr = jnp.asarray(ds.intrinsics[:3, :3])
+    bg = jax.random.uniform(jax.random.PRNGKey(5), (3,))
+    static = {**jr._static_host, **jr._static_arr}
+
+    def loss_fn(p):      # stage4.step_fn's loss, with bg passed in
+        out = jgom.render_gom(p, static, jr.cfg, pose, intr, w, h, bg,
+                              chw=True)
+        batch = {"image": jnp.asarray(image) * acm[None]
+                 + (1 - acm[None]) * bg[:, None, None],
+                 "acm": jnp.asarray(acm), "mesh_depth": jnp.asarray(mesh_depth),
+                 "mask": None}
+        losses = jgom.gom_loss(out, batch, jr.cfg, chw=True)
+        return losses["main_loss"] * jr.loss_scale + losses["scale_reg"], losses
+
+    (jtotal, jlosses), jgrads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(jr.params)
+    upd, _ = jr.optimizer.update(jgrads, jr.opt_state, jr.params)
+    jnew = optax.apply_updates(jr.params, upd)
+
+    metrics, used, stale, _drift = tr._step(
+        *tr._pose_intr(FRAME), *(torch.tensor(np.array(x)) for x in (
+            image, acm, mesh_depth)), None, torch.tensor(np.array(bg)))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jtotal),
+                               rtol=LOSS_RTOL)
+    for k in ("l1", "ssim_loss", "acm_loss", "depth_loss"):
+        np.testing.assert_allclose(float(metrics[k]), float(jlosses[k]),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    assert used.shape == (4,) and int(used.max()) >= 1 and int(stale) == 0
+    _check_grads_and_update(tr, before, jgrads, jnew)
+
+
+def test_one_invisible_view_step_matches_jax(scene, meshes, tmp_path):
+    """One invisible-view step of the flat trainer on an analytic pack of
+    sphere 0 (mesh 1): only that object's gaussians render, orthographic,
+    through the top-K compositor at the flat trainer's depth."""
+    ds, _ = scene
+    jcfg = jgom.GoMConfig(sh_degree=1, tile_size=16, use_flat=True,
+                          max_per_tile=0, use_pallas=True)
+    jr = JaxStage4Runner(meshes, ds, cfg=jcfg, area_to_subdivide=AREA,
+                         max_total_iters=40, out_dir=str(tmp_path / "j"),
+                         quiet=True)
+    tr = _port_runner(meshes, ds, str(tmp_path / "t"), max_per_tile=0)
+    assert tr.cfg.max_per_tile == jr.cfg.max_per_tile == 256
+    before = _copy_state(tr, jr)
+
+    pack = sphere_view_packs(DEFAULT_SPHERES[0], n_views=2, res=32)[1]
+    obj_i = 1
+    bg = jax.random.uniform(jax.random.PRNGKey(7), (3,))
+    static = {**jr._static_host, **jr._static_arr}
+    h = w = 32
+    half = pack["half_extent"]
+    jintr = jnp.array([[w / (2 * half), 0.0, w / 2.0],
+                       [0.0, h / (2 * half), h / 2.0], [0.0, 0.0, 1.0]])
+    jmask = jnp.asarray(pack["mask"])
+    jvis = jr._visible_mask(obj_i)
+    np.testing.assert_array_equal(tr._visible_mask(obj_i).numpy(),
+                                  np.asarray(jvis))
+
+    def loss_fn(p):      # stage4.invis_step_fn's loss, with bg passed in
+        out = jgom.render_gom(p, static, jr.cfg, jnp.asarray(pack["pose"]),
+                              jintr, w, h, bg, visible_mask=jvis, ortho=True)
+        m = jmask[..., None]
+        gt = jnp.asarray(pack["rgb"]) * m + (1 - m) * bg
+        l1 = jnp.mean(jnp.abs(out["rgb"] - gt))
+        acm = jnp.mean(jnp.abs(out["accumulation"] - jmask))
+        return l1 + acm, (l1, acm, out["accumulation"])
+
+    (_, (jl1, _jacm, jalpha)), jgrads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(jr.params)
+    # the pack sees the object: the render (at the initial opacity 0.1)
+    # lies on the mask's disc and not around it
+    inside = float(jalpha[jmask > 0].mean())
+    assert inside > 0.05 and float(jalpha[jmask == 0].mean()) < 0.2 * inside
+    upd, _ = jr.optimizer.update(jgrads, jr.opt_state, jr.params)
+    jnew = optax.apply_updates(jr.params, upd)
+
+    l1 = tr._invis_step(
+        torch.as_tensor(pack["pose"]), float(half),
+        torch.as_tensor(pack["rgb"]), torch.as_tensor(pack["mask"]),
+        tr._visible_mask(obj_i), torch.tensor(np.array(bg)))
+    np.testing.assert_allclose(float(l1), float(jl1), rtol=LOSS_RTOL)
+    assert tr.invis_steps == 1
+    lo, hi = tr.instance_ranges[obj_i]
+    other = np.ones(tr.static["num_gaussians"], bool)
+    other[lo:hi] = False
+    for k, p in tr.params.items():      # the other objects get no gradient
+        assert not p.grad.numpy()[other].any(), k
+    _check_grads_and_update(tr, before, jgrads, jnew)

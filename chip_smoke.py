@@ -26,7 +26,11 @@ Phases, one '== ' line each:
   7 gs_render    the renderer CLI on the exported gauss_scene.ply: PNGs and
                  metrics.json written, PSNR finite, K3 launched per view
   8 kernels      K1-K4 vs plain again, at one training frame's shapes (max
-                 abs error, kernel ms beside plain ms and the card's bound)
+                 abs error, kernel ms beside plain ms and the card's bound),
+                 and K3/K4 vs plain on the lists of the two other paths that
+                 launch them: one orthographic pack view as the invisible-
+                 view step renders it (one object's gaussians visible) and
+                 one gs_render view of the exported ply at its calibrated K
 The launch counts are set to 0 just before each of the paths 4-7 and read
 just after. Then the kernel table as one JSON line and last the device line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
@@ -35,9 +39,11 @@ The bound of a kernel is the larger of two times, both from this run's
 inputs. Bytes: the candidate rows of the chunks the walk really took (8 KB
 each), the per-tile ints and tile blocks it reads, and every output byte
 written once (K2/K4: all of the zero-initialised gradient array), over
-3.35 TB/s. Operations: per walked (candidate, pixel) the 17 float32
-operations up to the 1/255 test (quadratic form, one exp, the clamp), and
-per live one (alpha >= 1/255) 13 more in the forward (exp of the running
+3.35 TB/s. Operations: per (candidate, pixel) pair of the walked chunks the
+17 float32 operations up to the 1/255 test (quadratic form, one exp, the
+clamp), counting real candidates and in-image pixels only (not the padding
+that fills a tile's last chunk, a list's dead entries or its K-padding), and
+per live pair (alpha >= 1/255) 13 more in the forward (exp of the running
 sum, weight, four multiply-adds unfused, log1p) or 51 more in the backward
 (log1p, exp, the closed form, ten gradient terms and their ten sums over the
 tile's pixels), each special function counted as ONE operation, over the
@@ -133,21 +139,24 @@ def read_counts() -> dict:
             "K3": st.composite_fwd.launches, "K4": st.composite_bwd.launches}
 
 
-def walk_work(chunks, cs, used, px, py):
+def walk_work(chunks, real, cs, used, px, py, in_img):
     """What a walk over these inputs needs: (chunks walked, (candidate,
-    pixel) pairs, live pairs with alpha >= 1/255)."""
-    import torch
-
+    pixel) pairs, live pairs with alpha >= 1/255). A pair is a real
+    candidate (`real` [n_chunks, 128] bool: no padding, no dead entry) of a
+    walked chunk at an in-image pixel of its tile."""
     from holoscene_tpu_torch.ops import splat_flat as sf
 
     cs, used = cs.long(), used.long()
-    live = 0
+    n_pix = in_img.sum(1)
+    pairs = live = 0
     for j in range(int(used.max()) if used.numel() else 0):
         act = j < used
-        keep = sf._chunk_alpha(px[act], py[act], chunks[(cs + j)[act]])[6]
-        live += int(keep.sum())
-    walked = int(used.sum())
-    return walked, walked * sf.CHUNK * px.shape[1], live
+        idx = (cs + j)[act]
+        pairs += int((real[idx].sum(1) * n_pix[act]).sum())
+        keep = sf._chunk_alpha(px[act], py[act], chunks[idx])[6]
+        live += int((keep & real[idx][:, None, :]
+                     & in_img[act][:, :, None]).sum())
+    return int(used.sum()), pairs, live
 
 
 def bound_ms(n_bytes: int, n_ops: int):
@@ -156,11 +165,11 @@ def bound_ms(n_bytes: int, n_ops: int):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def compare_walks(names, chunks, cs, px, py, fwd, fwd_plain, bwd, bwd_plain,
-                  extra_in_bytes, seed, timed):
+def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
+                  bwd_plain, extra_in_bytes, seed, timed):
     """One forward/backward kernel pair vs plain on the card; raises on
-    disagreement. fwd() -> (out [T,P,8], used [T]); bwd(out, used, v) ->
-    d cand. Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
+    disagreement. pixels = (px, py, in_img) of the tiles; fwd() -> (out
+    [T,P,8], used [T]); bwd(out, used, v) -> d cand. Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
     bound_by)} (the times None unless timed)."""
     import torch
 
@@ -192,7 +201,7 @@ def compare_walks(names, chunks, cs, px, py, fwd, fwd_plain, bwd, bwd_plain,
                            f"err {err_b}")
     res = {kf: dict(max_abs_err=err_f, ms=None, plain_ms=None),
            kb: dict(max_abs_err=err_b, ms=None, plain_ms=None)}
-    walked, pairs, live = walk_work(chunks, cs, ref_used, px, py)
+    walked, pairs, live = walk_work(chunks, real, cs, ref_used, *pixels)
     read = walked * chunks[0].numel() * 4 + extra_in_bytes
     block = out.numel() * 4
     res[kf]["bound_ms"], res[kf]["bound_by"] = bound_ms(
@@ -217,13 +226,15 @@ def compare_flat(cand, cs, cc, tiles_x, width, height, seed, timed):
     from holoscene_tpu_torch.ops import splat_flat as sf
 
     geom = (tiles_x, 16, width, height)
-    px, py, _ = sf._tile_pixels(cs.shape[0], *geom, cand.device)
+    pixels = sf._tile_pixels(cs.shape[0], *geom, cand.device)
+    chunks = cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS)
 
     def with_used(out):
         return out, out[:, 0, 5].int()
 
     return compare_walks(
-        ("K1", "K2"), cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS), cs, px, py,
+        # padding slots and the per-tile dummy gather the all-zero trash row
+        ("K1", "K2"), chunks, chunks[..., 10] > 0, cs, pixels,
         lambda: with_used(sf.flat_fwd(cand, cs, cc, *geom)),
         lambda: with_used(sf.flat_fwd_plain(cand, cs, cc, *geom)),
         lambda o, _u, v: sf.flat_bwd(cand, cs, o, v, *geom),
@@ -238,11 +249,13 @@ def compare_topk(cand, origins, counts, width, height, seed, timed):
     from holoscene_tpu_torch.ops import splat_topk as st
 
     geom = (16, width, height)
-    px, py, _ = sf.tile_pixels_at(origins, *geom)
-    cs = torch.arange(cand.shape[0], device=cand.device) \
-        * (cand.shape[1] // sf.CHUNK)
+    pixels = sf.tile_pixels_at(origins, *geom)
+    n_tiles, k = cand.shape[0], cand.shape[1]
+    cs = torch.arange(n_tiles, device=cand.device) * (k // sf.CHUNK)
+    real = torch.arange(k, device=cand.device)[None, :] < counts[:, None]
     return compare_walks(
-        ("K3", "K4"), cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS), cs, px, py,
+        ("K3", "K4"), cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS),
+        real.reshape(-1, sf.CHUNK), cs, pixels,
         lambda: st.composite_fwd(cand, origins, counts, *geom),
         lambda: st.composite_fwd_plain(cand, origins, counts, *geom),
         lambda o, u, v: st.composite_bwd(cand, origins, u, o, v, *geom),
@@ -303,31 +316,52 @@ def flat_inputs(xy, depth, conic, valid, opac, rgb, res):
     return cand, bins["tile_chunk_start"], bins["tile_chunk_cnt"], tiles
 
 
-def frame_projection(runner, frame: int):
-    """One training frame's projected, shaded gaussians at the slice's
-    shapes: (xy, depth, conic, radius, valid, opac, rgb, w, h)."""
+def projection(means, quats, scales, opac, colors, viewmat, intr, w, h,
+               sh_degree, ortho=False):
+    """Projected, shaded gaussians as render_gaussians makes them: (xy,
+    depth, conic, radius, valid, opac, rgb)."""
+    import torch
+
+    from holoscene_tpu_torch.ops.gaussians import project_gaussians_fused
+    from holoscene_tpu_torch.ops.splat import shade
+
+    with torch.no_grad():
+        xy, depth, conic, radius, valid = project_gaussians_fused(
+            means, quats, scales, viewmat, intr, w, h, ortho=ortho)
+        rgb = shade(means, colors, viewmat, sh_degree)
+    return xy, depth, conic, radius, valid, opac, rgb
+
+
+def gom_projection(runner, pose, intr, w, h, visible_mask=None, ortho=False):
+    """`projection` of a runner's gaussians with render_gom's own inputs."""
     import torch
 
     from holoscene_tpu_torch.models import gom
-    from holoscene_tpu_torch.ops.gaussians import (
-        project_gaussians_fused,
-        view_matrix,
-    )
-    from holoscene_tpu_torch.ops.splat import shade
+    from holoscene_tpu_torch.ops.gaussians import view_matrix
 
     p, st, cfg = runner.params, runner.static, runner.cfg
-    h, w = runner.dataset.img_res
-    pose, intr = runner._pose_intr(frame)
     with torch.no_grad():
-        means = gom.gom_means(p, st, cfg)
-        viewmat = view_matrix(pose, pose.device)
-        xy, depth, conic, radius, valid = project_gaussians_fused(
-            means, gom.gom_quats(p, st, cfg), gom.gom_scales(p, st, cfg),
-            viewmat, intr, w, h)
         colors = torch.cat([p["features_dc"][:, None], p["features_rest"]], 1)
-        rgb = shade(means, colors, viewmat, cfg.sh_degree)
-        return (xy, depth, conic, radius, valid, gom.gom_opacities(p), rgb,
-                w, h)
+        return projection(
+            gom.gom_means(p, st, cfg), gom.gom_quats(p, st, cfg),
+            gom.gom_scales(p, st, cfg), gom.gom_opacities(p, visible_mask),
+            colors, view_matrix(pose, pose.device), intr, w, h,
+            cfg.sh_degree, ortho)
+
+
+def pack_camera(pack, dev):
+    """(pose, intrinsics, w, h) of a generated orthographic pack view, as
+    the invisible-view step sets them up."""
+    import torch
+
+    from holoscene_tpu_torch import as_tensor
+
+    h, w = pack["mask"].shape
+    half = float(pack["half_extent"])
+    intr = torch.tensor([[w / (2 * half), 0.0, w / 2.0],
+                         [0.0, h / (2 * half), h / 2.0],
+                         [0.0, 0.0, 1.0]], device=dev)
+    return as_tensor(pack["pose"], dev), intr, w, h
 
 
 def write_slice_inputs(work: Path):
@@ -367,15 +401,11 @@ def invis_probe_l1(runner) -> float:
     with torch.no_grad():
         for obj_i, packs in enumerate(runner.vis_info_list):
             for pack in packs[:2]:
-                h, w = pack["mask"].shape
-                half = float(pack["half_extent"])
-                intr = torch.tensor([[w / (2 * half), 0.0, w / 2.0],
-                                     [0.0, h / (2 * half), h / 2.0],
-                                     [0.0, 0.0, 1.0]], device=dev)
+                pose, intr, w, h = pack_camera(pack, dev)
                 out = render_gom(
-                    runner.params, runner.static, runner.cfg,
-                    as_tensor(pack["pose"], dev), intr, w, h, bg,
-                    visible_mask=runner._visible_mask(obj_i), ortho=True)
+                    runner.params, runner.static, runner.cfg, pose, intr, w,
+                    h, bg, visible_mask=runner._visible_mask(obj_i),
+                    ortho=True)
                 m = as_tensor(pack["mask"], dev)[..., None]
                 gt = as_tensor(pack["rgb"], dev) * m + (1 - m) * bg
                 vals.append(float((out["rgb"] - gt).abs().mean()))
@@ -581,15 +611,16 @@ def main() -> int:
                                f"plus the probes: {paths['gs_render']}")
 
         # 8 kernels vs plain at the slices' shapes (training frame 0)
-        xy, depth, conic, radius, valid, opac, rgb, w, h = frame_projection(
-            runner, 0)
+        h, w = runner.dataset.img_res
         pose, intr = runner._pose_intr(0)
+        xy, depth, conic, radius, valid, opac, rgb = gom_projection(
+            runner, pose, intr, w, h)
         bins = runner._get_bins(0, pose, intr)
         cand = sf.gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
         big = compare_flat(cand, bins["tile_chunk_start"],
                            bins["tile_chunk_cnt"], -(-w // 16), w, h, 2,
                            timed=True)
-        proj = frame_projection(topk, 0)[:7]
+        proj = gom_projection(topk, *topk._pose_intr(0), w, h)
         k_top = topk.cfg.max_per_tile
         lists = topk_lists(*proj, w, h, k_top)
         big.update(compare_topk(*lists, w, h, 4, timed=True))
@@ -622,11 +653,45 @@ def main() -> int:
         log("   around the walks (forward only, CUDA events): " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in around.items()))
 
+        # K3/K4 vs plain on the lists of the other two paths that launch them
+        from holoscene_tpu_torch import as_tensor
+        from holoscene_tpu_torch.models.gom import read_gaussian_ply
+        from holoscene_tpu_torch.ops.gaussians import view_matrix
+
+        obj_i = next(i for i, v in enumerate(invis.vis_info_list) if v)
+        pose_o, intr_o, w_o, h_o = pack_camera(invis.vis_info_list[obj_i][0],
+                                               dev)
+        lists_o = topk_lists(
+            *gom_projection(invis, pose_o, intr_o, w_o, h_o,
+                            visible_mask=invis._visible_mask(obj_i),
+                            ortho=True),
+            w_o, h_o, invis.cfg.max_per_tile)
+        other = {"invisible": compare_topk(*lists_o, w_o, h_o, 5,
+                                           timed=False)}
+        g = gs_render.gaussian_tensors(
+            read_gaussian_ply(str(plots / "gauss_scene.ply")), dev)
+        ds = gs_render._load_dataset("ns", str(work / "data" / "scene_0"), -1)
+        vm0 = view_matrix(ds.pose_all[0], dev)
+        intr_r = as_tensor(ds.intrinsics[:3, :3], dev)
+        k_render = gs_render.pick_max_per_tile(*g, vm0, intr_r, w, h, 3)
+        lists_r = topk_lists(
+            *projection(*g, vm0, intr_r, w, h, 3), w, h, k_render)
+        other["gs_render"] = compare_topk(*lists_r, w, h, 6, timed=False)
+        log(f"   K3/K4 vs plain on the other paths' lists: invisible-view "
+            f"pack view of object {obj_i}, orthographic "
+            f"{tuple(lists_o[0].shape)}; gs_render view 0 at its calibrated "
+            f"K {k_render}, {tuple(lists_r[0].shape)}: max abs err "
+            + ", ".join(f"{path} K3 {r['K3']['max_abs_err']:.3g} K4 "
+                        f"{r['K4']['max_abs_err']:.3g}"
+                        for path, r in other.items()))
+
     main_path = {"K1": "flat", "K2": "flat", "K3": "topk", "K4": "topk"}
     table = []
     for k, meta in KERNELS.items():
         b = dict(big[k])
-        b["max_abs_err"] = max(b["max_abs_err"], small[k]["max_abs_err"])
+        b["max_abs_err"] = max(
+            [b["max_abs_err"], small[k]["max_abs_err"]]
+            + [r[k]["max_abs_err"] for r in other.values() if k in r])
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
     log(json.dumps({"kernels": table}))

@@ -53,10 +53,8 @@ __global__ void splat_flat_bwd_kernel(const float* __restrict__ cand,
       static_cast<float>((t % tiles_x) * tile_size + p % tile_size) + 0.5f;
   const float py =
       static_cast<float>((t / tiles_x) * tile_size + p / tile_size) + 0.5f;
-  bool in_img = true;
-  if (img_w > 0 && img_h > 0) {
-    in_img = px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
-  }
+  const bool in_img =
+      px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
 
   const size_t pix = static_cast<size_t>(t) * n_pix + p;
   const int used = static_cast<int>(fwd[static_cast<size_t>(t) * n_pix * 8 + 5]);

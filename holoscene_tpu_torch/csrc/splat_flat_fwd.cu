@@ -51,12 +51,10 @@ __global__ void splat_flat_fwd_kernel(const float* __restrict__ cand,
       static_cast<float>((t % tiles_x) * tile_size + p % tile_size) + 0.5f;
   const float py =
       static_cast<float>((t / tiles_x) * tile_size + p / tile_size) + 0.5f;
-  float trans = 1.0f;
-  if (img_w > 0 && img_h > 0) {
-    trans = (px < static_cast<float>(img_w) && py < static_cast<float>(img_h))
-                ? 1.0f
-                : 0.0f;
-  }
+  float trans =
+      (px < static_cast<float>(img_w) && py < static_cast<float>(img_h))
+          ? 1.0f
+          : 0.0f;
 
   const int c0 = cs[t];
   const int m = cc[t];

@@ -59,10 +59,8 @@ __global__ void splat_topk_bwd_kernel(const float* __restrict__ cand,
       origins[2 * t] + static_cast<float>(p % tile_size) + 0.5f;
   const float py =
       origins[2 * t + 1] + static_cast<float>(p / tile_size) + 0.5f;
-  bool in_img = true;
-  if (img_w > 0 && img_h > 0) {
-    in_img = px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
-  }
+  const bool in_img =
+      px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
 
   const size_t pix = static_cast<size_t>(t) * n_pix + p;
   const float total = fwd[pix * 8 + 6];

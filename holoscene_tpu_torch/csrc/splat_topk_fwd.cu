@@ -57,12 +57,10 @@ __global__ void splat_topk_fwd_kernel(const float* __restrict__ cand,
       origins[2 * t] + static_cast<float>(p % tile_size) + 0.5f;
   const float py =
       origins[2 * t + 1] + static_cast<float>(p / tile_size) + 0.5f;
-  float trans = 1.0f;
-  if (img_w > 0 && img_h > 0) {
-    trans = (px < static_cast<float>(img_w) && py < static_cast<float>(img_h))
-                ? 1.0f
-                : 0.0f;
-  }
+  float trans =
+      (px < static_cast<float>(img_w) && py < static_cast<float>(img_h))
+          ? 1.0f
+          : 0.0f;
 
   const float* list = cand + static_cast<size_t>(t) * k_total * kRows;
   const int by_count = (max(counts[t], 0) + kChunk - 1) / kChunk;

@@ -276,15 +276,11 @@ def build_flat_bins(xy, depth, conic, opac, valid,
 
 def tile_pixels_at(origins, tile_size, img_w, img_h):
     """Pixel centres [T, P] of tiles at pixel `origins` [T, 2] (float) and
-    their in-image mask (all true when img_w / img_h are 0)."""
+    their mask of pixels inside the img_w x img_h image."""
     pid = torch.arange(tile_size * tile_size, device=origins.device)[None, :]
     px = origins[:, 0:1] + (pid % tile_size).float() + 0.5
     py = origins[:, 1:2] + (pid // tile_size).float() + 0.5
-    if img_w > 0 and img_h > 0:
-        in_img = (px < float(img_w)) & (py < float(img_h))
-    else:
-        in_img = torch.ones_like(px, dtype=torch.bool)
-    return px, py, in_img
+    return px, py, (px < float(img_w)) & (py < float(img_h))
 
 
 def _tile_pixels(n_tiles, tiles_x, tile_size, img_w, img_h, device):

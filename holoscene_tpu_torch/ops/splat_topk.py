@@ -222,25 +222,20 @@ def gate_and_pad(cand: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 
 def composite_tiles_topk(
     cand: torch.Tensor,       # [T, K, 16] payload rows, depth-sorted per tile
-    live: torch.Tensor,       # [T, K] float 0/1
+    live: torch.Tensor,       # [T, K] float 0/1, dead entries at the END
     origins: torch.Tensor,    # [T, 2] float tile pixel origins
-    tile_size: int = 16,
-    n_live: torch.Tensor | None = None,   # [T] live-prefix length per tile
-    img_w: int = 0,           # image extent for edge-tile saturation
-    img_h: int = 0,           # masking (0 = off)
+    n_live: torch.Tensor,     # [T] live-prefix length per tile
+    tile_size: int,
+    img_w: int,               # image extent: pixels of edge tiles beyond it
+    img_h: int,               # start saturated
 ):
     """Returns (rgb [T, P, 3], depth [T, P] alpha-normalized, alpha [T, P],
     used [T] int32 chunks walked). Differentiable w.r.t. cand through K4.
 
-    The lists go through `gate_and_pad`. `n_live` (lists with their dead
-    entries at the END) bounds each tile's walk to its live prefix; omitted,
-    every tile may walk all K slots."""
+    The lists go through `gate_and_pad`; `n_live` bounds each tile's walk to
+    its live prefix."""
     cand = gate_and_pad(cand, live)
-    if n_live is None:
-        counts = torch.full((cand.shape[0],), cand.shape[1],
-                            dtype=torch.int32, device=cand.device)
-    else:
-        counts = n_live.to(torch.int32)
+    counts = n_live.to(torch.int32)
     out, used = _TopKWalk.apply(cand, origins.contiguous(), counts,
                                 tile_size, img_w, img_h)
     alpha = out[:, :, 4]

@@ -35,35 +35,48 @@ from holoscene_tpu_torch.ops.splat import (
 from holoscene_tpu_torch.utils.eval_rgb import eval_rgb
 
 
+def gaussian_tensors(g: dict, dev: torch.device):
+    """A gaussian dict (read_gaussian_ply) as the renderer's tensors:
+    (means, quats, linear scales, opacities, SH [N, B, 3] with DC first)."""
+    sh = as_tensor(np.concatenate(
+        [np.asarray(g["features_dc"])[:, None, :],
+         np.asarray(g["features_rest"])], axis=1), dev)
+    return (as_tensor(g["means"], dev), as_tensor(g["quats"], dev),
+            torch.exp(as_tensor(g["log_scales"], dev)),
+            torch.sigmoid(as_tensor(g["opacity_logits"], dev).reshape(-1)),
+            sh)
+
+
+@torch.no_grad()
+def pick_max_per_tile(means, quats, scales, opac, sh, viewmat, intr, w: int,
+                      h: int, sh_degree: int) -> int:
+    """The compositing depth for one representative view: its p99 tile
+    overlap, then the saturation calibration below that bound."""
+    counts = tile_overlap_counts(means, quats, scales, viewmat, intr, w, h)
+    return calibrate_max_per_tile(
+        lambda k: render_gaussians(
+            means, quats, scales, opac, sh, viewmat, intr, width=w, height=h,
+            max_per_tile=int(k), sh_degree=sh_degree)["rgb"],
+        hi=auto_max_per_tile(counts))
+
+
 @torch.no_grad()
 def render_views(g: dict, poses, intrinsics, img_res, sh_degree: int = 3,
                  max_per_tile: int = 0, intrinsics_all=None,
                  device: str | torch.device = "cuda"):
     """Render [N,4,4] c2w poses of a gaussian dict (read_gaussian_ply) on a
     white background; yields [H,W,3] numpy images. max_per_tile <= 0 picks
-    the compositing depth from view 0 (p99 tile overlap, then the saturation
-    calibration). intrinsics_all [N,3,3] renders each view with its own
-    camera matrix (heterogeneous COLMAP reconstructions)."""
+    the compositing depth from view 0 (`pick_max_per_tile`). intrinsics_all
+    [N,3,3] renders each view with its own camera matrix (heterogeneous
+    COLMAP reconstructions)."""
     dev = resolve_device(device)
     h, w = img_res
-    means = as_tensor(g["means"], dev)
-    quats = as_tensor(g["quats"], dev)
-    scales = torch.exp(as_tensor(g["log_scales"], dev))
-    opac = torch.sigmoid(as_tensor(g["opacity_logits"], dev).reshape(-1))
-    # SH layout: [N, B, 3] with DC first
-    sh = as_tensor(np.concatenate(
-        [np.asarray(g["features_dc"])[:, None, :],
-         np.asarray(g["features_rest"])], axis=1), dev)
+    means, quats, scales, opac, sh = gaussian_tensors(g, dev)
     intr = as_tensor(intrinsics, dev)
-
     if max_per_tile <= 0:
-        vm0 = view_matrix(poses[0], dev)
-        counts = tile_overlap_counts(means, quats, scales, vm0, intr, w, h)
-        max_per_tile = calibrate_max_per_tile(
-            lambda k: render_gaussians(
-                means, quats, scales, opac, sh, vm0, intr, width=w, height=h,
-                max_per_tile=int(k), sh_degree=sh_degree)["rgb"],
-            hi=auto_max_per_tile(counts))
+        max_per_tile = pick_max_per_tile(
+            means, quats, scales, opac, sh, view_matrix(poses[0], dev), intr,
+            w, h, sh_degree)
 
     white = torch.ones(3, device=dev)
     for vi, pose in enumerate(poses):

@@ -26,11 +26,16 @@ Phases, one '== ' line each:
   7 gs_render    the renderer CLI on the exported gauss_scene.ply: PNGs and
                  metrics.json written, PSNR finite, K3 launched per view
   8 kernels      K1-K4 vs plain again, at one training frame's shapes (max
-                 abs error, kernel ms beside plain ms and the card's bound),
-                 and K3/K4 vs plain on the lists of the two other paths that
-                 launch them: one orthographic pack view as the invisible-
-                 view step renders it (one object's gaussians visible) and
-                 one gs_render view of the exported ply at its calibrated K
+                 abs error, kernel ms beside plain ms and the card's bound;
+                 for the redesigned backward walks K2/K4 also the time of
+                 the walk they replaced and the histogram of chunks walked
+                 per tile), and K3/K4 vs plain on the lists of the two other
+                 paths that launch them: one orthographic pack view as the
+                 invisible-view step renders it (one object's gaussians
+                 visible) and one gs_render view of the exported ply at its
+                 calibrated K
+Wherever K2 or K4 is held against plain (phases 3 and 8) it is launched
+twice on the same inputs and the two results must be the same bits.
 The launch counts are set to 0 just before each of the paths 4-7 and read
 just after. Then the kernel table as one JSON line and last the device line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
@@ -77,6 +82,9 @@ SMALL_RES, SMALL_N, SMALL_K = 128, 5000, 256
 MEM_BYTES_S = 3.35e12         # H100 SXM HBM3
 FP32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores
 OPS_TEST, OPS_LIVE_FWD, OPS_LIVE_BWD = 17, 13, 51
+# the backward walk K2/K4 had before its redesign (shared-memory atomics),
+# this script's phase 8 on an NVIDIA H100 80GB HBM3 at 700.00 W
+EARLIER_MS = {"K2": 0.823, "K4": 0.883}
 
 KERNELS = {
     "K1": dict(name="K1 splat_flat_fwd", route="cuda",
@@ -192,7 +200,11 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     v[..., 5:] = 0.0   # the diagnostics channels carry no cotangent
     dref = bwd_plain(ref, ref_used, v)
     dker = bwd(ref, ref_used, v)
+    again = bwd(ref, ref_used, v)
     torch.cuda.synchronize()
+    if not torch.equal(dker, again):
+        raise RuntimeError(f"{kb}: two launches on the same inputs differ "
+                           f"(max abs {float((dker - again).abs().max())})")
     err_b = float((dker - dref).abs().max())
     over = ((dker - dref).abs() > BWD_ATOL + BWD_RTOL * dref.abs()).sum()
     if not torch.isfinite(dker).all() or int(over):
@@ -202,6 +214,7 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     res = {kf: dict(max_abs_err=err_f, ms=None, plain_ms=None),
            kb: dict(max_abs_err=err_b, ms=None, plain_ms=None)}
     walked, pairs, live = walk_work(chunks, real, cs, ref_used, *pixels)
+    vals, tiles = torch.unique(ref_used.long(), return_counts=True)
     read = walked * chunks[0].numel() * 4 + extra_in_bytes
     block = out.numel() * 4
     res[kf]["bound_ms"], res[kf]["bound_by"] = bound_ms(
@@ -211,7 +224,9 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
         pairs * OPS_TEST + live * OPS_LIVE_BWD)
     for k in names:
         res[k].update(walked_chunks=walked, candidate_pixels=pairs,
-                      live_candidate_pixels=live, library_ms=None)
+                      live_candidate_pixels=live, library_ms=None,
+                      tiles_by_walked_chunks=dict(zip(vals.tolist(),
+                                                      tiles.tolist())))
     if timed:
         # the candidate rows (tens of MB) are left warm in the 50 MB L2, as
         # the gather that precedes each walk in a training step leaves them
@@ -649,7 +664,13 @@ def main() -> int:
                 f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
                 f"({b['walked_chunks']} chunks walked, "
                 f"{b['live_candidate_pixels']} of {b['candidate_pixels']} "
-                f"candidate-pixels live)")
+                f"candidate-pixels live)"
+                + (f"; the walk it replaced: {EARLIER_MS[k]:.3f} ms, "
+                   f"{EARLIER_MS[k] / b['ms']:.2f}x; two launches bitwise "
+                   f"equal" if k in EARLIER_MS else ""))
+        for name, k in (("flat bins", "K2"), ("top-K lists", "K4")):
+            log(f"   tiles by chunks walked, {name}: "
+                f"{big[k]['tiles_by_walked_chunks']}")
         log("   around the walks (forward only, CUDA events): " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in around.items()))
 

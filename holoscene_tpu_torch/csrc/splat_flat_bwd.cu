@@ -17,18 +17,23 @@
 // masked to alpha >= 1/255 and a_pre < 0.999 (the clamp), with the exponent
 // gradient masked to power < 0. Each candidate's 256 per-pixel
 // contributions (dx, dy, d conic a/b/c, d opacity, d rgb, d depth) are
-// reduced with warp shuffles, then shared-memory atomics into a [128][10]
-// buffer, and written to the chunk's rows of dcand [c_max, 16]. A chunk
-// belongs to one tile, so no global atomics are needed. Columns 10-15 and
-// every chunk the walk skipped stay as the wrapper's torch.zeros left them
-// (the TPU kernel zero-filled them by DMA).
+// summed and written to the chunk's rows of dcand [c_max, 16], all 16
+// columns of a walked row (10-15 zeros). A chunk belongs to one tile, so no
+// global atomics are needed. Every chunk the walk skipped stays as the
+// wrapper's torch.zeros left it (the TPU kernel zero-filled them by DMA).
 //
-// Bounds on the card. Like K1 it is bound by per-candidate arithmetic
-// (exp, log1p, one division) and here also by the cross-pixel reductions:
-// 10 warp reductions per live candidate. Design: one block per tile, one
-// thread per pixel, candidates broadcast from shared memory; a candidate no
-// pixel of a warp reaches (alpha < 1/255 everywhere) contributes exact
-// zeros, so that warp skips its reduction (__any_sync vote).
+// Bounds on the card. Operations, not bytes: a walked chunk is 8 KB read
+// and 8 KB written against ~33k alpha evaluations and, for the quarter of
+// the (candidate, pixel) pairs that are live, a log1p, an exp, a division
+// and ten sums over the tile. What the time goes to is the sums: the design
+// of splat_walk.cuh::backprop_tile (per-warp slabs instead of shared-memory
+// atomics, a 12-shuffle transposing butterfly, alphas in groups of eight
+// with a ballot so that only candidates live in the warp reach the serial
+// part, the next chunk fetched by cp.async meanwhile) is shared with K4.
+// One block per tile, one thread per pixel; a 256-thread block takes 52 KB
+// of dynamic shared memory and 71 registers a thread: three blocks an SM.
+// Sums are taken in a fixed order, so the result is the same bits from
+// launch to launch.
 
 #include "splat_walk.cuh"
 
@@ -36,19 +41,23 @@ namespace {
 
 using namespace splat_walk;
 
-__global__ void splat_flat_bwd_kernel(const float* __restrict__ cand,
-                                      const int* __restrict__ cs,
-                                      const float* __restrict__ fwd,
-                                      const float* __restrict__ v,
-                                      float* __restrict__ dcand, int tiles_x,
-                                      int tile_size, int img_w, int img_h) {
-  __shared__ __align__(16) float sc[kChunk * kRows];
-  __shared__ float sg[kChunk * kGradRows];
-
+// The launch bounds are the register budget only: a 1024-thread block can
+// be given 64 registers a thread and no more; for the 256-thread blocks of
+// 16 x 16 tiles ptxas takes 71 at three blocks an SM, which is 4-6% faster
+// here than 64 at four.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+    splat_flat_bwd_kernel(const float* __restrict__ cand,
+                          const int* __restrict__ cs,
+                          const float* __restrict__ fwd,
+                          const float* __restrict__ v,
+                          float* __restrict__ dcand, int tiles_x,
+                          int tile_size, int img_w, int img_h) {
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int n_pix = blockDim.x;
-  const int lane = p & 31;
+  const int used = static_cast<int>(fwd[static_cast<size_t>(t) * n_pix * 8 + 5]);
+  if (used <= 0) return;
   const float px =
       static_cast<float>((t % tiles_x) * tile_size + p % tile_size) + 0.5f;
   const float py =
@@ -57,24 +66,28 @@ __global__ void splat_flat_bwd_kernel(const float* __restrict__ cand,
       px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
 
   const size_t pix = static_cast<size_t>(t) * n_pix + p;
-  const int used = static_cast<int>(fwd[static_cast<size_t>(t) * n_pix * 8 + 5]);
   const float total = fwd[pix * 8 + 6];
   const float vp[5] = {v[pix * 8 + 0], v[pix * 8 + 1], v[pix * 8 + 2],
                        v[pix * 8 + 3], v[pix * 8 + 4]};
-  const int c0 = cs[t];
+  const size_t last = static_cast<size_t>(cs[t] + used - 1) * kChunk * kRows;
+  backprop_tile(cand + last, dcand + last, used, px, py, in_img, total, vp);
+}
 
-  float suffix = 0.f;   // sum log(1 - a) over later candidates
-  float s_after = 0.f;  // sum w s over later candidates
-  for (int j = 0; j < used; ++j) {
-    const size_t row0 = static_cast<size_t>(c0 + used - 1 - j) * kChunk * kRows;
-    stage_chunk(sc, cand + row0, p, n_pix);
-    for (int i = p; i < kChunk * kGradRows; i += n_pix) sg[i] = 0.f;
-    __syncthreads();
-    backprop_chunk(sc, sg, px, py, in_img, total, vp, suffix, s_after, lane);
-    __syncthreads();
-    store_chunk_grads(dcand + row0, sg, p, n_pix);
-    __syncthreads();
-  }
+template <int kMaxThreads, int kMinBlocks>
+int launch(const void* cand, const void* cs, const void* fwd, const void* v,
+           void* dcand, int n_tiles, int tiles_x, int tile_size, int img_w,
+           int img_h, void* stream) {
+  const int threads = tile_size * tile_size;
+  const size_t smem = bwd_smem_bytes(threads);
+  const cudaError_t err =
+      allow_bwd_smem(splat_flat_bwd_kernel<kMaxThreads, kMinBlocks>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  splat_flat_bwd_kernel<kMaxThreads, kMinBlocks>
+      <<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(cand), static_cast<const int*>(cs),
+          static_cast<const float*>(fwd), static_cast<const float*>(v),
+          static_cast<float*>(dcand), tiles_x, tile_size, img_w, img_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -83,11 +96,10 @@ extern "C" int splat_flat_bwd(const void* cand, const void* cs,
                               const void* fwd, const void* v, void* dcand,
                               int n_tiles, int tiles_x, int tile_size,
                               int img_w, int img_h, void* stream) {
-  const int threads = tile_size * tile_size;
-  splat_flat_bwd_kernel<<<n_tiles, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cand), static_cast<const int*>(cs),
-      static_cast<const float*>(fwd), static_cast<const float*>(v),
-      static_cast<float*>(dcand), tiles_x, tile_size, img_w, img_h);
-  return static_cast<int>(cudaGetLastError());
+  if (tile_size * tile_size <= 256) {
+    return launch<256, 3>(cand, cs, fwd, v, dcand, n_tiles, tiles_x,
+                          tile_size, img_w, img_h, stream);
+  }
+  return launch<1024, 1>(cand, cs, fwd, v, dcand, n_tiles, tiles_x, tile_size,
+                         img_w, img_h, stream);
 }

@@ -18,22 +18,25 @@
 // gradient masked to power < 0. The total comes from K3's output, so the TPU
 // kernel's first pass, which recomputed it over all walked chunks, is gone.
 // Each candidate's 256 per-pixel contributions (dx, dy, d conic a/b/c,
-// d opacity, d rgb, d depth) are reduced with warp shuffles, then
-// shared-memory atomics into a [128][10] buffer, and written to the chunk's
-// rows of dcand [T, K, 16], the layout of the gather, whose transpose is
-// then one index_add. Slot (t, k) belongs to one tile, so no global atomics
-// are needed and the result does not depend on block scheduling (the order
-// of the shared-memory atomics across a block's eight warps does vary).
-// Columns 10-15 and every slot beyond the walked chunks stay as the
-// wrapper's torch.zeros left them; a dead entry (opacity 0) has alpha 0
-// everywhere and receives exact zeros.
+// d opacity, d rgb, d depth) are summed and written to the chunk's rows of
+// dcand [T, K, 16], the layout of the gather, whose transpose is then one
+// index_add; all 16 columns of a walked row are written (10-15 zeros). Slot
+// (t, k) belongs to one tile, so no global atomics are needed. Every slot
+// beyond the walked chunks stays as the wrapper's torch.zeros left it; a
+// dead entry (opacity 0) has alpha 0 everywhere and receives exact zeros.
 //
-// Bounds on the card. Like K3 it is bound by per-candidate operations (exp,
-// log1p, one division) and here also by the cross-pixel reductions: 10 warp
-// reductions per live candidate. Design: one block per tile, one thread per
-// pixel, candidates broadcast from shared memory; a candidate no pixel of a
-// warp reaches contributes exact zeros, so that warp skips its reduction.
-// The per-chunk arithmetic is splat_walk.cuh's, shared with K1-K3.
+// Bounds on the card. By the count of bytes (the wrapper clears all of
+// dcand, 67 MB for lists [1024, 1024, 16], of which the walk writes a
+// third), but the time goes to operations as in K2: the alpha of every
+// (candidate, pixel) pair and, for the live ones, a log1p, an exp, a
+// division and ten sums over the tile. The walk is K2's,
+// splat_walk.cuh::backprop_tile: per-warp slabs instead of shared-memory
+// atomics, a 12-shuffle transposing butterfly, alphas in groups of eight
+// with a ballot so that only candidates live in the warp reach the serial
+// part, the next chunk fetched by cp.async meanwhile. One block per tile,
+// one thread per pixel; a 256-thread block takes 52 KB of dynamic shared
+// memory and 71 registers a thread: three blocks an SM. Sums are taken in a
+// fixed order, so the result is the same bits from launch to launch.
 
 #include "splat_walk.cuh"
 
@@ -41,20 +44,24 @@ namespace {
 
 using namespace splat_walk;
 
-__global__ void splat_topk_bwd_kernel(const float* __restrict__ cand,
-                                      const float* __restrict__ origins,
-                                      const int* __restrict__ used,
-                                      const float* __restrict__ fwd,
-                                      const float* __restrict__ v,
-                                      float* __restrict__ dcand, int k_total,
-                                      int tile_size, int img_w, int img_h) {
-  __shared__ __align__(16) float sc[kChunk * kRows];
-  __shared__ float sg[kChunk * kGradRows];
-
+// The launch bounds are the register budget only: a 1024-thread block can
+// be given 64 registers a thread and no more; for the 256-thread blocks of
+// 16 x 16 tiles ptxas takes 71 at three blocks an SM, which is 4-6% faster
+// here than 64 at four.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+    splat_topk_bwd_kernel(const float* __restrict__ cand,
+                          const float* __restrict__ origins,
+                          const int* __restrict__ used,
+                          const float* __restrict__ fwd,
+                          const float* __restrict__ v,
+                          float* __restrict__ dcand, int k_total,
+                          int tile_size, int img_w, int img_h) {
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int n_pix = blockDim.x;
-  const int lane = p & 31;
+  const int n_used = min(max(used[t], 0), k_total / kChunk);
+  if (n_used == 0) return;
   const float px =
       origins[2 * t] + static_cast<float>(p % tile_size) + 0.5f;
   const float py =
@@ -66,22 +73,27 @@ __global__ void splat_topk_bwd_kernel(const float* __restrict__ cand,
   const float total = fwd[pix * 8 + 6];
   const float vp[5] = {v[pix * 8 + 0], v[pix * 8 + 1], v[pix * 8 + 2],
                        v[pix * 8 + 3], v[pix * 8 + 4]};
-  const int n_used = min(max(used[t], 0), k_total / kChunk);
-  const size_t list0 = static_cast<size_t>(t) * k_total * kRows;
+  const size_t last = (static_cast<size_t>(t) * k_total +
+                       static_cast<size_t>(n_used - 1) * kChunk) * kRows;
+  backprop_tile(cand + last, dcand + last, n_used, px, py, in_img, total, vp);
+}
 
-  float suffix = 0.f;   // sum log(1 - a) over later candidates
-  float s_after = 0.f;  // sum w s over later candidates
-  for (int j = 0; j < n_used; ++j) {
-    const size_t row0 =
-        list0 + static_cast<size_t>(n_used - 1 - j) * kChunk * kRows;
-    stage_chunk(sc, cand + row0, p, n_pix);
-    for (int i = p; i < kChunk * kGradRows; i += n_pix) sg[i] = 0.f;
-    __syncthreads();
-    backprop_chunk(sc, sg, px, py, in_img, total, vp, suffix, s_after, lane);
-    __syncthreads();
-    store_chunk_grads(dcand + row0, sg, p, n_pix);
-    __syncthreads();
-  }
+template <int kMaxThreads, int kMinBlocks>
+int launch(const void* cand, const void* origins, const void* used,
+           const void* fwd, const void* v, void* dcand, int n_tiles,
+           int k_total, int tile_size, int img_w, int img_h, void* stream) {
+  const int threads = tile_size * tile_size;
+  const size_t smem = bwd_smem_bytes(threads);
+  const cudaError_t err =
+      allow_bwd_smem(splat_topk_bwd_kernel<kMaxThreads, kMinBlocks>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  splat_topk_bwd_kernel<kMaxThreads, kMinBlocks>
+      <<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(cand), static_cast<const float*>(origins),
+          static_cast<const int*>(used), static_cast<const float*>(fwd),
+          static_cast<const float*>(v), static_cast<float*>(dcand), k_total,
+          tile_size, img_w, img_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -91,12 +103,10 @@ extern "C" int splat_topk_bwd(const void* cand, const void* origins,
                               const void* v, void* dcand, int n_tiles,
                               int k_total, int tile_size, int img_w,
                               int img_h, void* stream) {
-  const int threads = tile_size * tile_size;
-  splat_topk_bwd_kernel<<<n_tiles, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cand), static_cast<const float*>(origins),
-      static_cast<const int*>(used), static_cast<const float*>(fwd),
-      static_cast<const float*>(v), static_cast<float*>(dcand), k_total,
-      tile_size, img_w, img_h);
-  return static_cast<int>(cudaGetLastError());
+  if (tile_size * tile_size <= 256) {
+    return launch<256, 3>(cand, origins, used, fwd, v, dcand, n_tiles,
+                          k_total, tile_size, img_w, img_h, stream);
+  }
+  return launch<1024, 1>(cand, origins, used, fwd, v, dcand, n_tiles, k_total,
+                         tile_size, img_w, img_h, stream);
 }

@@ -3,7 +3,7 @@ their plain PyTorch versions, on the card. CUDA kernels have no CPU mode, so
 every test here needs an NVIDIA GPU with nvcc and skips without one; run
 them on the card with
 
-    python -m pytest tests/test_torch_cuda_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 """
 
 import numpy as np
@@ -14,6 +14,12 @@ from holoscene_tpu_torch.ops import gaussians as tg
 from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_flat as tflat
 from holoscene_tpu_torch.ops import splat_topk as ttopk
+from test_torch_walk_cases import (
+    cotangent,
+    flat_layout,
+    hard_tiles,
+    topk_layout,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,12 +90,14 @@ def test_kernels_match_plain(cuda, case):
     v[..., 5:] = 0.0
     dref = tflat.flat_bwd(cand, cs, ref, v, tiles, 16, res, res)
     n_bwd = tflat.flat_bwd.launches
-    dker = tflat.flat_bwd(cand.to(cuda), cs.to(cuda), ref.to(cuda),
-                          v.to(cuda), tiles, 16, res, res)
+    dker, again = (tflat.flat_bwd(cand.to(cuda), cs.to(cuda), ref.to(cuda),
+                                  v.to(cuda), tiles, 16, res, res)
+                   for _ in range(2))
     torch.cuda.synchronize()
-    assert tflat.flat_bwd.launches == n_bwd + 1
+    assert tflat.flat_bwd.launches == n_bwd + 2
     np.testing.assert_allclose(dker.cpu().numpy(), dref.numpy(),
                                atol=BWD_ATOL, rtol=BWD_RTOL)
+    assert torch.equal(dker, again)   # sums in a fixed order: the same bits
 
 
 def test_composite_autograd_on_card_matches_cpu(cuda):
@@ -155,13 +163,14 @@ def test_topk_kernels_match_plain(cuda, case):
     v[..., 5:] = 0.0
     dref = ttopk.composite_bwd(cand, origins, ref_used, ref, v, 16, res, res)
     n_bwd = ttopk.composite_bwd.launches
-    dker = ttopk.composite_bwd(cand.to(cuda), origins.to(cuda),
-                               ref_used.to(cuda), ref.to(cuda), v.to(cuda),
-                               16, res, res)
+    dker, again = (ttopk.composite_bwd(
+        cand.to(cuda), origins.to(cuda), ref_used.to(cuda), ref.to(cuda),
+        v.to(cuda), 16, res, res) for _ in range(2))
     torch.cuda.synchronize()
-    assert ttopk.composite_bwd.launches == n_bwd + 1
+    assert ttopk.composite_bwd.launches == n_bwd + 2
     np.testing.assert_allclose(dker.cpu().numpy(), dref.numpy(),
                                atol=BWD_ATOL, rtol=BWD_RTOL)
+    assert torch.equal(dker, again)   # sums in a fixed order: the same bits
     assert not dker.cpu()[cand[..., 5] == 0].any()   # dead slots: exact 0
 
 
@@ -193,3 +202,50 @@ def test_topk_render_autograd_on_card_matches_cpu(cuda, ortho):
     np.testing.assert_allclose(results[1][0], results[0][0], atol=FWD_ATOL)
     for gc, gk in zip(results[0][1], results[1][1]):
         np.testing.assert_allclose(gk, gc, atol=BWD_ATOL, rtol=BWD_RTOL)
+
+
+def _hard_walk(layout, ts, dev):
+    """The hand-built tiles of test_torch_walk_cases.py in one layout on
+    `dev`: (fwd(), bwd(out, used, v), v)."""
+    lists, origins, (w, h) = hard_tiles(ts=ts)
+    v = torch.as_tensor(cotangent(len(lists), origins, (w, h), ts)).to(dev)
+    if layout == "flat":
+        cand, cs, cc = (torch.as_tensor(x).to(dev) for x in flat_layout(lists))
+        geom = (3, ts, w, h)
+
+        def fwd():
+            out = tflat.flat_fwd(cand, cs, cc, *geom)
+            return out, out[:, 0, 5].int()
+
+        return fwd, lambda o, _u, v: tflat.flat_bwd(cand, cs, o, v, *geom), v
+    cand, counts = (torch.as_tensor(x).to(dev) for x in topk_layout(lists))
+    org = torch.as_tensor(origins).to(dev)
+    return (lambda: ttopk.composite_fwd(cand, org, counts, ts, w, h),
+            lambda o, u, v: ttopk.composite_bwd(cand, org, u, o, v, ts, w, h),
+            v)
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("layout", ["flat", "topk"])
+def test_backward_walks_on_hard_tiles(cuda, layout, ts):
+    """K2 / K4 against plain where the walk is most likely wrong: used = 0
+    beside a full walk, candidates live in one warp only or nowhere, the
+    0.999 clamp, edge tiles, an early stop; two launches give the same bits.
+    ts = 32 runs the 1024-thread blocks."""
+    fwd_p, bwd_p, v_p = _hard_walk(layout, ts, "cpu")
+    ref, ref_used = fwd_p()
+    dref = bwd_p(ref, ref_used, v_p)
+    fwd, bwd, v = _hard_walk(layout, ts, cuda)
+    out, used = fwd()
+    assert used.tolist() == ref_used.tolist()
+    assert used.tolist()[0] == 0 and used.tolist()[1] == 3
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=FWD_ATOL)
+    n_bwd = tflat.flat_bwd.launches + ttopk.composite_bwd.launches
+    first = bwd(ref.to(cuda), ref_used.to(cuda), v)
+    second = bwd(ref.to(cuda), ref_used.to(cuda), v)
+    torch.cuda.synchronize()
+    assert tflat.flat_bwd.launches + ttopk.composite_bwd.launches == n_bwd + 2
+    assert torch.equal(first, second)
+    np.testing.assert_allclose(first.cpu().numpy(), dref.numpy(),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    assert not first.cpu()[dref == 0].any()   # plain's exact zeros stay zeros

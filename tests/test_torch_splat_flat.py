@@ -13,6 +13,7 @@ from holoscene_tpu.ops import splat_flat as jflat
 from holoscene_tpu.ops.gaussians import project_gaussians_fused as jproject
 from holoscene_tpu_torch.ops import splat_flat as tflat
 from test_torch_threads import few_torch_threads  # noqa: F401
+from test_torch_walk_cases import cotangent, flat_layout, hard_tiles
 
 CHUNK = tflat.CHUNK
 # K1: JAX's default bf16x2 triangular prefix matmul is ~f32-accurate
@@ -109,16 +110,19 @@ def _bins_both(xy, depth, conic, opac, valid, res, used=None, plan=None):
     return plan, {k: np.asarray(v) for k, v in jb.items()}, tb
 
 
-def _jax_walk(cand_rows, cs, cc, res):
-    """JAX _flat_core forward (interpret) + VJP closure, row-major I/O."""
+def _jax_walk(cand_rows, cs, cc, res, height=None):
+    """JAX _flat_core forward (interpret) + VJP closure, row-major I/O, for
+    a res x res image (res x height if given)."""
     tiles = -(-res // 16)
+    tiles_y = tiles if height is None else -(-height // 16)
     n_chunks = cand_rows.shape[0] // CHUNK
     cand = jnp.swapaxes(jnp.asarray(cand_rows).reshape(n_chunks, CHUNK, 16),
                         1, 2)
 
     def core(c):
         return jflat._flat_core(c, jnp.asarray(cs), jnp.asarray(cc),
-                                tiles * tiles, 16, tiles, res, res, True,
+                                tiles * tiles_y, 16, tiles, res,
+                                res if height is None else height, True,
                                 "bf16x2", "vpu")
 
     out, vjp = jax.vjp(core, cand)
@@ -212,6 +216,24 @@ def test_walk_plain_matches_jax(name):
     (d_auto,) = torch.autograd.grad(t_out, cand, _t(v))
     np.testing.assert_allclose(d_plain.numpy(), d_auto.numpy(),
                                atol=BWD_ATOL, rtol=BWD_RTOL)
+
+
+def test_walk_plain_matches_jax_on_hard_tiles():
+    """K1/K2 plain vs the JAX kernels on the hand-built tiles of
+    test_torch_walk_cases.py: used = 0 beside a full walk, candidates live
+    in one warp's rows only or nowhere, the 0.999 clamp, edge tiles (their
+    out-of-image cotangents zero), an early stop."""
+    lists, origins, (w, h) = hard_tiles()
+    rows, cs, cc = flat_layout(lists)
+    j_out, j_bwd = _jax_walk(rows, cs, cc, w, h)
+    geom = (-(-w // 16), 16, w, h)
+    t_out = tflat.flat_fwd(_t(rows), _t(cs), _t(cc), *geom)
+    np.testing.assert_allclose(t_out.numpy(), j_out, atol=FWD_ATOL)
+    assert j_out[:, 0, 5].tolist() == [0, 3, 2, 2, 2, 1]
+    v = cotangent(len(lists), origins, (w, h))
+    d_plain = tflat.flat_bwd(_t(rows), _t(cs), t_out, _t(v), *geom)
+    np.testing.assert_allclose(d_plain.numpy(), j_bwd(v), atol=BWD_ATOL,
+                               rtol=BWD_RTOL)
 
 
 def test_composite_tiles_flat_matches_jax():

@@ -18,6 +18,7 @@ from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_topk as ttopk
 from holoscene_tpu_torch.ops.splat_flat import gather_payload, tile_pixels_at
 from test_torch_threads import few_torch_threads  # noqa: F401
+from test_torch_walk_cases import cotangent, hard_tiles, topk_layout
 
 FWD_ATOL = 2e-4
 BWD_ATOL, BWD_RTOL = 5e-4, 5e-3
@@ -133,6 +134,42 @@ def test_fwd_and_bwd_plain_match_pallas_interpret(case):
     assert not dcand[live == 0].any()
     beyond = torch.arange(k)[None, :] >= used[:, None] * 128
     assert not dcand[beyond].any()
+
+
+def test_fwd_and_bwd_plain_match_pallas_interpret_on_hard_tiles():
+    """K3/K4 plain vs the Pallas kernels on the hand-built tiles of
+    test_torch_walk_cases.py: used = 0 beside a full walk, candidates live
+    in one warp's rows only or nowhere, the 0.999 clamp, edge tiles (their
+    out-of-image cotangents zero: the reference starts those pixels at
+    T = 1, the port at T = 0), an early stop."""
+    lists, origins, (w, h) = hard_tiles()
+    cand, counts = map(torch.as_tensor, topk_layout(lists))
+    origins = torch.as_tensor(origins)
+    jx = _jax_lists(cand, torch.ones(cand.shape[:2]))
+    jorig = jnp.asarray(origins.numpy())
+    jcounts = jnp.asarray(counts.numpy().astype(np.float32))
+    jrgb, jdepth, jalpha, jused = jpal._core_fwd_impl(
+        *jx, jorig, jcounts, TS, True, img_w=w, img_h=h)
+    out, used = ttopk.composite_fwd(cand, origins, counts, TS, w, h)
+    assert used.tolist() == [0, 3, 2, 2, 2, 1]
+    np.testing.assert_array_equal(used.numpy(), np.asarray(jused)[:, 0])
+    for got, ref in ((out[..., :3], jrgb), (out[..., 3], jdepth),
+                     (out[..., 4], jalpha)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=FWD_ATOL)
+    v = torch.as_tensor(cotangent(len(lists), origins.numpy(), (w, h)))
+    cts = (jnp.asarray(v[..., :3].numpy()), jnp.asarray(v[..., 3].numpy()),
+           jnp.asarray(v[..., 4].numpy()))
+    jd_xy, jd_conic, jd_rgb, jd_op, jd_z, _, _ = jpal._core_bwd(
+        TS, True, "log", 128, w, h, (*jx, jorig, jcounts, jused), cts)
+    dcand = ttopk.composite_bwd(cand, origins, used, out, v, TS, w, h)
+    for name, got, ref in (("xy", dcand[..., 0:2], jd_xy),
+                           ("conic", dcand[..., 2:5], jd_conic),
+                           ("op", dcand[..., 5], jd_op),
+                           ("rgb", dcand[..., 6:9], jd_rgb),
+                           ("z", dcand[..., 9], jd_z)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=BWD_ATOL, rtol=BWD_RTOL, err_msg=name)
 
 
 def test_closed_form_backward_is_the_autograd_of_the_forward():

@@ -27,14 +27,14 @@ Phases, one '== ' line each:
                  metrics.json written, PSNR finite, K3 launched per view
   8 kernels      K1-K4 vs plain again, at one training frame's shapes (max
                  abs error, kernel ms beside plain ms and the card's bound;
-                 for the redesigned backward walks K2/K4 also the time of
-                 the walk they replaced and the histogram of chunks walked
-                 per tile), and K3/K4 vs plain on the lists of the two other
+                 for every kernel the time of the walk its redesign
+                 replaced, and the histogram of chunks walked per tile),
+                 and K3/K4 vs plain on the lists of the two other
                  paths that launch them: one orthographic pack view as the
                  invisible-view step renders it (one object's gaussians
                  visible) and one gs_render view of the exported ply at its
                  calibrated K
-Wherever K2 or K4 is held against plain (phases 3 and 8) it is launched
+Wherever a kernel is held against plain (phases 3 and 8) it is launched
 twice on the same inputs and the two results must be the same bits.
 The launch counts are set to 0 just before each of the paths 4-7 and read
 just after. Then the kernel table as one JSON line and last the device line
@@ -82,9 +82,10 @@ SMALL_RES, SMALL_N, SMALL_K = 128, 5000, 256
 MEM_BYTES_S = 3.35e12         # H100 SXM HBM3
 FP32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores
 OPS_TEST, OPS_LIVE_FWD, OPS_LIVE_BWD = 17, 13, 51
-# the backward walk K2/K4 had before its redesign (shared-memory atomics),
-# this script's phase 8 on an NVIDIA H100 80GB HBM3 at 700.00 W
-EARLIER_MS = {"K2": 0.823, "K4": 0.883}
+# each walk before its redesign, this script's phase 8 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W: the backward walks with shared-memory atomics, the
+# forward walks that evaluated every alpha without a look-ahead
+EARLIER_MS = {"K1": 0.174, "K2": 0.823, "K3": 0.210, "K4": 0.883}
 
 KERNELS = {
     "K1": dict(name="K1 splat_flat_fwd", route="cuda",
@@ -184,9 +185,13 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     kf, kb = names
     ref, ref_used = fwd_plain()
     out, used = fwd()
+    again, used_again = fwd()
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise RuntimeError(f"{kf} output is not finite")
+    if not (torch.equal(out, again) and torch.equal(used, used_again)):
+        raise RuntimeError(f"{kf}: two launches on the same inputs differ "
+                           f"(max abs {float((out - again).abs().max())})")
     if not torch.equal(used.long(), ref_used.long()):
         raise RuntimeError(f"{kf} walked other chunk counts than plain")
     err_f = float((out - ref).abs().max())

@@ -19,17 +19,20 @@
 // every T_k from it), ended-live flag.
 //
 // Bounds on the card. Per tile the walk reads used x 8 KB of candidates and
-// does ~25 flops per (pixel, candidate): at the 512^2 training shapes it is
-// bound by the exp/log1p issue rate and by the serial dependence through
-// the running sum inside each thread, not by memory. Design: one block per
-// tile and one thread per pixel, so every candidate row is a shared-memory
-// broadcast (all threads read the same address); the chunk is staged with
-// 16-byte loads straight from the row-major [c_max, 16] gather (no field-
-// major transpose: that layout only served the TPU's DMA engine); candidates
-// whose alpha is below 1/255 skip the exp/log1p work; the tile-wide
-// termination vote is one __syncthreads_or per chunk, which is also the
-// barrier that protects the staging buffer. The per-chunk arithmetic is
-// splat_walk.cuh's, shared with K2-K4.
+// does ~25 flops per (pixel, candidate) up to the 1/255 cut and ~40 more,
+// log1pf the most of them, per candidate some pixel keeps: operations, not
+// memory. The walk it replaced evaluated the alpha of all 128 candidates of
+// every chunk at every pixel, 75% of its time, though a warp had a live
+// lane for a third of (warp, candidate) pairs on a training frame.
+// Design (splat_walk.cuh::composite_tile, shared with K3): one block per
+// tile, one thread per pixel, each warp on an 8 x 4 pixel block; a warp
+// first tests the chunk's 128 candidates against the rectangle of its
+// pixel centres (the binning's Schur bound, with a margin that covers the
+// float rounding) and composites only those it keeps, 41% of the pairs,
+// four at a time with their alphas, log1p and exps overlapped; the next
+// chunk is in flight (cp.async) meanwhile, and the tile-wide termination
+// vote is the one block barrier a chunk. Every output is the same bits as
+// the walk that visited all 128 rows. The output stays indexed by pixel.
 
 #include "splat_walk.cuh"
 
@@ -37,47 +40,47 @@ namespace {
 
 using namespace splat_walk;
 
-__global__ void splat_flat_fwd_kernel(const float* __restrict__ cand,
-                                      const int* __restrict__ cs,
-                                      const int* __restrict__ cc,
-                                      float* __restrict__ out, int tiles_x,
-                                      int tile_size, int img_w, int img_h) {
-  __shared__ __align__(16) float sc[kChunk * kRows];
-
+// The launch bounds are the register budget: a 1024-thread block (tile 32)
+// can be given 64 registers a thread and no more; for the 256-thread blocks
+// of 16 x 16 tiles ptxas takes 60-62 at four blocks an SM, which is faster
+// here than 48 at five (8-10%) or 32 at eight (27%, with spills).
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+    splat_flat_fwd_kernel(const float* __restrict__ cand,
+                          const int* __restrict__ cs,
+                          const int* __restrict__ cc,
+                          float* __restrict__ out, int tiles_x,
+                          int tile_size, int img_w, int img_h) {
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int n_pix = blockDim.x;
+  const int q = fwd_pixel(threadIdx.x, tile_size);
   const float px =
-      static_cast<float>((t % tiles_x) * tile_size + p % tile_size) + 0.5f;
+      static_cast<float>((t % tiles_x) * tile_size + q % tile_size) + 0.5f;
   const float py =
-      static_cast<float>((t / tiles_x) * tile_size + p / tile_size) + 0.5f;
-  float trans =
-      (px < static_cast<float>(img_w) && py < static_cast<float>(img_h))
-          ? 1.0f
-          : 0.0f;
-
-  const int c0 = cs[t];
+      static_cast<float>((t / tiles_x) * tile_size + q / tile_size) + 0.5f;
+  const bool in_img =
+      px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
   const int m = cc[t];
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_z = 0.f, tot = 0.f;
-  int kc = 0;
-  int live = __syncthreads_or(trans > kTermEps);
-  while (kc < m && live) {
-    stage_chunk(sc, cand + static_cast<size_t>(c0 + kc) * kChunk * kRows, p,
-                n_pix);
-    __syncthreads();
-    const float cum =
-        composite_chunk(sc, px, py, trans, acc_r, acc_g, acc_b, acc_z);
-    trans *= expf(cum);
-    tot += cum;
-    ++kc;
-    live = __syncthreads_or(trans > kTermEps);
-  }
+  const FwdPixel r = composite_tile(cand + static_cast<size_t>(cs[t]) * kStep,
+                                    m, px, py, in_img);
 
-  float* o = out + (static_cast<size_t>(t) * n_pix + p) * 8;
-  reinterpret_cast<float4*>(o)[0] = make_float4(acc_r, acc_g, acc_b, acc_z);
+  float* o = out + (static_cast<size_t>(t) * blockDim.x + q) * 8;
+  reinterpret_cast<float4*>(o)[0] = make_float4(r.r, r.g, r.b, r.z);
   reinterpret_cast<float4*>(o)[1] =
-      make_float4(1.0f - trans, static_cast<float>(kc), tot,
-                  (kc >= m && live) ? 1.0f : 0.0f);
+      make_float4(1.0f - r.trans, static_cast<float>(r.used), r.tot,
+                  (r.used >= m && r.live) ? 1.0f : 0.0f);
+}
+
+template <int kMaxThreads, int kMinBlocks>
+int launch(const void* cand, const void* cs, const void* cc, void* out,
+           int n_tiles, int tiles_x, int tile_size, int img_w, int img_h,
+           void* stream) {
+  splat_flat_fwd_kernel<kMaxThreads, kMinBlocks>
+      <<<n_tiles, tile_size * tile_size, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(cand), static_cast<const int*>(cs),
+          static_cast<const int*>(cc), static_cast<float*>(out), tiles_x,
+          tile_size, img_w, img_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -86,11 +89,10 @@ extern "C" int splat_flat_fwd(const void* cand, const void* cs,
                               const void* cc, void* out, int n_tiles,
                               int tiles_x, int tile_size, int img_w,
                               int img_h, void* stream) {
-  const int threads = tile_size * tile_size;
-  splat_flat_fwd_kernel<<<n_tiles, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cand), static_cast<const int*>(cs),
-      static_cast<const int*>(cc), static_cast<float*>(out), tiles_x,
-      tile_size, img_w, img_h);
-  return static_cast<int>(cudaGetLastError());
+  if (tile_size * tile_size <= 256) {
+    return launch<256, 4>(cand, cs, cc, out, n_tiles, tiles_x, tile_size,
+                          img_w, img_h, stream);
+  }
+  return launch<1024, 1>(cand, cs, cc, out, n_tiles, tiles_x, tile_size,
+                         img_w, img_h, stream);
 }

@@ -23,18 +23,23 @@
 // kernel made that pass; its two spare output channels were unused).
 //
 // Bounds on the card. Per tile the walk reads used x 8 KB of candidates and
-// does ~25 flops plus exp/log1p per live (pixel, candidate): it is bound by
-// operations (the special-function units and the serial dependence through
-// each thread's running sum), not by memory. Design: one block per tile and
-// one thread per pixel, the chunk staged in shared memory with 16-byte
-// loads straight from the row-major [T, K, 16] gather, every candidate row
-// a shared-memory broadcast. The TPU kernel's transposed [T, 2, K] /
+// does ~25 flops per (pixel, candidate) up to the 1/255 cut and ~40 more,
+// log1pf the most of them, per candidate some pixel keeps: operations, not
+// memory. The walk it replaced evaluated the alpha of every candidate of
+// every walked chunk at every pixel, 79% of its time, though a warp had a
+// live lane for under a quarter of (warp, candidate) pairs on a training
+// frame. Design (splat_walk.cuh::composite_tile, shared with K1): one block
+// per tile, one thread per pixel, each warp on an 8 x 4 pixel block; a warp
+// first tests the chunk's 128 candidates against the rectangle of its
+// pixel centres (the binning's Schur bound, with a margin that covers the
+// float rounding) and composites only those it keeps, 30% of the pairs,
+// four at a time with their alphas, log1p and exps overlapped; the next
+// chunk is in flight (cp.async) meanwhile, and the tile-wide termination
+// vote is the one block barrier a chunk. Every output is the same bits as
+// the walk that visited all rows. The TPU kernel's transposed [T, 2, K] /
 // [T, 4, K] inputs and its [P,128]x[128,128] triangular matmuls (a prefix
 // sum on the matrix unit) have no counterpart: each thread runs the
-// sequential product itself. The tile-wide termination vote is one
-// __syncthreads_or per chunk, which is also the barrier that protects the
-// staging buffer. The per-chunk arithmetic is splat_walk.cuh's, shared with
-// K1, K2 and K4.
+// sequential sum itself, from the row-major [T, K, 16] gather.
 
 #include "splat_walk.cuh"
 
@@ -42,48 +47,48 @@ namespace {
 
 using namespace splat_walk;
 
-__global__ void splat_topk_fwd_kernel(const float* __restrict__ cand,
-                                      const float* __restrict__ origins,
-                                      const int* __restrict__ counts,
-                                      float* __restrict__ out,
-                                      int* __restrict__ used, int k_total,
-                                      int tile_size, int img_w, int img_h) {
-  __shared__ __align__(16) float sc[kChunk * kRows];
-
+// The launch bounds are the register budget: a 1024-thread block (tile 32)
+// can be given 64 registers a thread and no more; for the 256-thread blocks
+// of 16 x 16 tiles ptxas takes 60-62 at four blocks an SM, which is faster
+// here than 48 at five (8-10%) or 32 at eight (27%, with spills).
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+    splat_topk_fwd_kernel(const float* __restrict__ cand,
+                          const float* __restrict__ origins,
+                          const int* __restrict__ counts,
+                          float* __restrict__ out, int* __restrict__ used,
+                          int k_total, int tile_size, int img_w, int img_h) {
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int n_pix = blockDim.x;
+  const int q = fwd_pixel(threadIdx.x, tile_size);
   const float px =
-      origins[2 * t] + static_cast<float>(p % tile_size) + 0.5f;
+      origins[2 * t] + static_cast<float>(q % tile_size) + 0.5f;
   const float py =
-      origins[2 * t + 1] + static_cast<float>(p / tile_size) + 0.5f;
-  float trans =
-      (px < static_cast<float>(img_w) && py < static_cast<float>(img_h))
-          ? 1.0f
-          : 0.0f;
-
-  const float* list = cand + static_cast<size_t>(t) * k_total * kRows;
+      origins[2 * t + 1] + static_cast<float>(q / tile_size) + 0.5f;
+  const bool in_img =
+      px < static_cast<float>(img_w) && py < static_cast<float>(img_h);
   const int by_count = (max(counts[t], 0) + kChunk - 1) / kChunk;
-  const int m = min(k_total / kChunk, by_count);
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_z = 0.f, tot = 0.f;
-  int kc = 0;
-  int live = __syncthreads_or(trans > kTermEps);
-  while (kc < m && live) {
-    stage_chunk(sc, list + static_cast<size_t>(kc) * kChunk * kRows, p,
-                n_pix);
-    __syncthreads();
-    const float cum =
-        composite_chunk(sc, px, py, trans, acc_r, acc_g, acc_b, acc_z);
-    trans *= expf(cum);
-    tot += cum;
-    ++kc;
-    live = __syncthreads_or(trans > kTermEps);
-  }
+  const FwdPixel r =
+      composite_tile(cand + static_cast<size_t>(t) * k_total * kRows,
+                     min(k_total / kChunk, by_count), px, py, in_img);
 
-  float* o = out + (static_cast<size_t>(t) * n_pix + p) * 8;
-  reinterpret_cast<float4*>(o)[0] = make_float4(acc_r, acc_g, acc_b, acc_z);
-  reinterpret_cast<float4*>(o)[1] = make_float4(1.0f - trans, 0.0f, tot, 0.0f);
-  if (p == 0) used[t] = kc;
+  float* o = out + (static_cast<size_t>(t) * blockDim.x + q) * 8;
+  reinterpret_cast<float4*>(o)[0] = make_float4(r.r, r.g, r.b, r.z);
+  reinterpret_cast<float4*>(o)[1] =
+      make_float4(1.0f - r.trans, 0.0f, r.tot, 0.0f);
+  if (threadIdx.x == 0) used[t] = r.used;
+}
+
+template <int kMaxThreads, int kMinBlocks>
+int launch(const void* cand, const void* origins, const void* counts,
+           void* out, void* used, int n_tiles, int k_total, int tile_size,
+           int img_w, int img_h, void* stream) {
+  splat_topk_fwd_kernel<kMaxThreads, kMinBlocks>
+      <<<n_tiles, tile_size * tile_size, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(cand), static_cast<const float*>(origins),
+          static_cast<const int*>(counts), static_cast<float*>(out),
+          static_cast<int*>(used), k_total, tile_size, img_w, img_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -92,11 +97,10 @@ extern "C" int splat_topk_fwd(const void* cand, const void* origins,
                               const void* counts, void* out, void* used,
                               int n_tiles, int k_total, int tile_size,
                               int img_w, int img_h, void* stream) {
-  const int threads = tile_size * tile_size;
-  splat_topk_fwd_kernel<<<n_tiles, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cand), static_cast<const float*>(origins),
-      static_cast<const int*>(counts), static_cast<float*>(out),
-      static_cast<int*>(used), k_total, tile_size, img_w, img_h);
-  return static_cast<int>(cudaGetLastError());
+  if (tile_size * tile_size <= 256) {
+    return launch<256, 4>(cand, origins, counts, out, used, n_tiles, k_total,
+                          tile_size, img_w, img_h, stream);
+  }
+  return launch<1024, 1>(cand, origins, counts, out, used, n_tiles, k_total,
+                         tile_size, img_w, img_h, stream);
 }

@@ -1,16 +1,42 @@
 // Device code shared by the four tile-walk kernels (K1/K2 of the flat
-// pipeline, K3/K4 of the top-K pipeline): the per-candidate alpha, the
-// forward compositing of one staged 128-candidate chunk and the closed-form
-// reverse walk of a tile. The kernels differ only in where a tile's chunks
-// come from (flat chunk ranges vs. the tile's own [K, 16] list), where its
-// pixels lie and how far it walks; the arithmetic per (pixel, candidate) is
-// the same and lives here once, so that all four round every alpha
-// identically (the build keeps -fmad=false for the same reason).
+// pipeline, K3/K4 of the top-K pipeline): the staging of a chunk, the
+// forward walk of a tile (composite_tile, K1 and K3) and the closed-form
+// reverse walk of a tile (backprop_tile, K2 and K4). The kernels differ
+// only in where a tile's chunks come from (flat chunk ranges vs. the tile's
+// own [K, 16] list), where its pixels lie and how far it walks; the
+// arithmetic per (pixel, candidate) is the same and lives here once, so
+// that all four round every alpha identically (the build keeps -fmad=false
+// for the same reason).
 //
 // A candidate is a row of 16 floats:
 //   x y conic_a conic_b conic_c opacity r g b depth one pad*5.
 // One thread owns one pixel; a chunk is staged in shared memory and every
-// thread reads the same row at the same time (a broadcast).
+// thread reads the same row at the same time (a broadcast). Both walks
+// stage only the 12 floats of a row they read, in two buffers filled by
+// cp.async: the copy of the next chunk is requested before the current one
+// is worked on.
+//
+// The forward walk (composite_tile, K1 and K3). On an H100 the walk it
+// replaced evaluated, at every pixel, the alpha of all 128 candidates of
+// every walked chunk, and that (with staging and barriers) was 75% / 79% of
+// K1 / K3; the serial chain of the live ones (exp of the running sum,
+// weight, four sums, log1p) the other 25% / 21%. Yet a warp had a live
+// lane for only 32% / 23% of (warp, candidate) pairs. What this one does:
+//  - a per-warp test before any alpha: each warp takes the 8 x 4 pixel
+//    block of fwd_pixel, tests the chunk's 128 candidates against the
+//    rectangle of its 32 pixel centres (warp_may_keep, 4 a lane: the
+//    binning's Schur bound with a margin for float rounding) and compacts
+//    the rows it keeps into a list; it passes 41% / 30% of the pairs.
+//  - alphas, log(1 - alpha) and the exps of the running sum before each
+//    candidate are taken four candidates at a time as straight-line code,
+//    so their latencies overlap; only the running sum and the four
+//    accumulations stay serial. The arithmetic and its order are those of
+//    the walk this replaced, so its results are the same bits.
+//  - the next chunk in flight; the termination vote is the one barrier a
+//    chunk.
+// What is left is bound by instruction throughput: with the chain out the
+// walk keeps two thirds of its time (the kept alphas, the test, the list);
+// without the warp test it is 1.5x / 1.8x slower.
 //
 // The backward walk (backprop_tile, K2 and K4). On an H100 the walk it
 // replaces spent 70% of its time summing each candidate's ten gradient
@@ -49,72 +75,21 @@ constexpr int kGradRows = 10;  // x y conic(3) opacity rgb depth
 constexpr float kTermEps = 1e-4f;
 constexpr float kAlphaEps = 1.0f / 255.0f;
 
-// Copy one chunk (kChunk rows, 8 KB) into shared memory with 16-byte loads.
-// The caller synchronises.
-__device__ __forceinline__ void stage_chunk(float* sc, const float* src,
-                                            int p, int n_pix) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(sc);
-  for (int i = p; i < kChunk * kRows / 4; i += n_pix) d4[i] = s4[i];
-}
-
-// Front-to-back compositing of the staged chunk at pixel (px, py), whose
-// transmittance at chunk entry is `trans`. Adds to the accumulators and
-// returns the chunk's sum of log(1 - alpha). Candidates below the 1/255 cut
-// skip the exp/log1p work.
-__device__ __forceinline__ float composite_chunk(const float* sc, float px,
-                                                 float py, float trans,
-                                                 float& acc_r, float& acc_g,
-                                                 float& acc_b, float& acc_z) {
-  float cum = 0.f;  // sum log(1 - alpha) of this chunk's earlier rows
-  for (int k = 0; k < kChunk; ++k) {
-    const float* c = sc + k * kRows;
-    const float dx = px - c[0];
-    const float dy = py - c[1];
-    const float power =
-        -0.5f * (c[2] * dx * dx + 2.0f * c[3] * dx * dy + c[4] * dy * dy);
-    const float a = fminf(0.999f, c[5] * expf(fminf(power, 0.0f)));
-    if (a < kAlphaEps) continue;
-    const float w = a * expf(cum) * trans;
-    acc_r += w * c[6];
-    acc_g += w * c[7];
-    acc_b += w * c[8];
-    acc_z += w * c[9];
-    cum += log1pf(-a);
-  }
-  return cum;
-}
-
-// ---------------------------------------------------------------------------
-// The backward walk
-// ---------------------------------------------------------------------------
-
-constexpr int kStageRows = 12;  // floats of a row the backward walk reads
+constexpr int kStageRows = 12;  // floats of a row that the walks read
+constexpr int kStage = kChunk * kStageRows;
+constexpr size_t kStep = static_cast<size_t>(kChunk) * kRows;
 constexpr int kGroup = 8;       // candidates whose alphas are taken together
+constexpr int kFwdGroup = 4;    // the same in the forward walk
 constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kMaxWarps = 32;  // warps of a 1024-thread block
+// slack of the forward walk's per-warp test, in units of d^T conic d:
+// absolute, and relative to the size of the quadratic form's terms
+constexpr float kCutMargin = 1e-3f;
+constexpr float kCutMarginRel = 1e-5f;
 
-// Dynamic shared memory of a backward block with n_warps warps, in floats:
-//   stage [2][kChunk][kStageRows] | slabs [n_warps][kChunk][kGradRows]
-//   | masks [n_warps][4] (unsigned)
-inline size_t bwd_smem_bytes(int threads) {
-  const size_t n_warps = threads / 32;
-  return sizeof(float) * (2 * kChunk * kStageRows +
-                          n_warps * kChunk * kGradRows + n_warps * 4);
-}
-
-// Let a backward kernel use that much dynamic shared memory (above 48 KB a
-// kernel has to ask), with the SM's shared memory at its largest so that as
-// many blocks as possible fit.
-template <typename Kernel>
-inline cudaError_t allow_bwd_smem(Kernel kernel, size_t bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
+// ---------------------------------------------------------------------------
+// Staging, shared by all four walks
+// ---------------------------------------------------------------------------
 
 // Ask for chunk `src` (kChunk rows of kRows floats, contiguous) to be copied
 // into `dst` [kChunk][kStageRows], three 16-byte pieces a row, without
@@ -138,6 +113,227 @@ __device__ __forceinline__ void prefetch_chunk(float* dst, const float* src,
 // Wait for this thread's copies; the caller's barrier makes all visible.
 __device__ __forceinline__ void wait_prefetch() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The forward walk
+// ---------------------------------------------------------------------------
+
+// The pixel (row-major index in the tile) that thread p of a forward block
+// composites: warp w takes the 8 x 4 block (w % (ts / 8), w / (ts / 8)) of
+// the tile, lane l its pixel (l % 8, l / 8). A block of 8 x 4 pixel centres
+// is a smaller target than a 16 x 2 strip: on training frame 0 the warp
+// test passes 41% / 30% of (warp, candidate) pairs of the flat / top-K walk
+// against 47% / 34% for strips.
+__device__ __forceinline__ int fwd_pixel(int p, int tile_size) {
+  const int warp = p >> 5;
+  const int lane = p & 31;
+  const int per_row = tile_size >> 3;
+  return ((warp / per_row) * 4 + (lane >> 3)) * tile_size +
+         (warp % per_row) * 8 + (lane & 7);
+}
+
+// May candidate row c reach alpha >= 1/255 at some pixel centre of the
+// rectangle [x_lo, x_hi] x [y_lo, y_hi]? False always for opacity < 1/255
+// (alpha <= opacity, exactly), never for a conic that is not positive
+// definite (or not a number), and otherwise only where the Schur lower
+// bound of d^T conic d over the rectangle (the binning's cull) exceeds
+// thr = 2 ln(255 op) by kCutMargin + kCutMarginRel x the size of the terms
+// of d^T conic d over the rectangle: that slack covers the float32
+// rounding of a pixel's power, its expf and the product with the opacity,
+// so a rejected candidate is one the walk skips at every pixel anyway.
+// The determinant and the comparison are taken in double (the products of
+// floats are exact there). Plain mirror: ops/splat_flat.py
+// warp_may_keep_plain.
+__device__ __forceinline__ bool warp_may_keep(const float* c, float x_lo,
+                                              float x_hi, float y_lo,
+                                              float y_hi) {
+  const float4 c0 = *reinterpret_cast<const float4*>(c);
+  const float2 c1 = *reinterpret_cast<const float2*>(c + 4);
+  const float gx = c0.x, gy = c0.y, ca = c0.z, cb = c0.w, cc = c1.x;
+  const float op = c1.y;
+  if (op < kAlphaEps) return false;
+  const double det = static_cast<double>(ca) * static_cast<double>(cc) -
+                     static_cast<double>(cb) * static_cast<double>(cb);
+  const double dxm = fmaxf(fmaxf(x_lo - gx, gx - x_hi), 0.0f);
+  const double dym = fmaxf(fmaxf(y_lo - gy, gy - y_hi), 0.0f);
+  const float ax = fmaxf(fabsf(x_lo - gx), fabsf(x_hi - gx));
+  const float ay = fmaxf(fabsf(y_lo - gy), fabsf(y_hi - gy));
+  const float spread =
+      ca * ax * ax + 2.0f * fabsf(cb) * ax * ay + cc * ay * ay;
+  const double limit = 2.0f * logf(255.0f * op) + kCutMargin +
+                       kCutMarginRel * spread;
+  const bool far = det * dxm * dxm > static_cast<double>(cc) * limit ||
+                   det * dym * dym > static_cast<double>(ca) * limit;
+  const bool definite = ca > 0.0f && cc > 0.0f && det > 0.0;
+  return !(definite && far);
+}
+
+// Front-to-back compositing of the staged chunk sc [kChunk][kStageRows] by
+// one warp at its lanes' pixels (px, py), whose transmittance at chunk
+// entry is `trans`, over the n candidates of `list` (their rows in the
+// chunk, ascending: those the warp test kept): adds to the accumulators
+// and returns the chunk's sum of log(1 - alpha). The candidates are taken
+// kFwdGroup at a time. Their alphas, their log(1 - alpha) and the exps of
+// the running sum before each are independent of each other, so they are
+// written as straight-line code whose latencies overlap; only the running
+// sum itself and the four accumulations are serial, in candidate order. A
+// group no lane keeps is skipped after its alphas. The arithmetic is that
+// of the plain versions and of the walk this replaced, which visited all
+// 128 rows, and so are the results, to the bit.
+__device__ __forceinline__ float composite_chunk(const float* sc,
+                                                 const unsigned char* list,
+                                                 int n, float px, float py,
+                                                 float trans, float& acc_r,
+                                                 float& acc_g, float& acc_b,
+                                                 float& acc_z) {
+  float cum = 0.f;  // sum log(1 - alpha) of this chunk's earlier rows
+  for (int g = 0; g < n; g += kFwdGroup) {
+    // the group's rows, four to a word of the list; a slot past the last
+    // candidate reads whatever row its byte names and takes alpha 0
+    const unsigned* words = reinterpret_cast<const unsigned*>(list + g);
+    int row[kFwdGroup];
+    float a[kFwdGroup];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < kFwdGroup; ++i) {
+      row[i] = ((words[i / 4] >> (8 * (i % 4))) & (kChunk - 1)) * kStageRows;
+      const float* c = sc + row[i];
+      const float4 c0 = *reinterpret_cast<const float4*>(c);
+      const float2 c1 = *reinterpret_cast<const float2*>(c + 4);
+      const float dx = px - c0.x;
+      const float dy = py - c0.y;
+      const float power = -0.5f * (c0.z * dx * dx + 2.0f * c0.w * dx * dy +
+                                   c1.x * dy * dy);
+      const float alpha = fminf(0.999f, c1.y * expf(fminf(power, 0.0f)));
+      a[i] = g + i < n ? alpha : 0.0f;
+      any = any || a[i] >= kAlphaEps;
+    }
+    if (!__any_sync(kFullWarp, any)) continue;
+    float lg[kFwdGroup];
+#pragma unroll
+    for (int i = 0; i < kFwdGroup; ++i) lg[i] = log1pf(-a[i]);
+    float before[kFwdGroup];  // the running sum before each candidate
+#pragma unroll
+    for (int i = 0; i < kFwdGroup; ++i) {
+      before[i] = cum;
+      if (a[i] >= kAlphaEps) cum += lg[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kFwdGroup; ++i) {
+      const float* c = sc + row[i];
+      const float4 c1 = *reinterpret_cast<const float4*>(c + 4);
+      const float2 c2 = *reinterpret_cast<const float2*>(c + 8);
+      const float w = a[i] * expf(before[i]) * trans;
+      if (a[i] >= kAlphaEps) {
+        acc_r += w * c1.z;
+        acc_g += w * c1.w;
+        acc_b += w * c2.x;
+        acc_z += w * c2.y;
+      }
+    }
+  }
+  return cum;
+}
+
+// What the forward walk of a tile leaves at one pixel.
+struct FwdPixel {
+  float r, g, b, z;  // accumulated colour and depth
+  float trans;       // transmittance after the walked chunks
+  float tot;         // sum log(1 - alpha) over the walked chunks
+  int used;          // chunks walked (the same for the whole block)
+  bool live;         // the tile's last vote: some pixel has T > 1e-4
+};
+
+// The forward walk of one tile by its block (one thread per pixel, at
+// (px, py), fwd_pixel's mapping): up to m chunks, the first at `first` and
+// each next one kChunk rows further, front to back, until the chunk after
+// which no pixel of the tile has T > 1e-4 (one __syncthreads_or a chunk,
+// the only block barrier of the walk). Pixels outside the image start at
+// T = 0. Chunk j + 1 is in flight (cp.async, two staging buffers) while
+// chunk j is composited; when the vote stops the tile that copy is wasted,
+// but stays in bounds (j + 1 < m). Each warp first tests the chunk's 128
+// candidates against the rectangle of its 32 pixel centres, 4 a lane, and
+// composites only those the test keeps.
+__device__ __forceinline__ FwdPixel composite_tile(const float* first, int m,
+                                                   float px, float py,
+                                                   bool in_img) {
+  __shared__ __align__(16) float stage[2 * kStage];
+  __shared__ __align__(4) unsigned char lists[kMaxWarps][kChunk];  // kept rows
+  const int p = threadIdx.x;
+  const int n_pix = blockDim.x;
+  const int lane = p & 31;
+  unsigned char* list = lists[p >> 5];
+  float x_lo = px, x_hi = px, y_lo = py, y_hi = py;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x_lo = fminf(x_lo, __shfl_xor_sync(kFullWarp, x_lo, o));
+    x_hi = fmaxf(x_hi, __shfl_xor_sync(kFullWarp, x_hi, o));
+    y_lo = fminf(y_lo, __shfl_xor_sync(kFullWarp, y_lo, o));
+    y_hi = fmaxf(y_hi, __shfl_xor_sync(kFullWarp, y_hi, o));
+  }
+  FwdPixel out = {0.f, 0.f, 0.f, 0.f, in_img ? 1.0f : 0.0f, 0.f, 0, false};
+  if (m > 0) prefetch_chunk(stage, first, p, n_pix);
+  wait_prefetch();
+  int live = __syncthreads_or(out.trans > kTermEps);
+  while (out.used < m && live) {
+    const int j = out.used;
+    if (j + 1 < m) {
+      prefetch_chunk(stage + ((j + 1) & 1) * kStage, first + (j + 1) * kStep,
+                     p, n_pix);
+    }
+    const float* sc = stage + (j & 1) * kStage;
+    // the warp test, 4 candidates a lane: the rows the warp composites
+    int n = 0;
+#pragma unroll
+    for (int word = 0; word < kChunk / 32; ++word) {
+      const int k = word * 32 + lane;
+      const bool kept =
+          warp_may_keep(sc + k * kStageRows, x_lo, x_hi, y_lo, y_hi);
+      const unsigned mask = __ballot_sync(kFullWarp, kept);
+      if (kept) list[n + __popc(mask & ((1u << lane) - 1u))] = k;
+      n += __popc(mask);
+    }
+    __syncwarp();
+    const float cum = composite_chunk(sc, list, n, px, py, out.trans, out.r,
+                                      out.g, out.b, out.z);
+    out.trans *= expf(cum);
+    out.tot += cum;
+    ++out.used;
+    wait_prefetch();
+    // chunk j + 1 has landed for everyone, and everyone is done with chunk j
+    live = __syncthreads_or(out.trans > kTermEps);
+  }
+  out.live = live != 0;
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// The backward walk
+// ---------------------------------------------------------------------------
+
+
+// Dynamic shared memory of a backward block with n_warps warps, in floats:
+//   stage [2][kChunk][kStageRows] | slabs [n_warps][kChunk][kGradRows]
+//   | masks [n_warps][4] (unsigned)
+inline size_t bwd_smem_bytes(int threads) {
+  const size_t n_warps = threads / 32;
+  return sizeof(float) * (2 * kChunk * kStageRows +
+                          n_warps * kChunk * kGradRows + n_warps * 4);
+}
+
+// Let a backward kernel use that much dynamic shared memory (above 48 KB a
+// kernel has to ask), with the SM's shared memory at its largest so that as
+// many blocks as possible fit.
+template <typename Kernel>
+inline cudaError_t allow_bwd_smem(Kernel kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // Sum each of the ten values over the warp's 32 lanes in 12 shuffles. At
@@ -320,9 +516,7 @@ __device__ __forceinline__ void backprop_tile(const float* cand_last,
   const int warp = p >> 5;
   const int n_warps = n_pix >> 5;
   const int row = grad_row(lane);
-  constexpr int kStage = kChunk * kStageRows;
   constexpr int kSlab = kChunk * kGradRows;
-  constexpr size_t kStep = static_cast<size_t>(kChunk) * kRows;
   float* stage = bwd_smem;
   float* slabs = bwd_smem + 2 * kStage;
   unsigned* masks = reinterpret_cast<unsigned*>(slabs + n_warps * kSlab);

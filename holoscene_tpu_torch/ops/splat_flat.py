@@ -36,6 +36,9 @@ CAND_ROWS = 16       # payload row width (11 live columns + pad)
 GRAD_ROWS = 10       # payload columns K2 writes (x..depth); rest stay zero
 TERM_EPS = 1e-4      # tile saturation threshold
 ALPHA_EPS = 1.0 / 255.0
+# slack of the forward walk's per-warp test (warp_may_keep_plain), in units
+# of d^T conic d: absolute, and relative to the size of its terms
+CUT_MARGIN, CUT_MARGIN_REL = 1e-3, 1e-5
 DRIFT_STRIDE = 16    # xy_snap sub-sampling (build_flat_bins)
 
 
@@ -306,6 +309,56 @@ def _chunk_alpha(px, py, c):
     return dx, dy, power, e, a_pre, a, keep
 
 
+def fwd_thread_pixels(tile_size: int):
+    """The pixel (row-major index in the tile) that each thread of a
+    forward kernel's block composites (splat_walk.cuh::fwd_pixel): warp w
+    takes the 8 x 4 block (w % (ts / 8), w // (ts / 8)) of the tile, lane l
+    its pixel (l % 8, l // 8). [tile_size^2] int64."""
+    p = torch.arange(tile_size * tile_size)
+    warp, lane = p // 32, p % 32
+    per_row = tile_size // 8
+    return (((warp // per_row) * 4 + lane // 8) * tile_size
+            + (warp % per_row) * 8 + lane % 8)
+
+
+def warp_rects(px, py):
+    """Rectangles [T, P / 32, 4] = (x_lo, x_hi, y_lo, y_hi) spanned by the
+    pixel centres px/py [T, P] of each run of 32 threads (one warp)."""
+    n_tiles, n_pix = px.shape
+    x = px.reshape(n_tiles, n_pix // 32, 32)
+    y = py.reshape(n_tiles, n_pix // 32, 32)
+    return torch.stack([x.amin(-1), x.amax(-1), y.amin(-1), y.amax(-1)], -1)
+
+
+def warp_may_keep_plain(rect, c):
+    """The forward walk's per-warp test in plain PyTorch (the kernels run
+    it in splat_walk.cuh::warp_may_keep): may candidate c [T, C, 16] reach
+    alpha >= 1/255 at some pixel centre of rect [T, W, 4]? [T, W, C] bool.
+
+    False always for opacity < 1/255 (alpha <= opacity), never for a conic
+    that is not positive definite, and otherwise only where the Schur lower
+    bound of d^T conic d over the rectangle (as `_schur_qmin`) exceeds
+    thr = 2 ln(255 op) by CUT_MARGIN + CUT_MARGIN_REL x the size of the
+    quadratic form's terms over the rectangle: the slack covers the float32
+    rounding of the pixel's power, exp and product, so a rejected
+    candidate is one the walk would skip at every pixel of the warp. The
+    determinant and the comparison are taken in float64."""
+    x_lo, x_hi, y_lo, y_hi = (rect[..., i, None] for i in range(4))
+    gx, gy, ca, cb, cc, op = (c[:, None, :, i] for i in range(6))
+    det = ca.double() * cc.double() - cb.double() * cb.double()
+    dxm = torch.clamp(torch.maximum(x_lo - gx, gx - x_hi), min=0.0).double()
+    dym = torch.clamp(torch.maximum(y_lo - gy, gy - y_hi), min=0.0).double()
+    ax = torch.maximum((x_lo - gx).abs(), (x_hi - gx).abs())
+    ay = torch.maximum((y_lo - gy).abs(), (y_hi - gy).abs())
+    spread = ca * ax * ax + 2.0 * cb.abs() * ax * ay + cc * ay * ay
+    limit = (2.0 * torch.log(255.0 * op) + CUT_MARGIN
+             + CUT_MARGIN_REL * spread).double()
+    far = ((det * dxm * dxm > cc.double() * limit)
+           | (det * dym * dym > ca.double() * limit))
+    definite = (ca > 0) & (cc > 0) & (det > 0)
+    return ~(op < ALPHA_EPS) & ~(definite & far)
+
+
 def walk_fwd_plain(chunks, cs, cc, px, py, in_img) -> torch.Tensor:
     """The forward tile walk in plain PyTorch, shared by K1's and K3's plain
     versions (as csrc/splat_walk.cuh is by the kernels): tile t walks chunks
@@ -457,8 +510,9 @@ def _check_walk_args(cand, tile_size, ranges, blocks):
 def flat_fwd(cand, cs, cc, tiles_x: int, tile_size: int, img_w: int,
              img_h: int) -> torch.Tensor:
     """K1 wrapper. CUDA tensor: launches `splat_flat_fwd` of
-    csrc/splat_flat_fwd.cu (one block per tile, one thread per pixel) and
-    counts the launch in `flat_fwd.launches`; CPU tensor: flat_fwd_plain."""
+    csrc/splat_flat_fwd.cu (one block per tile, one thread per pixel, the
+    forward walk of csrc/splat_walk.cuh) and counts the launch in
+    `flat_fwd.launches`; CPU tensor: flat_fwd_plain."""
     _check_walk_args(cand, tile_size, (cs, cc), ())
     if not cand.is_cuda:
         return flat_fwd_plain(cand, cs, cc, tiles_x, tile_size, img_w, img_h)

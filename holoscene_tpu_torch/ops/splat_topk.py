@@ -131,8 +131,9 @@ def _check_args(cand, origins, tile_size, ints, blocks):
 def composite_fwd(cand, origins, counts, tile_size: int, img_w: int,
                   img_h: int):
     """K3 wrapper. CUDA tensor: launches `splat_topk_fwd` of
-    csrc/splat_topk_fwd.cu (one block per tile, one thread per pixel) and
-    counts the launch in `composite_fwd.launches`; CPU tensor:
+    csrc/splat_topk_fwd.cu (one block per tile, one thread per pixel, the
+    forward walk of csrc/splat_walk.cuh) and counts the launch in
+    `composite_fwd.launches`; CPU tensor:
     composite_fwd_plain. Returns (out [T, P, 8], used [T] int32)."""
     _check_args(cand, origins, tile_size, (counts,), ())
     if not cand.is_cuda:

@@ -1,25 +1,31 @@
-"""Time the backward tile walks K2 (splat_flat_bwd) and K4 (splat_topk_bwd)
-on the card, at the inputs of chip_smoke.py's phase 8: training frame 0 of
-the generated 512^2 scene after the flat run (100 steps) and the top-K run
-(90 steps). Needs one NVIDIA GPU with nvcc; run from the repository root:
+"""Time the four tile walks K1 (splat_flat_fwd), K2 (splat_flat_bwd), K3
+(splat_topk_fwd) and K4 (splat_topk_bwd) on the card, at the inputs of
+chip_smoke.py's phase 8: training frame 0 of the generated 512^2 scene
+after the flat run (100 steps) and the top-K run (90 steps). Needs one
+NVIDIA GPU with nvcc; run from the repository root:
 
     python -m holoscene_tpu_torch.utils.walk_bench
     python -m holoscene_tpu_torch.utils.walk_bench \
         --variant old=path/to/other/csrc --variant nochain=path/to/csrc:NO_CHAIN
 
 It prints the card (nvidia-smi name, power limit), the histogram of walked
-chunks per tile (`used`) of the flat bins and of the top-K lists, and for
-the tree's csrc/ and every --variant NAME=DIR[:DEFINE,...] (another csrc
-directory, built with -DDEFINE ...): what ptxas reports for the two backward
-kernels (registers, spills), K2 and K4 ms (CUDA events, 50 launches, taken
-in two rounds over all variants so that the spread between rounds shows),
-the largest deviation of each result from the tree's, and whether two
-launches on the same inputs are bitwise equal. A variant is how a kernel
-is taken apart to see where its time goes: a copy of the sources with one
-part compiled out under a define. A variant library may export
-`splat_flat_bwd_set_order(order, n)` / `splat_topk_bwd_set_order`; it is
-then given the tiles sorted by `used`, longest first. The last line is one
-JSON object with all of it.
+chunks per tile (`used`) of the flat bins and of the top-K lists, the share
+of (warp, candidate) pairs of the walked chunks that the forward walk's
+per-warp test passes (from its plain mirror, `warp_may_keep_plain`) beside
+the share that have a lane with alpha >= 1/255, for warps of 16 x 2 pixels
+(row-major) and of 8 x 4 pixels (the kernels' mapping); and for the tree's
+csrc/ and every --variant NAME=DIR[:DEFINE,...] (another csrc directory,
+built with -DDEFINE ...): what ptxas reports for every kernel (registers,
+spills), K1-K4 ms (CUDA events, 50 launches, taken in two rounds over all
+variants so that the spread between rounds shows), the largest deviation of
+each result from the tree's in every output channel (K3 also in `used`),
+and whether two launches on the same inputs are bitwise equal. The
+backward walks of every variant get the tree's forward outputs. A variant is
+how a kernel is taken apart to see where its time goes: a copy of the
+sources with one part compiled out under a define. A variant library may
+export `splat_flat_bwd_set_order(order, n)` / `splat_topk_bwd_set_order`; it
+is then given the tiles sorted by `used`, longest first. The last line is
+one JSON object with all of it.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ REPS = 50
 
 def load_variant(name: str, csrc: Path, defines: list[str]):
     """Build csrc/*.cu with the defines into its own library; returns (the
-    loaded library, ptxas lines of the backward kernels)."""
+    loaded library, ptxas lines of every kernel)."""
     tree = (kernels.CSRC, kernels.LIB, kernels.NVCC_FLAGS)
     kernels.CSRC = csrc
     kernels.LIB = kernels.BUILD / f"libholoscene_kernels_{name}.so"
@@ -60,7 +66,7 @@ def load_variant(name: str, csrc: Path, defines: list[str]):
             entry = line.split("'")[1]
         elif "spill" in line:
             spills = line.strip()
-        elif "registers" in line and "bwd" in entry:
+        elif "registers" in line and entry:
             used = line.split(":", 1)[1].strip()
             report.append(f"{entry}: {used}; {spills}")
     return lib, report
@@ -69,6 +75,42 @@ def load_variant(name: str, csrc: Path, defines: list[str]):
 def used_histogram(used) -> dict:
     vals, counts = torch.unique(used.long().cpu(), return_counts=True)
     return {int(v): int(c) for v, c in zip(vals, counts)}
+
+
+def warp_test_rates(chunks, cs, used, px, py, tile_size) -> dict:
+    """Over the walked chunks, per warp mapping: (warp, candidate) pairs,
+    how many the per-warp test passes, how many have a live lane."""
+    cs, used = cs.long(), used.long()
+    orders = {"16x2": torch.arange(tile_size * tile_size),
+              "8x4": sf.fwd_thread_pixels(tile_size)}
+    rates = {}
+    for name, order in orders.items():
+        order = order.to(px.device)
+        opx, opy = px[:, order], py[:, order]
+        pairs = passed = live = 0
+        for j in range(int(used.max()) if used.numel() else 0):
+            act = j < used
+            c = chunks[(cs + j)[act]]
+            rect = sf.warp_rects(opx[act], opy[act])
+            keep = sf._chunk_alpha(opx[act], opy[act], c)[6]
+            n_t, n_p, n_c = keep.shape
+            lane_live = keep.reshape(n_t, n_p // 32, 32, n_c).any(2)
+            ok = sf.warp_may_keep_plain(rect, c)
+            if bool((lane_live & ~ok).any()):
+                raise RuntimeError("the warp test rejects a live candidate")
+            pairs += ok.numel()
+            passed += int(ok.sum())
+            live += int(lane_live.sum())
+        rates[name] = {"pairs": pairs, "pass": passed, "live": live,
+                       "pass_share": passed / max(pairs, 1),
+                       "live_share": live / max(pairs, 1)}
+    return rates
+
+
+def channel_dev(a, b) -> list:
+    """Largest |a - b| in each channel (last dimension)."""
+    d = (a.float() - b.float()).abs().reshape(-1, a.shape[-1])
+    return d.amax(0).tolist()
 
 
 def main(argv=None) -> int:
@@ -129,7 +171,8 @@ def main(argv=None) -> int:
 
     flat_geom = (-(-w // 16), 16, w, h)
     tiles_cs = bins["tile_chunk_start"]
-    fwd2 = sf.flat_fwd(cand, tiles_cs, bins["tile_chunk_cnt"], *flat_geom)
+    tiles_cc = bins["tile_chunk_cnt"]
+    fwd2 = sf.flat_fwd(cand, tiles_cs, tiles_cc, *flat_geom)
     fwd4, used4 = st.composite_fwd(*lists, 16, w, h)
     gen = torch.Generator(device=cand.device).manual_seed(2)
     v2 = torch.randn(fwd2.shape, generator=gen, device=cand.device)
@@ -141,17 +184,33 @@ def main(argv=None) -> int:
     print(f"used per tile (chunks: tiles), flat bins of "
           f"{cand.shape[0] // sf.CHUNK} chunks: {hist['flat']}; top-K lists "
           f"{tuple(lists[0].shape)}: {hist['topk']}", flush=True)
+    n_tiles, k_top = lists[0].shape[0], lists[0].shape[1]
+    warp_test = {
+        "flat": warp_test_rates(
+            cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS), tiles_cs, used2,
+            *sf._tile_pixels(tiles_cs.shape[0], *flat_geom,
+                             cand.device)[:2], 16),
+        "topk": warp_test_rates(
+            lists[0].reshape(-1, sf.CHUNK, sf.CAND_ROWS),
+            torch.arange(n_tiles, device=cand.device) * (k_top // sf.CHUNK),
+            used4, *sf.tile_pixels_at(lists[1], 16, w, h)[:2], 16)}
+    for path, rates in warp_test.items():
+        print(f"warp test, {path}: " + "; ".join(
+            f"{m} warps pass {r['pass_share']:.4f}, live lane "
+            f"{r['live_share']:.4f} of {r['pairs']} (warp, candidate) pairs"
+            for m, r in rates.items()), flush=True)
     orders = {"flat": torch.argsort(used2, descending=True, stable=True).int(),
               "topk": torch.argsort(used4, descending=True, stable=True).int()}
 
-    def k2():
-        return sf.flat_bwd(cand, tiles_cs, fwd2, v2, *flat_geom)
-
-    def k4():
-        return st.composite_bwd(lists[0], lists[1], used4, fwd4, v4, 16, w, h)
-
-    results = {name: {"ptxas": ptxas[name], "K2_ms": [], "K4_ms": []}
-               for name in libs}
+    walks = {
+        "K1": lambda: sf.flat_fwd(cand, tiles_cs, tiles_cc, *flat_geom),
+        "K2": lambda: sf.flat_bwd(cand, tiles_cs, fwd2, v2, *flat_geom),
+        "K3": lambda: st.composite_fwd(*lists, 16, w, h),
+        "K4": lambda: st.composite_bwd(lists[0], lists[1], used4, fwd4, v4,
+                                       16, w, h),
+    }
+    results = {name: {"ptxas": ptxas[name],
+                      **{f"{k}_ms": [] for k in walks}} for name in libs}
     base = {}
     for rnd in range(2):
         for name, lib in libs.items():
@@ -162,26 +221,39 @@ def main(argv=None) -> int:
                     kernels.check(getattr(lib, entry)(
                         kernels._P(order.data_ptr()), order.numel()), entry)
             res = results[name]
-            for key, fn in (("K2", k2), ("K4", k4)):
+            for key, fn in walks.items():
                 res[f"{key}_ms"].append(cs_.cuda_ms(fn, REPS))
                 if rnd:
                     continue
                 first, second = fn(), fn()
                 torch.cuda.synchronize()
+                if key == "K3":
+                    first, used = first
+                    second, used_again = second
+                    base.setdefault("K3_used", used)
+                    res["K3_used_max_abs_dev_from_tree"] = int(
+                        (used - base["K3_used"]).abs().max())
+                    same = torch.equal(used, used_again)
+                else:
+                    same = True
                 base.setdefault(key, first)
-                res[f"{key}_max_abs_dev_from_tree"] = float(
-                    (first - base[key]).abs().max())
+                res[f"{key}_channel_dev_from_tree"] = channel_dev(
+                    first, base[key])
                 res[f"{key}_two_launches_equal"] = bool(
-                    torch.equal(first, second))
+                    same and torch.equal(first, second))
     kernels.library = tree_library
     for name, res in results.items():
-        print(f"{name}: K2 {res['K2_ms']} ms, K4 {res['K4_ms']} ms; "
-              f"deviation from tree K2 {res['K2_max_abs_dev_from_tree']:.3g} "
-              f"K4 {res['K4_max_abs_dev_from_tree']:.3g}; two launches equal "
-              f"K2 {res['K2_two_launches_equal']} K4 "
-              f"{res['K4_two_launches_equal']}", flush=True)
+        dev = {k: [float(f"{d:.3g}") for d in res[f"{k}_channel_dev_from_tree"]]
+               for k in walks}
+        print(f"{name}: " + "; ".join(
+            f"{k} {res[f'{k}_ms']} ms, two launches equal "
+            f"{res[f'{k}_two_launches_equal']}, deviation from tree by "
+            f"channel {dev[k]}" for k in walks)
+            + f"; K3 used deviation {res['K3_used_max_abs_dev_from_tree']}",
+            flush=True)
     print(json.dumps({"card": card, "reps": REPS, "used_histogram": hist,
-                      "variants": results}), flush=True)
+                      "warp_test": warp_test, "variants": results}),
+          flush=True)
     return 0
 
 

@@ -15,8 +15,10 @@ from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_flat as tflat
 from holoscene_tpu_torch.ops import splat_topk as ttopk
 from test_torch_walk_cases import (
+    FWD_USED,
     cotangent,
     flat_layout,
+    hard_fwd_tiles,
     hard_tiles,
     topk_layout,
 )
@@ -204,14 +206,14 @@ def test_topk_render_autograd_on_card_matches_cpu(cuda, ortho):
         np.testing.assert_allclose(gk, gc, atol=BWD_ATOL, rtol=BWD_RTOL)
 
 
-def _hard_walk(layout, ts, dev):
-    """The hand-built tiles of test_torch_walk_cases.py in one layout on
-    `dev`: (fwd(), bwd(out, used, v), v)."""
-    lists, origins, (w, h) = hard_tiles(ts=ts)
+def _hard_walk(layout, ts, dev, tiles=hard_tiles):
+    """The hand-built tiles of test_torch_walk_cases.py (`tiles` builds
+    them) in one layout on `dev`: (fwd(), bwd(out, used, v), v)."""
+    lists, origins, (w, h) = tiles(ts=ts)
     v = torch.as_tensor(cotangent(len(lists), origins, (w, h), ts)).to(dev)
     if layout == "flat":
         cand, cs, cc = (torch.as_tensor(x).to(dev) for x in flat_layout(lists))
-        geom = (3, ts, w, h)
+        geom = (-(-w // ts), ts, w, h)
 
         def fwd():
             out = tflat.flat_fwd(cand, cs, cc, *geom)
@@ -249,3 +251,24 @@ def test_backward_walks_on_hard_tiles(cuda, layout, ts):
     np.testing.assert_allclose(first.cpu().numpy(), dref.numpy(),
                                atol=BWD_ATOL, rtol=BWD_RTOL)
     assert not first.cpu()[dref == 0].any()   # plain's exact zeros stay zeros
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("layout", ["flat", "topk"])
+def test_forward_walks_on_hard_fwd_tiles(cuda, layout, ts):
+    """K1 / K3 against plain where the per-warp test and the look-ahead are
+    most likely wrong: thin ellipses crossing a tile from outside,
+    single-pixel candidates at warp corners, candidates within 1e-6 of the
+    1/255 cut, conics that are not positive definite, stops on a chunk
+    boundary and mid-chunk, a tile that never saturates, an edge column.
+    The same chunks walked as plain, and two launches give the same bits.
+    ts = 32 runs the 1024-thread blocks."""
+    ref, ref_used = _hard_walk(layout, ts, "cpu", hard_fwd_tiles)[0]()
+    fwd = _hard_walk(layout, ts, cuda, hard_fwd_tiles)[0]
+    n_fwd = tflat.flat_fwd.launches + ttopk.composite_fwd.launches
+    (out, used), (again, used_again) = fwd(), fwd()
+    torch.cuda.synchronize()
+    assert tflat.flat_fwd.launches + ttopk.composite_fwd.launches == n_fwd + 2
+    assert used.tolist() == ref_used.tolist() == FWD_USED
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=FWD_ATOL)
+    assert torch.equal(out, again) and torch.equal(used, used_again)

@@ -13,7 +13,13 @@ from holoscene_tpu.ops import splat_flat as jflat
 from holoscene_tpu.ops.gaussians import project_gaussians_fused as jproject
 from holoscene_tpu_torch.ops import splat_flat as tflat
 from test_torch_threads import few_torch_threads  # noqa: F401
-from test_torch_walk_cases import cotangent, flat_layout, hard_tiles
+from test_torch_walk_cases import (
+    FWD_USED,
+    cotangent,
+    flat_layout,
+    hard_fwd_tiles,
+    hard_tiles,
+)
 
 CHUNK = tflat.CHUNK
 # K1: JAX's default bf16x2 triangular prefix matmul is ~f32-accurate
@@ -234,6 +240,22 @@ def test_walk_plain_matches_jax_on_hard_tiles():
     d_plain = tflat.flat_bwd(_t(rows), _t(cs), t_out, _t(v), *geom)
     np.testing.assert_allclose(d_plain.numpy(), j_bwd(v), atol=BWD_ATOL,
                                rtol=BWD_RTOL)
+
+
+def test_walk_plain_matches_jax_on_hard_fwd_tiles():
+    """K1 plain vs the JAX kernel on the forward walk's hand-built tiles of
+    test_torch_walk_cases.py (without the candidates at the 1/255 cut, which
+    can flip between the two on their own): thin ellipses crossing a tile
+    from outside, single-pixel candidates, conics that are not positive
+    definite, stops on a chunk boundary and mid-chunk, a tile that never
+    saturates, an edge column."""
+    lists, _origins, (w, h) = hard_fwd_tiles(near_cut=False)
+    rows, cs, cc = flat_layout(lists)
+    j_out, _ = _jax_walk(rows, cs, cc, w, h)
+    t_out = tflat.flat_fwd(_t(rows), _t(cs), _t(cc), -(-w // 16), 16, w, h)
+    assert j_out[:, 0, 5].tolist() == FWD_USED
+    np.testing.assert_array_equal(t_out[:, :, 5].numpy(), j_out[:, :, 5])
+    np.testing.assert_allclose(t_out.numpy(), j_out, atol=FWD_ATOL)
 
 
 def test_composite_tiles_flat_matches_jax():

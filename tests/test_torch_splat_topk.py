@@ -18,7 +18,13 @@ from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_topk as ttopk
 from holoscene_tpu_torch.ops.splat_flat import gather_payload, tile_pixels_at
 from test_torch_threads import few_torch_threads  # noqa: F401
-from test_torch_walk_cases import cotangent, hard_tiles, topk_layout
+from test_torch_walk_cases import (
+    FWD_USED,
+    cotangent,
+    hard_fwd_tiles,
+    hard_tiles,
+    topk_layout,
+)
 
 FWD_ATOL = 2e-4
 BWD_ATOL, BWD_RTOL = 5e-4, 5e-3
@@ -170,6 +176,27 @@ def test_fwd_and_bwd_plain_match_pallas_interpret_on_hard_tiles():
                            ("z", dcand[..., 9], jd_z)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    atol=BWD_ATOL, rtol=BWD_RTOL, err_msg=name)
+
+
+def test_fwd_plain_matches_pallas_interpret_on_hard_fwd_tiles():
+    """K3 plain vs the Pallas kernel on the forward walk's hand-built tiles
+    of test_torch_walk_cases.py, without the candidates at the 1/255 cut
+    (they can flip between the two on their own)."""
+    lists, origins, (w, h) = hard_fwd_tiles(near_cut=False)
+    cand, counts = map(torch.as_tensor, topk_layout(lists))
+    origins = torch.as_tensor(origins)
+    jrgb, jdepth, jalpha, jused = jpal._core_fwd_impl(
+        *_jax_lists(cand, torch.ones(cand.shape[:2])),
+        jnp.asarray(origins.numpy()),
+        jnp.asarray(counts.numpy().astype(np.float32)), TS, True,
+        img_w=w, img_h=h)
+    out, used = ttopk.composite_fwd(cand, origins, counts, TS, w, h)
+    assert used.tolist() == FWD_USED
+    np.testing.assert_array_equal(used.numpy(), np.asarray(jused)[:, 0])
+    for got, ref in ((out[..., :3], jrgb), (out[..., 3], jdepth),
+                     (out[..., 4], jalpha)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=FWD_ATOL)
 
 
 def test_closed_form_backward_is_the_autograd_of_the_forward():

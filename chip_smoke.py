@@ -2,7 +2,8 @@
 """Quickest proof that the PyTorch/CUDA port (holoscene_tpu_torch) runs on an
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, then drives the Stage-4 Gaussian-on-Mesh paths through their
-entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3).
+entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3) and
+the Stage-1 neural-SDF trainer through its CLI at the flagship width.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -34,11 +35,31 @@ Phases, one '== ' line each:
                  invisible-view step renders it (one object's gaussians
                  visible) and one gs_render view of the exported ply at its
                  calibrated K
-Wherever a kernel is held against plain (phases 3 and 8) it is launched
-twice on the same inputs and the two results must be the same bits.
-The launch counts are set to 0 just before each of the paths 4-7 and read
-just after. Then the kernel table as one JSON line and last the device line
-{"ok": true, "device": {...}}. Any failure exits non-zero before it.
+  9 hash kernels H1-fwd, H1-bwd (exact / sampled / sampled_all) and H2 vs
+                 their plain versions on random tables at a 6-level meta
+                 and at the flagship meta (16 levels, 2^19 rows)
+ 10 Stage-1 CLI  exp_runner.main on a generated 512^2 scene (8 images) with
+                 the flagship model (bench.py::flagship_config, d_out from
+                 the scene) and the train values of
+                 confs/replica_room0_tpu.conf, 100 steps: every loss finite,
+                 rgb_loss falls, probe grid baked at steps 0 and 64, H1-fwd
+                 and H1-bwd launched three times a step (fine tier, tail,
+                 eikonal) and H2 on every bake chunk; then one eval frame
+                 (PSNR finite, H2 and H1-fwd launched); rays/s
+ 11 bench shapes the train step at bench.py's flagship_config (d_out 32,
+                 a random batch as bench.py::make_batch draws it): 3
+                 warm-up + 20 timed steps, rays/s; the device's idle share
+                 from torch.profiler over 3 steps; H1-fwd / H1-bwd at the
+                 fine tier's captured points and H2 at a probe-bake chunk:
+                 kernel ms, plain ms, bound
+Wherever a kernel is held against plain (phases 3, 8, 9 and 11) it is
+launched twice on the same inputs and the two results must be the same bits
+(K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
+launch to launch, so its two launches must agree within its tolerance to
+plain (1e-5 of the largest gradient), not bitwise.
+The launch counts are set to 0 just before each of the paths 4-7 and 10 and
+read just after. Then the kernel table as one JSON line and last the device
+line {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 
 The bound of a kernel is the larger of two times, both from this run's
 inputs. Bytes: the candidate rows of the chunks the walk really took (8 KB
@@ -54,6 +75,18 @@ sum, weight, four multiply-adds unfused, log1p) or 51 more in the backward
 tile's pixels), each special function counted as ONE operation, over the
 card's 67 TFLOP/s float32 rate. No PyTorch call computes any of the four
 functions, so library_ms is null.
+
+The bound of a hash-grid kernel, from the same launch's inputs. Bytes: the
+inputs read once (points, cotangents, uniforms), the outputs written once,
+and per level the lesser of its table's bytes and the 32-byte sectors its
+corner gathers touch (8-byte rows, per table); for H1-bwd instead of the
+gathers the zero-fill of both gradient tables and 8 bytes of atomics per
+scattered corner; over 3.35 TB/s. Operations: per (in-range point, level)
+18 for the smoothstep weights and their derivatives plus per corner 31
+(H1-fwd: weight, jacobian weights, the multiply-adds of a, J and b), 27
+(H1-bwd: weight, jacobian weights, the fused cotangents) or 6 (H2), over
+67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
+is null.
 """
 
 from __future__ import annotations
@@ -130,11 +163,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def reset_counts() -> None:
+    from holoscene_tpu_torch.ops import hashgrid as hg
     from holoscene_tpu_torch.ops import splat_flat as sf
     from holoscene_tpu_torch.ops import splat_topk as st
 
     sf.flat_fwd.launches = sf.flat_bwd.launches = 0
     st.composite_fwd.launches = st.composite_bwd.launches = 0
+    hg.fused_fwd.launches = hg.fused_bwd.launches = 0
+    hg.sampler_fwd.launches = 0
 
 
 def read_counts() -> dict:
@@ -146,6 +182,16 @@ def read_counts() -> dict:
     torch.cuda.synchronize()
     return {"K1": sf.flat_fwd.launches, "K2": sf.flat_bwd.launches,
             "K3": st.composite_fwd.launches, "K4": st.composite_bwd.launches}
+
+
+def read_hash_counts() -> dict:
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    torch.cuda.synchronize()
+    return {"H1-fwd": hg.fused_fwd.launches, "H1-bwd": hg.fused_bwd.launches,
+            "H2": hg.sampler_fwd.launches}
 
 
 def walk_work(chunks, real, cs, used, px, py, in_img):
@@ -474,6 +520,561 @@ def check_training(tag, runner, hist, steps, launches, per_step, card):
     return trend
 
 
+# ---------------------------------------------------------------------------
+# Stage 1: the hash-grid kernels and the neural-SDF train step
+# ---------------------------------------------------------------------------
+
+S1_RES, S1_IMAGES, S1_STEPS = 512, 8, 100
+BENCH_RAYS, BENCH_WARMUP, BENCH_TIMED, PROFILED = 1024, 3, 20, 3
+H_REL = 1e-5          # hash kernels vs plain, relative to the largest value
+BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
+# float32 operations per (point, level) and per corner, counted from the
+# sources (csrc/hash_*.cu): the smoothstep weights and their derivatives
+# (18), then per corner its weight (2), the jacobian weights (9) and the
+# multiply-adds of the forward (2 channels of a, 6 of J, 2 of b: 20), of
+# the backward (the two fused cotangents 14, b's 2) or of H2 (4)
+OPS_POINT_LEVEL = 18
+OPS_CORNER = {"H1-fwd": 2 + 9 + 20, "H1-bwd": 2 + 9 + 16, "H2": 2 + 4}
+HASH_KERNELS = {
+    "H1-fwd": dict(name="H1-fwd hash_fused_fwd", route="cuda",
+                   source="holoscene_tpu_torch/csrc/hash_fused_fwd.cu",
+                   replaces="holoscene_tpu/ops/hashgrid.py:965"),
+    "H1-bwd": dict(name="H1-bwd hash_fused_bwd", route="cuda",
+                   source="holoscene_tpu_torch/csrc/hash_fused_bwd.cu",
+                   replaces="holoscene_tpu/ops/hashgrid.py:1003"),
+    "H2": dict(name="H2 hash_sampler_fwd", route="cuda",
+               source="holoscene_tpu_torch/csrc/hash_sampler_fwd.cu",
+               replaces="holoscene_tpu/ops/hashgrid.py:625"),
+}
+
+
+def flagship_cfg(d_out: int):
+    """bench.py::flagship_config in the port's classes (the shipped
+    defaults)."""
+    from holoscene_tpu_torch.models.fields import (
+        ImplicitNetworkConfig,
+        RenderingNetworkConfig,
+    )
+    from holoscene_tpu_torch.models.holoscene import HoloSceneConfig
+    from holoscene_tpu_torch.ops.sampler import SamplerConfig
+
+    return HoloSceneConfig(
+        implicit=ImplicitNetworkConfig(
+            feature_vector_size=256, d_out=d_out, dims=(256, 256), multires=6,
+            num_levels=16, level_dim=2, base_size=16, end_size=2048,
+            logmap=19, color_grid_feature=True, divide_factor=1.0,
+            sigmoid=10.0, dense_max_res=0, fused_fetch="packed",
+            color_bwd_sample=True, sdf_bwd_sample=True),
+        rendering=RenderingNetworkConfig(
+            feature_vector_size=256, dims=(256, 256), multires_view=4,
+            multires_point=4, multires_normal=4),
+        sampler=SamplerConfig(N_samples=64, N_samples_eval=128,
+                              N_samples_extra=32, eps=0.1, beta_iters=10,
+                              max_total_iters=4),
+        use_bg_reg=False, sampler_grid_levels=8, forward_grad_mode="fused",
+        render_top_m=56, render_fine_top_f=32, render_fine_levels=6,
+        use_occupancy=False, probe_grid_res=128, probe_update_every=64)
+
+
+def stage1_conf(work: Path) -> Path:
+    """A generated 512^2 scene and a conf of the flagship model with the
+    train values of confs/replica_room0_tpu.conf."""
+    from holoscene_tpu_torch.datasets.synthetic import generate_scene
+
+    generate_scene(str(work / "data_s1" / "scene_0"), n_images=S1_IMAGES,
+                   img_res=(S1_RES, S1_RES))
+    conf = work / "stage1.conf"
+    conf.write_text(f"""
+train{{
+ expname = smoke_s1
+ learning_rate = 5.0e-4
+ lr_factor_for_grid = 20.0
+ num_pixels = 1024
+ checkpoint_freq = 100000
+ split_n_pixels = 4096
+ add_objectvio_iter = 25000
+ max_total_iters = 200000
+ exact_bwd_from_iter = 80000
+}}
+loss{{
+ rgb_loss = l1
+ eikonal_weight = 0.1
+ smooth_weight = 0.005
+ depth_weight = 0.5
+ normal_l1_weight = 0.05
+ normal_cos_weight = 0.05
+ use_obj_opacity = True
+ semantic_weight = 5.0
+ reg_vio_weight = 0.01
+ bg_reg_weight = 0.01
+}}
+dataset{{
+ data_root_dir = {work / 'data_s1'}
+ data_dir = scene_0
+ img_res = [{S1_RES}, {S1_RES}]
+}}
+model{{
+ feature_vector_size = 256
+ scene_bounding_sphere = 1.0
+ use_bg_reg = false
+ use_occupancy = false
+ forward_grad_mode = fused
+ sampler_grid_levels = 8
+ render_top_m = 56
+ render_fine_top_f = 32
+ render_fine_levels = 6
+ probe_grid_res = 128
+ probe_update_every = 64
+ implicit_network{{
+  d_in = 3
+  dims = [256, 256]
+  geometric_init = True
+  bias = 0.9
+  multires = 6
+  divide_factor = 1.0
+  sigmoid = 10
+  color_grid_feature = True
+  num_levels = 16
+  level_dim = 2
+  base_size = 16
+  end_size = 2048
+  logmap = 19
+  dense_max_res = 0
+  fused_fetch = packed
+  color_bwd_sample = True
+  sdf_bwd_sample = True
+ }}
+ rendering_network{{
+  mode = idr
+  d_in = 9
+  d_out = 3
+  dims = [256, 256]
+  multires_view = 4
+  multires_point = 4
+  multires_normal = 4
+ }}
+ density{{
+  params_init{{
+   beta = 0.1
+  }}
+  beta_min = 0.0001
+ }}
+ ray_sampler{{
+  near = 0.0
+  N_samples = 64
+  N_samples_eval = 128
+  N_samples_extra = 32
+  eps = 0.1
+  beta_iters = 10
+  max_total_iters = 4
+ }}
+}}
+""")
+    return conf
+
+
+def bench_batch(gen, dev, n: int, res: int = 512) -> dict:
+    """bench.py::make_batch with a torch generator: a 512^2 camera at
+    (0.4, 0.1, -0.4), uniform pixels, random targets, one class."""
+    import numpy as np
+    import torch
+
+    f = 0.5 * res / np.tan(np.radians(35.0))
+    pose = torch.eye(4, device=dev)
+    pose[:3, 3] = torch.tensor([0.4, 0.1, -0.4], device=dev)
+    normal = torch.randn(n, 3, generator=gen, device=dev)
+    normal = (normal - normal.mean(-1, keepdim=True)) / torch.sqrt(
+        normal.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    return {
+        "uv": torch.rand(n, 2, generator=gen, device=dev) * res,
+        "pose": pose,
+        "intrinsics": torch.tensor([[f, 0.0, res / 2], [0.0, f, res / 2],
+                                    [0.0, 0.0, 1.0]], device=dev),
+        "rgb": torch.rand(n, 3, generator=gen, device=dev),
+        "depth": 0.5 + 1.5 * torch.rand(n, 1, generator=gen, device=dev),
+        "normal": normal,
+        "segs": torch.zeros(n, dtype=torch.int64, device=dev),
+        "mask": torch.ones(n, 1, device=dev),
+    }
+
+
+def _gather_bytes(x01, lt, n_tables: int) -> int:
+    """Per level, the lesser of its table's bytes and the 32-byte sectors
+    its corner gathers touch (8-byte rows of each table), in-range points
+    only."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    x = x01[~((x01 < 0) | (x01 > 1)).any(-1)]
+    if not x.shape[0]:
+        return 0
+    rows, _ = hg._fused_rows_frac(x, lt)
+    total = 0
+    for lvl in range(lt.n_levels):
+        sectors = torch.unique(rows[lvl] // 4).numel() * 32
+        total += min(sectors, int(lt.sizes[lvl]) * 8)
+    return total * n_tables
+
+
+def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
+               mode: str = "exact"):
+    """(bound ms, "bytes" | "operations") of one launch on these inputs:
+    the bytes are the inputs read once, the outputs written once and the
+    table sectors gathered (H1-bwd: the zero-fill of the gradient tables
+    and 8 bytes of atomics per scattered corner instead of the gathers);
+    the operations OPS_POINT_LEVEL + 8 OPS_CORNER a (point, level) of an
+    in-range point."""
+    n, L = x01.shape[0], lt.n_levels
+    valid = int((~((x01 < 0) | (x01 > 1)).any(-1)).sum())
+    tables = 2 if has_b else 1
+    ops = valid * L * (OPS_POINT_LEVEL + 8 * OPS_CORNER[kernel])
+    feats = n * L * 2 * 4
+    if kernel == "H1-fwd":
+        nbytes = n * 12 + feats * tables + n * L * 6 * 4 \
+            + _gather_bytes(x01, lt, tables)
+    elif kernel == "H2":
+        nbytes = n * 12 + feats + _gather_bytes(x01, lt, 1)
+    else:
+        lh, ld = lt.n_hashed, lt.n_dense
+        cts = feats * tables + n * L * 6 * 4
+        draws = {"exact": 0, "sampled": 3, "sampled_all": 4}[mode] * n * lh * 4
+        a_corners = valid * (8 * L if mode != "sampled_all" else 8 * ld + lh)
+        b_corners = valid * (8 * L if mode == "exact" else 8 * ld + lh)
+        atomics = 8 * (a_corners + (b_corners if has_b else 0))
+        nbytes = n * 12 + cts + draws + n_rows * 8 * tables + atomics
+    return bound_ms(nbytes, ops)
+
+
+def _check_close(name, got, ref, rel=H_REL) -> float:
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: output not finite")
+    err = float((got - ref).abs().max())
+    if err > rel * float(ref.abs().max()) + 1e-7:
+        raise RuntimeError(f"{name} disagrees with plain: max abs err {err}, "
+                           f"largest value {float(ref.abs().max())}")
+    return err
+
+
+def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
+               modes=("exact", "sampled", "sampled_all")):
+    """H1-fwd and H1-bwd (each mode) against their plain versions on these
+    inputs. H1-fwd: two launches give the same bits, plain within H_REL of
+    the largest value. H1-bwd: atomicAdd orders the sums differently each
+    launch, so two launches and plain agree within H_REL, not bitwise; the
+    pairs whose sampled corner can flip in the last bit carry zero
+    cotangents. Returns {kernel: dict(max_abs_err, and when timed ms /
+    plain_ms / bound_ms / bound_by, H1-bwd's in the last mode)}."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    n, L, rows = x01.shape[0], lt.n_levels, emb_a.shape[0]
+    res = {}
+    ref = hg.fused_fwd_plain(x01, emb_a, emb_b, lt)
+    out, again = (hg.fused_fwd(x01, emb_a, emb_b, lt) for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise RuntimeError("H1-fwd: two launches on the same inputs differ")
+    res["H1-fwd"] = dict(max_abs_err=max(
+        _check_close(f"H1-fwd {k}", o, r)
+        for k, o, r in zip(("feats_a", "J", "feats_b"), out, ref)))
+    if timed:
+        res["H1-fwd"].update(
+            ms=cuda_ms(lambda: hg.fused_fwd(x01, emb_a, emb_b, lt), 20),
+            plain_ms=cuda_ms(lambda: hg.fused_fwd_plain(x01, emb_a, emb_b,
+                                                        lt), 3))
+        res["H1-fwd"]["bound_ms"], res["H1-fwd"]["bound_by"] = hash_bound(
+            "H1-fwd", x01, lt)
+    gen = torch.Generator(device=x01.device).manual_seed(seed)
+    errs = []
+    for mode in modes:
+        cts = [torch.randn(n, 2 * L, generator=gen, device=x01.device),
+               torch.randn(2 * L, 3, n, generator=gen, device=x01.device),
+               torch.randn(n, 2 * L, generator=gen, device=x01.device)]
+        u_b = torch.rand(3, lt.n_hashed, n, generator=gen, device=x01.device)
+        u_a = torch.rand(lt.n_hashed, n, generator=gen, device=x01.device)
+        if mode != "exact" and lt.n_hashed:
+            keep = torch.ones(L, n, dtype=torch.bool, device=x01.device)
+            keep[lt.n_dense:] = ~hg.near_flip_pairs(x01, lt, cts[0], cts[1],
+                                                    u_b, u_a, mode)
+            cts[0] = cts[0] * keep.T.repeat_interleave(2, 1)
+            cts[1] = cts[1] * keep.repeat_interleave(2, 0)[:, None, :]
+            cts[2] = cts[2] * keep.T.repeat_interleave(2, 1)
+        args = (x01, rows, *cts, lt, mode, u_b, u_a)
+        ref = hg.fused_bwd_plain(*args)[:2]
+        got, again = hg.fused_bwd(*args), hg.fused_bwd(*args)
+        for g, a, r, t in zip(got, again, ref, "ab"):
+            errs.append(_check_close(f"H1-bwd {mode} table {t}", g, r))
+            _check_close(f"H1-bwd {mode} table {t}, second launch", a, g)
+        if timed and mode == modes[-1]:
+            res["H1-bwd"] = dict(
+                ms=cuda_ms(lambda: hg.fused_bwd(*args), 20),
+                plain_ms=cuda_ms(lambda: hg.fused_bwd_plain(*args), 3))
+            res["H1-bwd"]["bound_ms"], res["H1-bwd"]["bound_by"] = \
+                hash_bound("H1-bwd", x01, lt, rows, mode=mode)
+    res.setdefault("H1-bwd", {})["max_abs_err"] = max(errs)
+    return res
+
+
+def compare_h2(x01, emb, lt, timed: bool = False) -> dict:
+    """H2 against its plain version: two launches give the same bits, plain
+    within H_REL of the largest value."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    ref = hg.sampler_fwd_plain(x01, emb, lt)
+    out, again = (hg.sampler_fwd(x01, emb, lt) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError("H2: two launches on the same inputs differ")
+    res = dict(max_abs_err=_check_close("H2", out, ref))
+    if timed:
+        res.update(ms=cuda_ms(lambda: hg.sampler_fwd(x01, emb, lt), 20),
+                   plain_ms=cuda_ms(lambda: hg.sampler_fwd_plain(x01, emb, lt),
+                                    3))
+        res["bound_ms"], res["bound_by"] = hash_bound("H2", x01, lt)
+    return res
+
+
+def random_hash_inputs(meta, n: int, dev, seed: int):
+    """n random points in [0.01, 0.99]^3 (the first three outside [0, 1])
+    and two uniform(-0.5, 0.5) tables of `meta`."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.01 + 0.98 * torch.rand(n, 3, generator=gen, device=dev)
+    x[:3] = torch.tensor([[1.2, 0.5, 0.5], [-0.1, 0.3, 0.3],
+                          [0.5, 0.5, 1.01]], device=dev)
+    ea, eb = (torch.rand(meta.table_rows, 2, generator=gen, device=dev) - 0.5
+              for _ in range(2))
+    return x, ea, eb
+
+
+def device_kernels(prof):
+    """(busy ms, {kernel name: ms}) of a torch.profiler run from its device
+    events alone (the operator events carry their kernels' time too): busy
+    is the union of the kernels' intervals."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) \
+            + (ev.time_range.end - ev.time_range.start) / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, by_name
+
+
+def stage1_phases(work: Path, dev, card: str) -> dict:
+    """Phases 9-11. Returns {H kernel: its row of the kernel table}."""
+    import torch
+
+    from holoscene_tpu_torch.models import holoscene as hs
+    from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.training import exp_runner
+    from holoscene_tpu_torch.training import stage1 as s1
+
+    # 9 the hash kernels vs plain: a small meta and the flagship meta
+    small_meta = hg.HashGridMeta(num_levels=6, level_dim=2, base_resolution=4,
+                                 log2_hashmap_size=8, desired_resolution=48)
+    flag_meta = flagship_cfg(32).implicit.grid_meta
+    errs = {k: [] for k in HASH_KERNELS}
+    t0 = time.perf_counter()
+    for i, (meta, n) in enumerate(((small_meta, 3001), (flag_meta, 8192))):
+        x, ea, eb = random_hash_inputs(meta, n, dev, 10 + i)
+        for levels in (None, min(6, meta.num_levels - 1)):
+            got = compare_h1(x, ea, eb, hg.level_tables(meta, levels), 20 + i)
+            for k, r in got.items():
+                errs[k].append(r["max_abs_err"])
+        errs["H2"].append(compare_h2(x, ea, hg.level_tables(
+            meta, min(8, meta.num_levels - 2)))["max_abs_err"])
+        del ea, eb
+    log(f"== 9 hash kernels vs plain (random tables, {small_meta.num_levels}-"
+        f"level meta at 3001 points and the flagship meta at 8192; all "
+        f"levels and a coarse prefix; H1-bwd exact / sampled / sampled_all; "
+        f"H2 at 4 / 8 levels) in {time.perf_counter() - t0:.1f} s: max abs err "
+        + ", ".join(f"{k} {max(v):.3g}" for k, v in errs.items())
+        + f" (within {H_REL} of the largest value; H1-fwd and H2 two "
+        "launches bitwise equal, H1-bwd within the same tolerance: atomics)")
+
+    # 10 the Stage-1 CLI at the flagship width on a generated 512^2 scene
+    t0 = time.perf_counter()
+    conf = stage1_conf(work)
+    log(f"== 10 Stage-1 CLI: scene {S1_IMAGES} x {S1_RES}^2 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    runner = exp_runner.main(
+        ["--conf", str(conf), "--exps_folder", str(work / "exps_s1"),
+         "--max_niters", str(S1_STEPS), "--log_every", "1", "--quiet",
+         "--device", "cuda"])
+    launches = read_hash_counts()
+    splat = read_counts()
+    hist = runner.history
+    if len(hist) != S1_STEPS or not all(
+            finite(h[k]) for h in hist for k in ("loss", "rgb_loss",
+                                                 "eikonal_loss", "psnr")):
+        raise RuntimeError(f"Stage-1 run: {len(hist)} logged steps for "
+                           f"{S1_STEPS}, or a non-finite loss")
+    trend = thirds(hist, ("loss", "rgb_loss", "eikonal_loss", "psnr"))
+    per_bake = -(-(runner.model_cfg.probe_grid_res + 1) ** 3 // BAKE_CHUNK)
+    steady = (S1_STEPS - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
+    log("   first/last third means: " + ", ".join(
+        f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items()))
+    log(f"   {S1_STEPS} steps of {runner.num_pixels} rays in "
+        f"{runner.run_seconds:.3f} s: {S1_STEPS * runner.num_pixels / runner.run_seconds:.1f} rays/s "
+        f"(first step included); steps 2..{S1_STEPS}: {steady:.3f} steps/s, "
+        f"{1e3 / steady:.2f} ms/step, {steady * runner.num_pixels:.1f} "
+        f"rays/s; probe bakes at {runner.probe_bakes}; launches {launches} "
+        f"(splat kernels {splat}); d_out {runner.model_cfg.implicit.d_out}; "
+        f"on {card}")
+    if not trend["rgb_loss"][1] < trend["rgb_loss"][0]:
+        raise RuntimeError(f"Stage-1 rgb_loss did not fall: {trend}")
+    if runner.probe_bakes[:2] != [0, 64]:
+        raise RuntimeError(f"probe bakes at {runner.probe_bakes}")
+    want = {"H1-fwd": 3 * S1_STEPS, "H1-bwd": 3 * S1_STEPS,
+            "H2": len(runner.probe_bakes) * per_bake}
+    if launches != want or any(splat.values()):
+        raise RuntimeError(f"Stage-1 launches {launches} (splat {splat}), "
+                           f"expected {want}: H1-fwd / H1-bwd three a step "
+                           "(fine tier, tail, eikonal), H2 on every bake "
+                           "chunk")
+    reset_counts()
+    t0 = time.perf_counter()
+    psnr = runner.plot(S1_STEPS - 1)["psnr"]
+    eval_launches = read_hash_counts()
+    log(f"   eval frame 0 ({S1_RES}^2, chunks of {runner.split_n_pixels} "
+        f"rays) in {time.perf_counter() - t0:.1f} s: PSNR {psnr:.3f}; "
+        f"launches {eval_launches}")
+    if not finite(psnr) or eval_launches["H2"] < 1 \
+            or eval_launches["H1-fwd"] < 1 or eval_launches["H1-bwd"]:
+        raise RuntimeError(f"eval render: PSNR {psnr}, launches "
+                           f"{eval_launches}")
+
+    # 11 the train step at bench.py's shapes (d_out 32, random batch)
+    cfg = flagship_cfg(32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = hs.init_holoscene(cfg, 0, dev)
+    opt, sched = s1.make_optimizer(model, 5e-4, 20.0, 200000)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bake = hs.make_probe_bake(cfg)
+    from holoscene_tpu_torch.losses.holoscene_loss import LossConfig
+
+    lcfg = LossConfig(depth_weight=0.5, semantic_weight=5.0,
+                      reg_vio_weight=0.01, bg_reg_weight=0.01)
+    batch = bench_batch(gen, dev, BENCH_RAYS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe = bake(model)
+    torch.cuda.synchronize()
+    bake_ms = 1e3 * (time.perf_counter() - t0)
+    captured = []
+    orig_fwd = hg.fused_fwd
+
+    def capture_fwd(*args):
+        captured.append(args)
+        return orig_fwd(*args)
+
+    # the wrapper counts on the name it is bound to: while capturing, that
+    # is this function (phase 11 reads no count)
+    capture_fwd.launches = 0
+
+    def step(i, capture=False):
+        hg.fused_fwd = capture_fwd if capture else orig_fwd
+        try:
+            draws = s1.StepDraws.make(cfg, BENCH_RAYS, gen, dev)
+            return s1.train_step(model, opt, sched, lcfg, batch, draws, i,
+                                 probe=probe)
+        finally:
+            hg.fused_fwd = orig_fwd
+
+    for i in range(BENCH_WARMUP):
+        step(i, capture=i == 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(BENCH_TIMED):
+        m = step(BENCH_WARMUP + i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not finite(float(m["loss"])):
+        raise RuntimeError(f"bench-shape step: loss {float(m['loss'])}")
+    rays_s = BENCH_TIMED * BENCH_RAYS / dt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PROFILED):
+            step(100 + i)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, by_name = device_kernels(prof)
+    top_s = ", ".join(f"{k[:56]} {v / PROFILED:.3f}" for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:12])
+    idle = ("not measured (the profiler saw no device time)" if busy_ms <= 0
+            else f"{100 * (1 - busy_ms / wall_ms):.1f}% of the profiled "
+                 f"steps, {100 * (1 - busy_ms / PROFILED / (1e3 * dt / BENCH_TIMED)):.1f}% "
+                 f"of an unprofiled one")
+    log(f"== 11 bench shapes (bench.py flagship_config, d_out 32, "
+        f"{BENCH_RAYS} rays of a random 512^2 batch): {BENCH_TIMED} steps "
+        f"after {BENCH_WARMUP} warm-up in {dt:.3f} s, {1e3 * dt / BENCH_TIMED:.2f} "
+        f"ms/step, {rays_s:.1f} rays/s (probe bake {bake_ms:.1f} ms, not in "
+        f"the timed steps, every 64th step in training); under the profiler "
+        f"{wall_ms / PROFILED:.2f} ms/step, device busy {busy_ms / PROFILED:.2f} "
+        f"ms/step (union of the kernels), idle {idle}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; on {card}")
+    log(f"   device ms/step by kernel ({len(by_name)} kernels, "
+        f"{sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA) // PROFILED} "
+        f"launches a step): {top_s}")
+
+    # the kernels at the step's shapes: the fine tier's H1 call as captured,
+    # H2 on the first bake chunk
+    x01, emb_a, emb_b, lt = captured[0]     # the fine tier's call
+    emb_a, emb_b = emb_a.detach(), emb_b.detach()
+    mode = hs.fused_mode(cfg, True)
+    timed = compare_h1(x01, emb_a, emb_b, lt, 30, timed=True,
+                       modes=("exact", mode))
+    n = cfg.probe_grid_res + 1
+    axis = torch.linspace(-1.0, 1.0, n, device=dev)
+    grid = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), -1)
+    chunk = ((grid.reshape(-1, 3)[:BAKE_CHUNK] + 1.0) * 0.5).contiguous()
+    timed["H2"] = compare_h2(chunk, model.implicit.grid.detach(),
+                             hg.level_tables(cfg.implicit.grid_meta,
+                                             cfg.sampler_grid_levels),
+                             timed=True)
+    log(f"   kernels at the step's shapes on {card}: fine tier "
+        f"{x01.shape[0]} points x {lt.n_levels} levels (H1-bwd timed in "
+        f"{mode} mode as the step runs it, random cotangents), bake chunk "
+        f"{chunk.shape[0]} points x {cfg.sampler_grid_levels} levels:")
+    rows = {}
+    for k, meta in HASH_KERNELS.items():
+        r = timed[k]
+        r["max_abs_err"] = max([r["max_abs_err"]] + errs[k])
+        log(f"   {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of it); max abs err "
+            f"{r['max_abs_err']:.3g}; launches on the Stage-1 path "
+            f"{launches[k]}")
+        rows[k] = {**meta, "launches": launches[k],
+                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "library_ms": None,
+                   "launches_by_path": {"stage1": launches[k],
+                                        "stage1_eval": eval_launches[k]}}
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -711,6 +1312,8 @@ def main() -> int:
                         f"{r['K4']['max_abs_err']:.3g}"
                         for path, r in other.items()))
 
+        hash_rows = stage1_phases(work, dev, card)
+
     main_path = {"K1": "flat", "K2": "flat", "K3": "topk", "K4": "topk"}
     table = []
     for k, meta in KERNELS.items():
@@ -720,6 +1323,7 @@ def main() -> int:
             + [r[k]["max_abs_err"] for r in other.values() if k in r])
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
+    table.extend(hash_rows.values())
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

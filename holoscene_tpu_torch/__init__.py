@@ -9,19 +9,30 @@ of `holoscene_tpu`: it keeps its own copy of the host-side modules it needs
 (config, datasets, utils/{mesh,mc,eval_rgb}, export/gs_usdz; numpy / PIL /
 scipy only).
 
-Layer map (the Stage-4 Gaussian-on-Mesh slice):
-  ops/        projection + SH (gaussians), SSIM, flat tile binning and the
-              K1/K2 tile-walk kernels (splat_flat), the K3/K4 top-K walks
-              (splat_topk), the renderer entry with per-tile selection and
-              the image epilogue (splat), the mesh mask/depth rasterizer
+Layer map (the Stage-1 neural-SDF slice and the Stage-4 Gaussian-on-Mesh
+slice):
+  ops/        Stage 1: rays, positional encoding, Laplace density, volume
+              rendering, the hash grid with the H1 / H2 kernels (hashgrid),
+              the error-bound sampler and the baked probe grid.
+              Stage 4: projection + SH (gaussians), SSIM, flat tile binning
+              and the K1/K2 tile-walk kernels (splat_flat), the K3/K4 top-K
+              walks (splat_topk), the renderer entry with per-tile
+              selection and the image epilogue (splat), the mesh
+              mask/depth rasterizer
   csrc/       hand-written CUDA for sm_90a (built by kernels.py on first use)
-  models/     Gaussian-on-Mesh seeding, reparameterisations, render, loss
-  training/   Stage4Runner, the exp_runner_gaussian CLI, the gs_render CLI
+  models/     the SDF and rendering networks (fields), the Stage-1 renderer
+              (holoscene); Gaussian-on-Mesh seeding, reparameterisations,
+              render, loss (gom)
+  losses/     the Stage-1 loss stack
+  training/   Stage1Runner and its exp_runner CLI; Stage4Runner, the
+              exp_runner_gaussian CLI, the gs_render CLI; checkpoints
   datasets/   the synthetic scene with analytic meshes and packs, loaders
-  utils/      mesh I/O, marching tetrahedra, PSNR/SSIM (host, numpy)
+  utils/      mesh I/O, marching tetrahedra, PSNR/SSIM (host, numpy), the
+              JSONL metrics log
   export/     gaussian USDZ
   config.py   HOCON-subset config parser
-  convert.py  JAX params/static (as numpy) <-> torch tensors
+  convert.py  JAX params/static (as numpy) <-> torch tensors (Stage 4's,
+              Stage 1's)
 """
 
 from __future__ import annotations

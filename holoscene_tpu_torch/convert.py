@@ -1,7 +1,7 @@
-"""Converters between the JAX package's Gaussian-on-Mesh state and the
-port's tensors. Inputs are numpy arrays (np.asarray of the JAX leaves), so
-this module never imports jax; the tests use it to start both sides from
-identical state."""
+"""Converters between the JAX package's state (Gaussian-on-Mesh params and
+static dict, Stage-1 params) and the port's tensors. Inputs are numpy
+arrays (np.asarray of the JAX leaves), so this module never imports jax;
+the tests use it to start both sides from identical state."""
 
 from __future__ import annotations
 
@@ -36,3 +36,34 @@ def gom_static_from_jax(static: dict,
 def params_to_numpy(params: dict) -> dict:
     """Tensors -> numpy arrays (the way back)."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def stage1_params_from_jax(tree: dict, device: str | torch.device = "cpu"
+                           ) -> dict:
+    """JAX Stage-1 params (nested dicts of arrays: implicit / rendering /
+    density) -> the port's state dict: paths joined with dots
+    ("implicit.mlp.lin0.v"), float32 tensors of the same shapes."""
+    dev = torch.device(device)
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[f"{prefix}{k}"] = as_tensor(np.asarray(v), dev)
+
+    walk(tree, "")
+    return out
+
+
+def stage1_params_to_jax(state: dict) -> dict:
+    """The way back: a state dict -> nested dicts of numpy arrays."""
+    tree: dict = {}
+    for key, v in state.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return tree

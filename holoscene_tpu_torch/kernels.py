@@ -44,6 +44,15 @@ _SIGNATURES = {
     # cand, origins, used, fwd, v, dcand, n_tiles, k_total, tile_size,
     # img_w, img_h, stream
     "splat_topk_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x01, emb_a, emb_b, scales, ints, feats_a, J, feats_b, n, n_levels,
+    # stream
+    "hash_fused_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # x01, ct_fa, ct_J, ct_fb, u_b, u_a, scales, ints, grad_a, grad_b, n,
+    # n_levels, mode, stream
+    "hash_fused_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P),
+    # x01, emb, scales, ints, out, n, n_levels, stream
+    "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,0 +1,346 @@
+"""HoloScene Stage-1 renderer: object-compositional neural-SDF volume
+rendering (port of holoscene_tpu/models/holoscene.py: HoloSceneConfig,
+init_holoscene, get_beta, scene_sdf_nograd, make_probe_bake, render_rays).
+
+render_rays keeps the shipped fast path of the JAX package: sample
+placement from the error-bound sampler (probe grid or H2 probes), top-M
+pruning by the sampler's estimated weights, tiered fine levels (the F
+highest-weight samples of a ray get every hash level, the tail the coarse
+prefix), the fused encode-with-jacobian (H1), and the eikonal block from
+one single-table H1 call. Every random number is an argument
+(`RenderDraws`). Not ported yet (ROADMAP.md queue A): render_bg_patch, the
+*_multi_obj renders, query_point_colors, the occupancy grid, and the
+vjp / jvp gradient modes."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from holoscene_tpu_torch.models.fields import (
+    ImplicitNetwork,
+    ImplicitNetworkConfig,
+    RenderingNetwork,
+    RenderingNetworkConfig,
+    implicit_all_gradients,
+    implicit_get_outputs_fused,
+    implicit_sdf_raw_sampler,
+)
+from holoscene_tpu_torch.ops.density import laplace_beta, laplace_density
+from holoscene_tpu_torch.ops.hashgrid import level_tables
+from holoscene_tpu_torch.ops.probe_grid import bake_probe_grid, probe_sdf_fn
+from holoscene_tpu_torch.ops.sampler import (
+    SamplerConfig,
+    SamplerDraws,
+    error_bound_sample,
+    estimate_weights_from_buffer,
+)
+from holoscene_tpu_torch.ops.volrend import (
+    composite,
+    composite_depth,
+    occlusion_opacity,
+    volume_render_weights,
+)
+
+_NOT_PORTED = "not ported yet, see ROADMAP.md queue A"
+
+
+@dataclasses.dataclass(frozen=True)
+class HoloSceneConfig:
+    implicit: ImplicitNetworkConfig
+    rendering: RenderingNetworkConfig
+    sampler: SamplerConfig
+    scene_bounding_sphere: float = 1.0
+    white_bkgd: bool = False
+    bg_color: tuple[float, float, float] = (1.0, 1.0, 1.0)
+    use_bg_reg: bool = False
+    beta_init: float = 0.1
+    beta_min: float = 1e-4
+    sampler_grid_levels: int | None = None
+    forward_grad_mode: str = "fused"
+    render_top_m: int = 0
+    render_fine_top_f: int = 0
+    render_fine_levels: int = 8
+    use_occupancy: bool = False
+    probe_grid_res: int = 0
+    probe_update_every: int = 16
+
+    def __post_init__(self):
+        if self.forward_grad_mode != "fused":
+            raise NotImplementedError(
+                f"forward_grad_mode={self.forward_grad_mode!r}: the port "
+                f"runs the fused mode only; vjp / jvp are {_NOT_PORTED}")
+        if self.use_occupancy:
+            raise NotImplementedError(f"use_occupancy=True: the occupancy "
+                                      f"grid is {_NOT_PORTED}")
+        if self.implicit.fused_fetch != "packed":
+            raise NotImplementedError(
+                f"fused_fetch={self.implicit.fused_fetch!r}: the port runs "
+                f"the packed fetch only; raw is {_NOT_PORTED}")
+        if not (self.render_top_m == 0 or self.render_top_m >= 2):
+            raise ValueError(f"render_top_m must be 0 or >= 2, got "
+                             f"{self.render_top_m}")
+        if self.render_fine_top_f:
+            if self.render_top_m == 0:
+                raise ValueError("render_fine_top_f requires render_top_m")
+            if not 2 <= self.render_fine_top_f < self.render_top_m:
+                raise ValueError("render_fine_top_f must be in [2, "
+                                 "render_top_m)")
+            if not 1 <= self.render_fine_levels < self.implicit.num_levels:
+                raise ValueError("render_fine_levels must be in [1, "
+                                 "num_levels)")
+
+    @property
+    def num_semantic(self) -> int:
+        return self.implicit.d_out
+
+    @classmethod
+    def from_conf(cls, conf) -> "HoloSceneConfig":
+        """From the `model` section of a .conf file."""
+        fvs = conf.get_int("feature_vector_size", 256)
+        sbs = conf.get_float("scene_bounding_sphere", 1.0)
+        return cls(
+            implicit=ImplicitNetworkConfig.from_conf(
+                conf.get_config("implicit_network"), fvs),
+            rendering=RenderingNetworkConfig.from_conf(
+                conf.get_config("rendering_network"), fvs),
+            sampler=SamplerConfig.from_conf(conf.get_config("ray_sampler"),
+                                            sbs),
+            scene_bounding_sphere=sbs,
+            white_bkgd=conf.get_bool("white_bkgd", False),
+            bg_color=tuple(conf.get_list("bg_color", [1.0, 1.0, 1.0])),
+            use_bg_reg=conf.get_bool("use_bg_reg", False),
+            beta_init=conf.get_float("density.params_init.beta", 0.1),
+            beta_min=conf.get_float("density.beta_min", 1e-4),
+            sampler_grid_levels=(conf.get_int("sampler_grid_levels")
+                                 if "sampler_grid_levels" in conf else None),
+            render_top_m=conf.get_int("render_top_m", 0),
+            render_fine_top_f=conf.get_int("render_fine_top_f", 0),
+            render_fine_levels=conf.get_int("render_fine_levels", 8),
+            forward_grad_mode=conf.get_string("forward_grad_mode", "vjp"),
+            use_occupancy=conf.get_bool("use_occupancy", False),
+            probe_grid_res=conf.get_int("probe_grid_res", 0),
+            probe_update_every=conf.get_int("probe_update_every", 16),
+        )
+
+
+class HoloSceneModel(nn.Module):
+    """implicit + rendering networks and the Laplace density's beta; the
+    state_dict keys are the JAX params' paths joined with dots."""
+
+    def __init__(self, cfg: HoloSceneConfig, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.implicit = ImplicitNetwork(cfg.implicit, seed)
+        self.rendering = RenderingNetwork(cfg.rendering, seed + 1)
+        self.density = nn.ParameterDict({"beta": nn.Parameter(
+            torch.tensor(cfg.beta_init, dtype=torch.float32))})
+
+
+def init_holoscene(cfg: HoloSceneConfig, seed: int = 0,
+                   device="cpu") -> HoloSceneModel:
+    return HoloSceneModel(cfg, seed).to(device)
+
+
+def get_beta(model: HoloSceneModel) -> torch.Tensor:
+    return laplace_beta(model.density["beta"], model.cfg.beta_min)
+
+
+def fused_mode(cfg: HoloSceneConfig, training: bool) -> str:
+    """H1-bwd's mode of the render calls: the sampled backward in training
+    when the config asks for it, else exact."""
+    ic = cfg.implicit
+    if not (training and ic.color_bwd_sample):
+        return "exact"
+    return "sampled_all" if ic.sdf_bwd_sample else "sampled"
+
+
+def fused_calls(cfg: HoloSceneConfig, n_rays: int):
+    """(points, levels) of each render-pass H1 call of a training step:
+    the fine tier and the tail, or one call untiered."""
+    S = cfg.render_top_m or cfg.sampler.n_final
+    if cfg.render_fine_top_f:
+        F = cfg.render_fine_top_f
+        return [(n_rays * F, None), (n_rays * (S - F), cfg.render_fine_levels)]
+    return [(n_rays * S, None)]
+
+
+@dataclasses.dataclass
+class RenderDraws:
+    """The random numbers of one training render_rays: the sampler's,
+    the eikonal uniforms in [-sbs, sbs) [R, 3], the neighbour jitter
+    uniforms in [0, 1) [2R, 3], and for each render H1 call (fused_calls
+    order) its backward's (u_b [3, Lh, N], u_a [Lh, N]) or None."""
+
+    sampler: SamplerDraws
+    eik_uniform: torch.Tensor
+    nei: torch.Tensor
+    fused: list
+
+    @classmethod
+    def make(cls, cfg: HoloSceneConfig, n_rays: int, gen: torch.Generator,
+             device) -> "RenderDraws":
+        kw = dict(generator=gen, device=device)
+        sbs = cfg.scene_bounding_sphere
+        sampler = SamplerDraws.make(cfg.sampler, n_rays, gen, device)
+        eik = torch.rand(n_rays, 3, **kw) * (2.0 * sbs) - sbs
+        nei = torch.rand(2 * n_rays, 3, **kw)
+        fused = []
+        mode = fused_mode(cfg, True)
+        for n, levels in fused_calls(cfg, n_rays):
+            lh = level_tables(cfg.implicit.grid_meta, levels).n_hashed
+            if mode == "exact":
+                fused.append(None)
+            else:
+                fused.append((torch.rand(3, lh, n, **kw),
+                              torch.rand(lh, n, **kw)
+                              if mode == "sampled_all" else None))
+        return cls(sampler, eik, nei, fused)
+
+
+def scene_sdf_nograd(model: HoloSceneModel, cfg: HoloSceneConfig):
+    """The sampler's scene SDF: coarse-level probes through H2, no
+    gradient."""
+
+    def fn(pts):
+        return torch.amin(implicit_sdf_raw_sampler(
+            model.implicit, pts, cfg.sampler_grid_levels), -1)
+
+    return fn
+
+
+def make_probe_bake(cfg: HoloSceneConfig):
+    """bake(model) -> the probe-grid block table [res^3, 8] from the
+    current parameters (the sampler's coarse SDF on the corner lattice)."""
+    if cfg.probe_grid_res <= 0:
+        raise ValueError("probe_grid_res must be set")
+
+    def bake(model: HoloSceneModel) -> torch.Tensor:
+        return bake_probe_grid(scene_sdf_nograd(model, cfg), cfg.probe_grid_res,
+                               cfg.sampler.scene_bounding_sphere,
+                               device=model.density["beta"].device)
+
+    return bake
+
+
+def _normalize(v):
+    return v / torch.sqrt((v * v).sum(-1, keepdim=True) + 1e-12)
+
+
+def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
+                draws: RenderDraws | None = None, training: bool = True,
+                compute_eikonal: bool = True, probe=None) -> dict:
+    """Render R rays (rays_o / rays_d [R, 3], depth_scale [R, 1], w2c_rot
+    [3, 3]). training=True needs `draws`. probe: a baked probe-grid table
+    for the sampler's placement (render and gradients stay exact)."""
+    cfg = model.cfg
+    R = rays_o.shape[0]
+    beta_sg = get_beta(model).detach()
+    if probe is not None:
+        sampler_sdf = probe_sdf_fn(probe.detach(), cfg.probe_grid_res,
+                                   cfg.sampler.scene_bounding_sphere)
+    else:
+        sampler_sdf = scene_sdf_nograd(model, cfg)
+    sdraws = draws.sampler if training else None
+
+    prune_m = cfg.render_top_m if training else 0
+    tier_ord = None
+    if prune_m > 0:
+        z_vals, z_eik, (z_buf, sdf_buf, beta_buf) = error_bound_sample(
+            rays_o, rays_d, sampler_sdf, beta_sg, cfg.sampler, sdraws,
+            training=training, return_aux=True)
+        if prune_m < z_vals.shape[-1]:
+            est_w = estimate_weights_from_buffer(z_vals, z_buf, sdf_buf,
+                                                 beta_buf)
+            score = est_w.clone()
+            score[:, 0] = float("inf")
+            score[:, -1] = float("inf")
+            # lax.top_k's order: highest first, the lower index among ties
+            keep = torch.sort(score, dim=-1, descending=True,
+                              stable=True).indices[:, :prune_m]
+            keep = torch.sort(keep, -1).values
+            z_vals = torch.gather(z_vals, -1, keep)
+            if cfg.render_fine_top_f:
+                kept_w = torch.gather(score, -1, keep)
+                tier_ord = torch.argsort(-kept_w, dim=-1, stable=True)
+    else:
+        z_vals, z_eik = error_bound_sample(
+            rays_o, rays_d, sampler_sdf, beta_sg, cfg.sampler, sdraws,
+            training=training)
+    S = z_vals.shape[-1]
+
+    points = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
+    points_flat = points.reshape(-1, 3)
+    dirs_flat = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+
+    mode = fused_mode(cfg, training)
+    fused = draws.fused if training else [None, None]
+
+    def outputs(pts, u, coarse_levels=None):
+        u_b, u_a = u if u is not None else (None, None)
+        return implicit_get_outputs_fused(
+            model.implicit, pts, mode, u_b, u_a, coarse_levels,
+            create_graph=training)
+
+    if tier_ord is not None:
+        F = cfg.render_fine_top_f
+        inv_ord = torch.argsort(tier_ord, -1)
+        pts_perm = torch.gather(points, 1, tier_ord[..., None].expand(R, S, 3))
+        o_fine = outputs(pts_perm[:, :F].reshape(-1, 3), fused[0])
+        o_tail = outputs(pts_perm[:, F:].reshape(-1, 3), fused[1],
+                         cfg.render_fine_levels)
+
+        def reassemble(a, b):
+            m = torch.cat([a.reshape((R, F) + a.shape[1:]),
+                           b.reshape((R, S - F) + b.shape[1:])], 1)
+            idx = inv_ord.reshape((R, S) + (1,) * (m.ndim - 2)).expand(m.shape)
+            return torch.gather(m, 1, idx).reshape((R * S,) + a.shape[1:])
+
+        sdf, feature_vectors, gradients, semantic, sdf_raw = (
+            reassemble(a, b) for a, b in zip(o_fine, o_tail))
+    else:
+        sdf, feature_vectors, gradients, semantic, sdf_raw = outputs(
+            points_flat, fused[0])
+    rgb_flat = model.rendering(points_flat, gradients, dirs_flat,
+                               feature_vectors)
+
+    beta = get_beta(model)
+    density = laplace_density(sdf.reshape(R, S), beta)
+    weights, transmittance, dists = volume_render_weights(z_vals, density)
+    obj_density = laplace_density(sdf_raw.reshape(R, S, -1), beta)
+    object_opacity = occlusion_opacity(transmittance, dists, obj_density)
+
+    rgb_values = composite(weights, rgb_flat.reshape(R, S, 3))
+    semantic_values = composite(weights,
+                                semantic.reshape(R, S, cfg.num_semantic))
+    depth_values = depth_scale * composite_depth(weights, z_vals)
+    if cfg.white_bkgd:
+        acc = weights.sum(-1, keepdim=True)
+        rgb_values = rgb_values + (1.0 - acc) * torch.tensor(
+            cfg.bg_color, device=acc.device)
+    normal_map = composite(weights, _normalize(gradients).reshape(R, S, 3))
+    normal_map = normal_map @ w2c_rot.T
+
+    out = {
+        "rgb_values": rgb_values,
+        "semantic_values": semantic_values,
+        "object_opacity": object_opacity,
+        "depth_values": depth_values,
+        "normal_map": normal_map,
+        "z_vals": z_vals,
+        "sdf": sdf.reshape(R, S),
+        "weights": weights,
+    }
+    if training and compute_eikonal:
+        eik_pts = torch.cat([draws.eik_uniform, rays_o + z_eik * rays_d])
+        nei_pts = eik_pts + (draws.nei - 0.5) * 0.01
+        grads_both, raw_both = implicit_all_gradients(
+            model.implicit, torch.cat([eik_pts, nei_pts]))
+        M = eik_pts.shape[0]
+        out["grad_theta"] = grads_both[:M]
+        out["grad_theta_nei"] = grads_both[M:]
+        out["sample_sdf"] = raw_both[:M]
+        out["sample_minsdf"] = torch.amin(raw_both[:M], -1)
+    return out

@@ -1,2 +1,2 @@
 """Host-side utilities of the port (numpy only): mesh I/O, marching
-tetrahedra, image metrics."""
+tetrahedra, image metrics, the JSONL metrics log."""

@@ -1,7 +1,7 @@
-"""The hand-written CUDA kernels K1-K4 (holoscene_tpu_torch/csrc) against
-their plain PyTorch versions, on the card. CUDA kernels have no CPU mode, so
-every test here needs an NVIDIA GPU with nvcc and skips without one; run
-them on the card with
+"""The hand-written CUDA kernels K1-K4 and H1/H2 (holoscene_tpu_torch/csrc)
+against their plain PyTorch versions, on the card. CUDA kernels have no
+CPU mode, so every test here needs an NVIDIA GPU with nvcc and skips
+without one; run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 """
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from holoscene_tpu_torch.ops import gaussians as tg
+from holoscene_tpu_torch.ops import hashgrid as thash
 from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_flat as tflat
 from holoscene_tpu_torch.ops import splat_topk as ttopk
@@ -272,3 +273,121 @@ def test_forward_walks_on_hard_fwd_tiles(cuda, layout, ts):
     assert used.tolist() == ref_used.tolist() == FWD_USED
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=FWD_ATOL)
     assert torch.equal(out, again) and torch.equal(used, used_again)
+
+
+# ---------------------------------------------------------------------------
+# the hash-grid kernels H1-fwd, H1-bwd and H2 (csrc/hash_*.cu) against their
+# plain versions (run on the CPU). Forward kernels: two launches give the
+# same bits, and agree with plain to 1e-5 of the output's largest value
+# (the 8-corner sums in another order). H1-bwd: atomicAdd makes the sums
+# order-dependent, so two launches and plain agree to 1e-5 of the largest
+# gradient, not bitwise; in the sampled modes the pairs whose corner can
+# flip in the last bit (thash.near_flip_pairs) carry zero cotangents.
+# ---------------------------------------------------------------------------
+
+H_REL = 1e-5
+
+
+def _hash_case(dmr, n=3001, levels=6, end=48, logmap=8, seed=0):
+    meta = thash.HashGridMeta(num_levels=levels, level_dim=2,
+                              base_resolution=4, log2_hashmap_size=logmap,
+                              desired_resolution=end, dense_max_res=dmr)
+    rng = np.random.default_rng(seed)
+    ea, eb = (torch.as_tensor(rng.uniform(-0.5, 0.5, (meta.table_rows, 2)),
+                              dtype=torch.float32) for _ in range(2))
+    x = rng.uniform(0.01, 0.99, (n, 3))
+    x[:3] = [[1.2, 0.5, 0.5], [-0.1, 0.3, 0.3], [0.5, 0.5, 1.01]]
+    return meta, ea, eb, torch.as_tensor(x, dtype=torch.float32)
+
+
+def _close(got, ref, rel=H_REL):
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= rel * float(ref.abs().max()) + 1e-7, err
+
+
+@pytest.mark.parametrize("levels", [None, 3])
+@pytest.mark.parametrize("dmr", [0, 64])
+def test_hash_fused_fwd_matches_plain(cuda, dmr, levels):
+    meta, ea, eb, x = _hash_case(dmr)
+    lt = thash.level_tables(meta, levels)
+    n0 = thash.fused_fwd.launches
+    for b in (eb, None):
+        ref = thash.fused_fwd_plain(x, ea, b, lt)
+        args = (x.to(cuda), ea.to(cuda), None if b is None else b.to(cuda), lt)
+        first, second = thash.fused_fwd(*args), thash.fused_fwd(*args)
+        torch.cuda.synchronize()
+        for r, g, g2 in zip(ref, first, second):
+            if r is None:
+                assert g is None
+                continue
+            assert torch.equal(g, g2)
+            _close(g, r)
+    assert thash.fused_fwd.launches == n0 + 4
+
+
+@pytest.mark.parametrize("mode", ["exact", "sampled", "sampled_all"])
+@pytest.mark.parametrize("dmr", [0, 64])
+def test_hash_fused_bwd_matches_plain(cuda, dmr, mode):
+    meta, ea, eb, x = _hash_case(dmr)
+    lt = thash.level_tables(meta)
+    n, L = x.shape[0], lt.n_levels
+    gen = torch.Generator().manual_seed(1)
+    cts = [torch.randn(n, 2 * L, generator=gen),
+           torch.randn(2 * L, 3, n, generator=gen),
+           torch.randn(n, 2 * L, generator=gen)]
+    u_b = torch.rand(3, lt.n_hashed, n, generator=gen)
+    u_a = torch.rand(lt.n_hashed, n, generator=gen)
+    if mode != "exact" and lt.n_hashed:
+        keep = torch.ones(L, n, dtype=torch.bool)
+        keep[lt.n_dense:] = ~thash.near_flip_pairs(x, lt, cts[0], cts[1],
+                                                   u_b, u_a, mode)
+        cts[0] = cts[0] * keep.T.repeat_interleave(2, 1)
+        cts[1] = cts[1] * keep.repeat_interleave(2, 0)[:, None, :]
+        cts[2] = cts[2] * keep.T.repeat_interleave(2, 1)
+    ref = thash.fused_bwd_plain(x, ea.shape[0], *cts, lt, mode, u_b, u_a)[:2]
+    dev = [t.to(cuda) for t in (x, *cts, u_b, u_a)]
+    n0 = thash.fused_bwd.launches
+    first = thash.fused_bwd(dev[0], ea.shape[0], *dev[1:4], lt, mode,
+                            *dev[4:])
+    second = thash.fused_bwd(dev[0], ea.shape[0], *dev[1:4], lt, mode,
+                             *dev[4:])
+    torch.cuda.synchronize()
+    assert thash.fused_bwd.launches == n0 + 2
+    for r, g, g2 in zip(ref, first, second):
+        _close(g, r)
+        _close(g2, g.cpu())
+
+
+@pytest.mark.parametrize("dmr", [0, 16])
+def test_hash_sampler_matches_plain(cuda, dmr):
+    meta, ea, _, x = _hash_case(dmr, levels=16, end=128, logmap=10)
+    lt = thash.level_tables(meta, 8)
+    ref = thash.sampler_fwd_plain(x, ea, lt)
+    n0 = thash.sampler_fwd.launches
+    a = thash.sampler_fwd(x.to(cuda), ea.to(cuda), lt)
+    b = thash.sampler_fwd(x.to(cuda), ea.to(cuda), lt)
+    torch.cuda.synchronize()
+    assert thash.sampler_fwd.launches == n0 + 2
+    assert torch.equal(a, b)
+    _close(a, ref)
+
+
+def test_hash_encode_autograd_on_card(cuda):
+    """hash_encode_fused_dual through autograd on the card (H1-fwd, then
+    H1-bwd from the Function's backward) against the same on the CPU."""
+    meta, ea, eb, x = _hash_case(0)
+    grads = []
+    for dev in ("cpu", cuda):
+        a = ea.detach().clone().to(dev).requires_grad_(True)
+        b = eb.detach().clone().to(dev).requires_grad_(True)
+        fa, J, fb = thash.hash_encode_fused_dual(x.to(dev), a, b, meta)
+        (fa.sum() + (J * J).sum() + fb.square().sum()).backward()
+        grads.append((a.grad, b.grad))
+    for r, g in zip(*grads):
+        _close(g, r, rel=1e-4)
+    with pytest.raises(NotImplementedError, match="points"):
+        xx = x.to(cuda).requires_grad_(True)
+        thash.hash_encode_fused_dual(xx, ea.to(cuda), eb.to(cuda),
+                                     meta)[0].sum().backward()

@@ -1,0 +1,143 @@
+"""The port's Stage-1 fields (holoscene_tpu_torch/models/fields.py) against
+the JAX package's on the CPU, from the same parameters (convert.py):
+implicit_get_outputs_fused (sdf, feature vectors, scene-SDF gradients,
+semantic, raw SDFs; all levels and coarse_levels), implicit_all_gradients,
+the rendering network, and the backward of each with respect to every
+parameter, second order through the hash grid included.
+
+Tolerances: outputs atol 1e-5 + rtol 1e-5 (float32 sums in another order);
+parameter gradients per tensor max |port - JAX| <= 1e-4 max |JAX| (the
+same, through the second-order path of softplus-100)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_threads import few_torch_threads  # noqa: F401
+from torch_stage1_cases import cfgs, implicit_cfgs, jax_params
+
+from holoscene_tpu.models import fields as jf
+from holoscene_tpu.ops.hashgrid import build_dense_block_tables
+from holoscene_tpu_torch.convert import stage1_params_from_jax
+from holoscene_tpu_torch.models import fields as tf
+
+OUT_ATOL = OUT_RTOL = 1e-5
+GRAD_REL = 1e-4
+
+
+def _implicit(seed=1):
+    jc, tc = cfgs("exact")
+    params = jax_params(jc, seed)["implicit"]
+    net = tf.ImplicitNetwork(tc.implicit)
+    net.load_state_dict(stage1_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    return jc.implicit, params, net
+
+
+def _points(n, seed=0):
+    return np.random.default_rng(seed).uniform(
+        -0.98, 0.98, (n, 3)).astype(np.float32)
+
+
+def _check_grads(jgrads, net):
+    ref = stage1_params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    names = dict(net.named_parameters())
+    assert set(ref) == set(names)
+    for k, r in ref.items():
+        g = names[k].grad
+        assert g is not None, k
+        scale = float(r.abs().max())
+        assert scale > 0, k
+        err = float((g - r).abs().max())
+        assert err <= GRAD_REL * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("coarse", [None, 3])
+def test_get_outputs_fused_and_its_backward_match_jax(coarse):
+    jic, params, net = _implicit()
+    x = _points(97)
+    ref = jf.implicit_get_outputs_fused(params, jic, jnp.asarray(x),
+                                        coarse_levels=coarse)
+    got = tf.implicit_get_outputs_fused(net, torch.tensor(x),
+                                        coarse_levels=coarse)
+    for name, r, g in zip(("sdf", "features", "gradients", "semantic",
+                           "sdf_raw"), ref, got):
+        assert tuple(g.shape) == r.shape, name
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(r),
+                                   atol=OUT_ATOL, rtol=OUT_RTOL, err_msg=name)
+    rng = np.random.default_rng(1)
+    cs = [rng.normal(size=np.asarray(r).shape).astype(np.float32)
+          for r in ref]
+
+    def loss(p):
+        o = jf.implicit_get_outputs_fused(p, jic, jnp.asarray(x),
+                                          coarse_levels=coarse)
+        return sum(jnp.sum(a * c) for a, c in zip(o, cs))
+
+    jgrads = jax.grad(loss)(params)
+    sum((a * torch.tensor(c)).sum() for a, c in zip(got, cs)).backward()
+    _check_grads(jgrads, net)
+
+
+def test_all_gradients_and_their_backward_match_jax():
+    """[N, K+1, 3] jacobians from the single-table encode and three
+    hand-pushed tangents against JAX's three JVPs of the packed forward."""
+    jic, params, net = _implicit(seed=4)
+    x = _points(61, seed=2)
+    ref = jf.implicit_all_gradients(params, jic, jnp.asarray(x))
+    got, raw = tf.implicit_all_gradients(net, torch.tensor(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=OUT_ATOL, rtol=OUT_RTOL)
+    np.testing.assert_allclose(
+        raw.detach().numpy(),
+        np.asarray(jf.implicit_sdf_raw(params, jic, jnp.asarray(x))),
+        atol=OUT_ATOL, rtol=OUT_RTOL)
+    c = np.random.default_rng(3).normal(size=ref.shape).astype(np.float32)
+    jgrads = jax.grad(lambda p: jnp.sum(
+        jf.implicit_all_gradients(p, jic, jnp.asarray(x)) * c))(params)
+    (got * torch.tensor(c)).sum().backward()
+    ref_g = stage1_params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    for k, p in net.named_parameters():
+        # the colour grid, its MLP and the head's bias do not reach the
+        # jacobians: JAX's gradient is zeros, the port's None
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        r = ref_g[k]
+        err = float((g - r).abs().max())
+        assert err <= GRAD_REL * float(r.abs().max()), (k, err)
+    assert dict(net.named_parameters())["grid"].grad.any()
+
+
+def test_rendering_network_matches_jax():
+    jc, tc = cfgs("exact")
+    params = jax_params(jc)["rendering"]
+    net = tf.RenderingNetwork(tc.rendering)
+    net.load_state_dict(stage1_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    rng = np.random.default_rng(5)
+    ins = [rng.normal(size=(40, d)).astype(np.float32) for d in (3, 3, 3, 16)]
+    ref = jf.rendering_forward(params, jc.rendering,
+                               *(jnp.asarray(a) for a in ins))
+    got = net(*(torch.tensor(a) for a in ins))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=OUT_ATOL, rtol=OUT_RTOL)
+
+
+def test_sampler_sdf_matches_jax():
+    """implicit_sdf_raw_sampler (H2 plain + the trunk) at 4 of 6 levels."""
+    jic, params, net = _implicit()
+    x = _points(80, seed=6)
+    blocks = build_dense_block_tables(params["grid"], jic.grid_meta,
+                                      max_levels=4)
+    ref = jf.implicit_sdf_raw_sampler(params, jic, jnp.asarray(x), blocks,
+                                      grid_levels=4)
+    got = tf.implicit_sdf_raw_sampler(net, torch.tensor(x), 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=OUT_ATOL,
+                               rtol=OUT_RTOL)
+
+
+def test_config_rejects_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.ImplicitNetwork(implicit_cfgs(color_grid_feature=False)[1])
+    with pytest.raises(ValueError, match="sdf_bwd_sample"):
+        tf.ImplicitNetworkConfig(color_bwd_sample=False, sdf_bwd_sample=True)

@@ -29,7 +29,12 @@ def test_port_lists_its_slice_modules():
                  "training.checkpoints", "training.exp_runner_gaussian",
                  "training.gs_render", "datasets.synthetic",
                  "datasets.ns_dataset", "datasets.gs_datasets", "utils.mesh",
-                 "utils.mc", "utils.eval_rgb", "export.gs_usdz"):
+                 "utils.mc", "utils.eval_rgb", "export.gs_usdz",
+                 "ops.embedder", "ops.density", "ops.volrend", "ops.rays",
+                 "ops.hashgrid", "ops.probe_grid", "ops.sampler",
+                 "models.fields", "models.holoscene",
+                 "losses.holoscene_loss", "training.stage1",
+                 "training.exp_runner", "utils.logging"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 

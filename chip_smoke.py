@@ -37,28 +37,45 @@ Phases, one '== ' line each:
                  calibrated K
   9 hash kernels H1-fwd, H1-bwd (exact / sampled / sampled_all) and H2 vs
                  their plain versions on random tables at a 6-level meta
-                 and at the flagship meta (16 levels, 2^19 rows)
+                 and at the flagship meta (16 levels, 2^19 rows); H1 in
+                 exact mode at the background patch's 100,352 points
  10 Stage-1 CLI  exp_runner.main on a generated 512^2 scene (8 images) with
                  the flagship model (bench.py::flagship_config, d_out from
                  the scene) and the train values of
-                 confs/replica_room0_tpu.conf, 100 steps: every loss finite,
-                 rgb_loss falls, probe grid baked at steps 0 and 64, H1-fwd
-                 and H1-bwd launched three times a step (fine tier, tail,
-                 eikonal) and H2 on every bake chunk; then one eval frame
-                 (PSNR finite, H2 and H1-fwd launched); rays/s
+                 confs/replica_room0_tpu.conf (the background regulariser
+                 every 10th step, as that conf sets it), 100 steps: every
+                 loss finite, rgb_loss falls, background_reg_loss > 0 on
+                 the background steps whose patch sees an object (0 by its
+                 definition where none does) and 0 on the other steps,
+                 probe grid baked at steps 0
+                 and 64, H1-fwd and H1-bwd launched three times a step (fine
+                 tier, tail, eikonal) plus once a background step (the
+                 patch), H2 on every bake chunk and in each patch's sampler;
+                 then one eval frame (PSNR finite, H2 and H1-fwd launched);
+                 rays/s
+ 10b conf defaults the same scene through the CLI with the model section of
+                 confs/replica_room0.conf (the vjp gradient mode, untiered,
+                 no probe grid, 5 sampler rounds, the background
+                 regulariser) at the flagship widths, 40 steps: every loss
+                 finite, rgb_loss falls, H1-bwd in exact mode on every call,
+                 two H1 calls a step plus the patch's; rays/s
  11 bench shapes the train step at bench.py's flagship_config (d_out 32,
                  a random batch as bench.py::make_batch draws it): 3
                  warm-up + 20 timed steps, rays/s; the device's idle share
                  from torch.profiler over 3 steps; H1-fwd / H1-bwd at the
                  fine tier's captured points and H2 at a probe-bake chunk:
-                 kernel ms, plain ms, bound
+                 kernel ms, plain ms, bound, and the time of the kernels
+                 their redesign replaced; then H1-fwd / H1-bwd at every H1 call of the last
+                 warm-up step, a background step (fine tier, tail, eikonal,
+                 patch), with the step's own cotangents: kernel ms and
+                 bound
 Wherever a kernel is held against plain (phases 3, 8, 9 and 11) it is
 launched twice on the same inputs and the two results must be the same bits
 (K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
 launch to launch, so its two launches must agree within its tolerance to
 plain (1e-5 of the largest gradient), not bitwise.
-The launch counts are set to 0 just before each of the paths 4-7 and 10 and
-read just after. Then the kernel table as one JSON line and last the device
+The launch counts are set to 0 just before each of the paths 4-7, 10 and 10b
+and read just after. Then the kernel table as one JSON line and last the device
 line {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 
 The bound of a kernel is the larger of two times, both from this run's
@@ -77,12 +94,12 @@ card's 67 TFLOP/s float32 rate. No PyTorch call computes any of the four
 functions, so library_ms is null.
 
 The bound of a hash-grid kernel, from the same launch's inputs. Bytes: the
-inputs read once (points, cotangents, uniforms), the outputs written once,
-and per level the lesser of its table's bytes and the 32-byte sectors its
-corner gathers touch (8-byte rows, per table); for H1-bwd instead of the
-gathers the zero-fill of both gradient tables and 8 bytes of atomics per
-scattered corner; over 3.35 TB/s. Operations: per (in-range point, level)
-18 for the smoothstep weights and their derivatives plus per corner 31
+inputs read once (points, cotangents, uniforms), the outputs written once
+(H1-bwd: each whole gradient table, as its zero-fill writes it; the atomics
+that add into it are the kernel's cost, not the function's), and for
+H1-fwd and H2 per level the lesser of its table's bytes and the 32-byte
+sectors its corner gathers touch (8-byte rows, per table); over 3.35 TB/s.
+Operations: per (in-range point, level) 18 for the smoothstep weights and their derivatives plus per corner 31
 (H1-fwd: weight, jacobian weights, the multiply-adds of a, J and b), 27
 (H1-bwd: weight, jacobian weights, the fused cotangents) or 6 (H2), over
 67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
@@ -525,6 +542,7 @@ def check_training(tag, runner, hist, steps, launches, per_step, card):
 # ---------------------------------------------------------------------------
 
 S1_RES, S1_IMAGES, S1_STEPS = 512, 8, 100
+S1B_STEPS = 40        # phase 10b: the vjp mode's heavier untiered step
 BENCH_RAYS, BENCH_WARMUP, BENCH_TIMED, PROFILED = 1024, 3, 20, 3
 H_REL = 1e-5          # hash kernels vs plain, relative to the largest value
 BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
@@ -535,6 +553,10 @@ BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
 # the backward (the two fused cotangents 14, b's 2) or of H2 (4)
 OPS_POINT_LEVEL = 18
 OPS_CORNER = {"H1-fwd": 2 + 9 + 20, "H1-bwd": 2 + 9 + 16, "H2": 2 + 4}
+# H1 before its redesign (one thread per (point, level), commit 43206f0),
+# at the fine tier of this script's phase 11 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W
+HASH_EARLIER_MS = {"H1-fwd": 0.0820, "H1-bwd": 0.3737}
 HASH_KERNELS = {
     "H1-fwd": dict(name="H1-fwd hash_fused_fwd", route="cuda",
                    source="holoscene_tpu_torch/csrc/hash_fused_fwd.cu",
@@ -576,17 +598,54 @@ def flagship_cfg(d_out: int):
         use_occupancy=False, probe_grid_res=128, probe_update_every=64)
 
 
-def stage1_conf(work: Path) -> Path:
-    """A generated 512^2 scene and a conf of the flagship model with the
-    train values of confs/replica_room0_tpu.conf."""
+# the model sections of the two Stage-1 runs: phase 10 the flagship fast
+# path with the background regulariser (confs/replica_room0_tpu.conf's
+# values), phase 10b the conf defaults (confs/replica_room0.conf: the vjp
+# gradient mode, untiered, no probe grid, 5 sampler rounds)
+S1_MODEL_TPU = """
+ use_bg_reg = true
+ render_bg_iter = 10
+ use_occupancy = false
+ forward_grad_mode = fused
+ sampler_grid_levels = 8
+ render_top_m = 56
+ render_fine_top_f = 32
+ render_fine_levels = 6
+ probe_grid_res = 128
+ probe_update_every = 64
+ implicit_network{
+  dense_max_res = 0
+  fused_fetch = packed
+  color_bwd_sample = True
+  sdf_bwd_sample = True
+ }
+ ray_sampler{
+  max_total_iters = 4
+ }
+"""
+S1_MODEL_DEFAULT = """
+ use_bg_reg = true
+ render_bg_iter = 10
+ ray_sampler{
+  max_total_iters = 5
+ }
+"""
+
+
+def stage1_conf(work: Path, name: str, model: str,
+                exact_bwd_from_iter: int = -1) -> Path:
+    """A generated 512^2 scene (written once) and a conf of the flagship
+    widths with the train values of confs/replica_room0*.conf and `model`
+    merged into the model section."""
     from holoscene_tpu_torch.datasets.synthetic import generate_scene
 
-    generate_scene(str(work / "data_s1" / "scene_0"), n_images=S1_IMAGES,
-                   img_res=(S1_RES, S1_RES))
-    conf = work / "stage1.conf"
+    if not (work / "data_s1" / "scene_0").exists():
+        generate_scene(str(work / "data_s1" / "scene_0"), n_images=S1_IMAGES,
+                       img_res=(S1_RES, S1_RES))
+    conf = work / f"{name}.conf"
     conf.write_text(f"""
 train{{
- expname = smoke_s1
+ expname = {name}
  learning_rate = 5.0e-4
  lr_factor_for_grid = 20.0
  num_pixels = 1024
@@ -594,7 +653,7 @@ train{{
  split_n_pixels = 4096
  add_objectvio_iter = 25000
  max_total_iters = 200000
- exact_bwd_from_iter = 80000
+ exact_bwd_from_iter = {exact_bwd_from_iter}
 }}
 loss{{
  rgb_loss = l1
@@ -616,15 +675,6 @@ dataset{{
 model{{
  feature_vector_size = 256
  scene_bounding_sphere = 1.0
- use_bg_reg = false
- use_occupancy = false
- forward_grad_mode = fused
- sampler_grid_levels = 8
- render_top_m = 56
- render_fine_top_f = 32
- render_fine_levels = 6
- probe_grid_res = 128
- probe_update_every = 64
  implicit_network{{
   d_in = 3
   dims = [256, 256]
@@ -639,10 +689,6 @@ model{{
   base_size = 16
   end_size = 2048
   logmap = 19
-  dense_max_res = 0
-  fused_fetch = packed
-  color_bwd_sample = True
-  sdf_bwd_sample = True
  }}
  rendering_network{{
   mode = idr
@@ -666,9 +712,8 @@ model{{
   N_samples_extra = 32
   eps = 0.1
   beta_iters = 10
-  max_total_iters = 4
  }}
-}}
+{model}}}
 """)
     return conf
 
@@ -721,8 +766,8 @@ def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
                mode: str = "exact"):
     """(bound ms, "bytes" | "operations") of one launch on these inputs:
     the bytes are the inputs read once, the outputs written once and the
-    table sectors gathered (H1-bwd: the zero-fill of the gradient tables
-    and 8 bytes of atomics per scattered corner instead of the gathers);
+    table sectors gathered (H1-bwd: its draws read once and each gradient
+    table written once instead of the gathers);
     the operations OPS_POINT_LEVEL + 8 OPS_CORNER a (point, level) of an
     in-range point."""
     n, L = x01.shape[0], lt.n_levels
@@ -736,13 +781,10 @@ def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
     elif kernel == "H2":
         nbytes = n * 12 + feats + _gather_bytes(x01, lt, 1)
     else:
-        lh, ld = lt.n_hashed, lt.n_dense
         cts = feats * tables + n * L * 6 * 4
-        draws = {"exact": 0, "sampled": 3, "sampled_all": 4}[mode] * n * lh * 4
-        a_corners = valid * (8 * L if mode != "sampled_all" else 8 * ld + lh)
-        b_corners = valid * (8 * L if mode == "exact" else 8 * ld + lh)
-        atomics = 8 * (a_corners + (b_corners if has_b else 0))
-        nbytes = n * 12 + cts + draws + n_rows * 8 * tables + atomics
+        draws = {"exact": 0, "sampled": 3, "sampled_all": 4}[mode] \
+            * n * lt.n_hashed * 4
+        nbytes = n * 12 + cts + draws + n_rows * 8 * tables
     return bound_ms(nbytes, ops)
 
 
@@ -875,6 +917,131 @@ def device_kernels(prof):
     return busy / 1e3, by_name
 
 
+def record_h1(fn, keep=lambda name, args: args):
+    """fn() with H1-fwd / H1-bwd wrapped to record keep(name, args) of each
+    call (name "fused_fwd" or "fused_bwd"):
+    (fn's result, [H1-fwd records], [H1-bwd records]) in call order. The
+    wrapped calls still launch, and their launches are counted on the
+    kernels' own wrappers."""
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    names = ("fused_fwd", "fused_bwd")
+    origs = {k: getattr(hg, k) for k in names}
+    records = {k: [] for k in names}
+
+    def wrap(name):
+        def wrapped(*args):
+            records[name].append(keep(name, args))
+            return origs[name](*args)
+
+        wrapped.launches = 0
+        return wrapped
+
+    wrappers = {k: wrap(k) for k in names}
+    for k, w in wrappers.items():
+        setattr(hg, k, w)
+    try:
+        out = fn()
+    finally:
+        # a kernel wrapper counts its launches on the name it is bound to,
+        # which was the recording wrapper meanwhile
+        for k, o in origs.items():
+            setattr(hg, k, o)
+            o.launches += wrappers[k].launches
+    return out, records["fused_fwd"], records["fused_bwd"]
+
+
+def capture_h1(step_fn) -> list:
+    """Run step_fn(): [(fwd args, bwd args or None)] of its H1 calls in
+    forward order, a call's backward found by its points tensor."""
+    import torch
+
+    _, fwd, bwd = record_h1(step_fn)
+    torch.cuda.synchronize()
+    by_points = {a[0].data_ptr(): a for a in bwd}
+    return [(a, by_points.get(a[0].data_ptr())) for a in fwd]
+
+
+def h1_at_capture(fargs, bargs, reps: int = 20) -> dict:
+    """H1-fwd and H1-bwd timed on one captured call (the step's own
+    cotangents), with their bounds: {kernel: dict(ms, bound_ms,
+    bound_by)}, and the call's shape."""
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    x01, emb_a, emb_b, lt = fargs
+    emb_a = emb_a.detach()
+    emb_b = None if emb_b is None else emb_b.detach()
+    out = {"points": x01.shape[0], "levels": lt.n_levels,
+           "tables": 1 if emb_b is None else 2}
+    out["H1-fwd"] = dict(ms=cuda_ms(lambda: hg.fused_fwd(x01, emb_a, emb_b,
+                                                         lt), reps))
+    out["H1-fwd"]["bound_ms"], out["H1-fwd"]["bound_by"] = hash_bound(
+        "H1-fwd", x01, lt, has_b=emb_b is not None)
+    if bargs is not None:
+        mode = bargs[6]
+        out["mode"] = mode
+        out["H1-bwd"] = dict(ms=cuda_ms(lambda: hg.fused_bwd(*bargs), reps))
+        out["H1-bwd"]["bound_ms"], out["H1-bwd"]["bound_by"] = hash_bound(
+            "H1-bwd", x01, lt, bargs[1], has_b=bargs[4] is not None,
+            mode=mode)
+    return out
+
+
+def h1_modes(fn):
+    """fn() with H1-bwd's calls recorded: (its result, the set of modes
+    H1-bwd ran in)."""
+    out, _, modes = record_h1(
+        fn, keep=lambda name, args: args[6] if name == "fused_bwd" else None)
+    return out, set(modes)
+
+
+def check_stage1_run(tag, runner, steps, launches, bg_every, per_step,
+                     card) -> dict:
+    """Every loss finite, rgb_loss falling over the run's thirds, the
+    background loss > 0 on its steps (where the patch sees an object) and
+    0 on the others, H1-fwd / H1-bwd launched
+    per_step times a step plus once a background step, and H2 in each
+    background patch's sampler (once, then once a round some ray has not
+    converged). Returns the thirds' trend."""
+    hist = runner.history
+    keys = ("loss", "rgb_loss", "eikonal_loss", "background_reg_loss",
+            "psnr")
+    if len(hist) != steps or not all(finite(h[k]) for h in hist
+                                     for k in keys):
+        raise RuntimeError(f"{tag}: {len(hist)} logged steps for {steps}, "
+                           "or a non-finite loss")
+    bg_steps = [h["iter"] for h in hist if h["iter"] % bg_every == 0]
+    bg_loss = [h["background_reg_loss"] for h in hist
+               if h["iter"] % bg_every == 0]
+    # the term is 0 by its definition on a patch where no pixel composites
+    # to an object (its mask is empty), and on every other step
+    if not any(v > 0 for v in bg_loss) or any(
+            h["background_reg_loss"] for h in hist
+            if h["iter"] % bg_every):
+        raise RuntimeError(f"{tag}: background_reg_loss {bg_loss} on the "
+                           f"background steps {bg_steps}, expected > 0 on "
+                           "some and 0 on every other step")
+    trend = thirds(hist, ("loss", "rgb_loss", "eikonal_loss", "psnr"))
+    steady = (steps - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
+    log("   first/last third means: " + ", ".join(
+        f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items())
+        + "; background_reg_loss on steps " + ", ".join(
+            f"{i}: {v:.5f}" for i, v in zip(bg_steps, bg_loss)))
+    log(f"   {steps} steps of {runner.num_pixels} rays in "
+        f"{runner.run_seconds:.3f} s: {steps * runner.num_pixels / runner.run_seconds:.1f} rays/s "
+        f"(first step included); steps 2..{steps}: {steady:.3f} steps/s, "
+        f"{1e3 / steady:.2f} ms/step, {steady * runner.num_pixels:.1f} "
+        f"rays/s; launches {launches}; d_out "
+        f"{runner.model_cfg.implicit.d_out}; on {card}")
+    if not trend["rgb_loss"][1] < trend["rgb_loss"][0]:
+        raise RuntimeError(f"{tag}: rgb_loss did not fall: {trend}")
+    want = per_step * steps + len(bg_steps)
+    if launches["H1-fwd"] != want or launches["H1-bwd"] != want:
+        raise RuntimeError(f"{tag}: H1 launches {launches}, expected {want}: "
+                           f"{per_step} a step plus one a background step")
+    return trend
+
+
 def stage1_phases(work: Path, dev, card: str) -> dict:
     """Phases 9-11. Returns {H kernel: its row of the kernel table}."""
     import torch
@@ -884,10 +1051,12 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
     from holoscene_tpu_torch.training import exp_runner
     from holoscene_tpu_torch.training import stage1 as s1
 
-    # 9 the hash kernels vs plain: a small meta and the flagship meta
+    # 9 the hash kernels vs plain: a small meta and the flagship meta, and
+    # the background patch's exact-mode call (1024 rays x 98 samples)
     small_meta = hg.HashGridMeta(num_levels=6, level_dim=2, base_resolution=4,
                                  log2_hashmap_size=8, desired_resolution=48)
-    flag_meta = flagship_cfg(32).implicit.grid_meta
+    flag_cfg = flagship_cfg(32)
+    flag_meta = flag_cfg.implicit.grid_meta
     errs = {k: [] for k in HASH_KERNELS}
     t0 = time.perf_counter()
     for i, (meta, n) in enumerate(((small_meta, 3001), (flag_meta, 8192))):
@@ -899,17 +1068,25 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
         errs["H2"].append(compare_h2(x, ea, hg.level_tables(
             meta, min(8, meta.num_levels - 2)))["max_abs_err"])
         del ea, eb
+    n_patch = hs.BG_PATCH ** 2 * flag_cfg.sampler.n_final
+    x, ea, eb = random_hash_inputs(flag_meta, n_patch, dev, 12)
+    got = compare_h1(x, ea, eb, hg.level_tables(flag_meta), 22,
+                     modes=("exact",))
+    for k, r in got.items():
+        errs[k].append(r["max_abs_err"])
+    del x, ea, eb
     log(f"== 9 hash kernels vs plain (random tables, {small_meta.num_levels}-"
         f"level meta at 3001 points and the flagship meta at 8192; all "
         f"levels and a coarse prefix; H1-bwd exact / sampled / sampled_all; "
-        f"H2 at 4 / 8 levels) in {time.perf_counter() - t0:.1f} s: max abs err "
+        f"H2 at 4 / 8 levels; H1 exact at the background patch's {n_patch} "
+        f"points) in {time.perf_counter() - t0:.1f} s: max abs err "
         + ", ".join(f"{k} {max(v):.3g}" for k, v in errs.items())
         + f" (within {H_REL} of the largest value; H1-fwd and H2 two "
         "launches bitwise equal, H1-bwd within the same tolerance: atomics)")
 
     # 10 the Stage-1 CLI at the flagship width on a generated 512^2 scene
     t0 = time.perf_counter()
-    conf = stage1_conf(work)
+    conf = stage1_conf(work, "smoke_s1", S1_MODEL_TPU, 80000)
     log(f"== 10 Stage-1 CLI: scene {S1_IMAGES} x {S1_RES}^2 written in "
         f"{time.perf_counter() - t0:.1f} s")
     reset_counts()
@@ -919,35 +1096,20 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
          "--device", "cuda"])
     launches = read_hash_counts()
     splat = read_counts()
-    hist = runner.history
-    if len(hist) != S1_STEPS or not all(
-            finite(h[k]) for h in hist for k in ("loss", "rgb_loss",
-                                                 "eikonal_loss", "psnr")):
-        raise RuntimeError(f"Stage-1 run: {len(hist)} logged steps for "
-                           f"{S1_STEPS}, or a non-finite loss")
-    trend = thirds(hist, ("loss", "rgb_loss", "eikonal_loss", "psnr"))
-    per_bake = -(-(runner.model_cfg.probe_grid_res + 1) ** 3 // BAKE_CHUNK)
-    steady = (S1_STEPS - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
-    log("   first/last third means: " + ", ".join(
-        f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items()))
-    log(f"   {S1_STEPS} steps of {runner.num_pixels} rays in "
-        f"{runner.run_seconds:.3f} s: {S1_STEPS * runner.num_pixels / runner.run_seconds:.1f} rays/s "
-        f"(first step included); steps 2..{S1_STEPS}: {steady:.3f} steps/s, "
-        f"{1e3 / steady:.2f} ms/step, {steady * runner.num_pixels:.1f} "
-        f"rays/s; probe bakes at {runner.probe_bakes}; launches {launches} "
-        f"(splat kernels {splat}); d_out {runner.model_cfg.implicit.d_out}; "
-        f"on {card}")
-    if not trend["rgb_loss"][1] < trend["rgb_loss"][0]:
-        raise RuntimeError(f"Stage-1 rgb_loss did not fall: {trend}")
-    if runner.probe_bakes[:2] != [0, 64]:
+    cfg10 = runner.model_cfg
+    check_stage1_run("Stage-1 run", runner, S1_STEPS, launches,
+                     cfg10.render_bg_iter, 3, card)
+    n_bg = len(range(0, S1_STEPS, cfg10.render_bg_iter))
+    per_bake = -(-(cfg10.probe_grid_res + 1) ** 3 // BAKE_CHUNK)
+    bake_h2 = len(runner.probe_bakes) * per_bake
+    log(f"   probe bakes at {runner.probe_bakes}; splat kernels {splat}")
+    if runner.probe_bakes[:2] != [0, cfg10.probe_update_every]:
         raise RuntimeError(f"probe bakes at {runner.probe_bakes}")
-    want = {"H1-fwd": 3 * S1_STEPS, "H1-bwd": 3 * S1_STEPS,
-            "H2": len(runner.probe_bakes) * per_bake}
-    if launches != want or any(splat.values()):
-        raise RuntimeError(f"Stage-1 launches {launches} (splat {splat}), "
-                           f"expected {want}: H1-fwd / H1-bwd three a step "
-                           "(fine tier, tail, eikonal), H2 on every bake "
-                           "chunk")
+    if not n_bg <= launches["H2"] - bake_h2 \
+            <= n_bg * cfg10.sampler.max_total_iters or any(splat.values()):
+        raise RuntimeError(f"Stage-1 launches {launches} (splat {splat}): "
+                           f"H2 on every bake chunk ({bake_h2}) and in each "
+                           f"of the {n_bg} patches' samplers")
     reset_counts()
     t0 = time.perf_counter()
     psnr = runner.plot(S1_STEPS - 1)["psnr"]
@@ -959,9 +1121,34 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
             or eval_launches["H1-fwd"] < 1 or eval_launches["H1-bwd"]:
         raise RuntimeError(f"eval render: PSNR {psnr}, launches "
                            f"{eval_launches}")
+    del runner
+
+    # 10b the conf defaults: the vjp gradient mode, untiered
+    conf = stage1_conf(work, "smoke_s1_vjp", S1_MODEL_DEFAULT)
+    reset_counts()
+    runner, modes = h1_modes(lambda: exp_runner.main(
+        ["--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
+         "--max_niters", str(S1B_STEPS), "--log_every", "1", "--quiet",
+         "--device", "cuda"]))
+    launches_b = read_hash_counts()
+    cfg10b = runner.model_cfg
+    log(f"== 10b conf defaults (confs/replica_room0.conf's model section: "
+        f"forward_grad_mode {cfg10b.forward_grad_mode}, render_top_m "
+        f"{cfg10b.render_top_m}, probe grid {cfg10b.probe_grid_res}, "
+        f"{cfg10b.sampler.max_total_iters} sampler rounds, use_bg_reg "
+        f"{cfg10b.use_bg_reg}): {S1B_STEPS} steps, H1-bwd modes "
+        f"{sorted(modes)}")
+    if cfg10b.forward_grad_mode != "vjp" or modes != {"exact"}:
+        raise RuntimeError(f"10b: grad mode {cfg10b.forward_grad_mode}, "
+                           f"H1-bwd modes {modes}: expected vjp, exact")
+    check_stage1_run("vjp run", runner, S1B_STEPS, launches_b,
+                     cfg10b.render_bg_iter, 2, card)
+    if launches_b["H2"] < S1B_STEPS:
+        raise RuntimeError(f"10b: H2 launches {launches_b}")
+    del runner
 
     # 11 the train step at bench.py's shapes (d_out 32, random batch)
-    cfg = flagship_cfg(32)
+    cfg = flag_cfg
     torch.cuda.reset_peak_memory_stats(dev)
     model = hs.init_holoscene(cfg, 0, dev)
     opt, sched = s1.make_optimizer(model, 5e-4, 20.0, 200000)
@@ -977,28 +1164,18 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
     probe = bake(model)
     torch.cuda.synchronize()
     bake_ms = 1e3 * (time.perf_counter() - t0)
-    captured = []
-    orig_fwd = hg.fused_fwd
 
-    def capture_fwd(*args):
-        captured.append(args)
-        return orig_fwd(*args)
+    def step(i, with_bg=False):
+        draws = s1.StepDraws.make(cfg, BENCH_RAYS, gen, dev, with_bg)
+        return s1.train_step(model, opt, sched, lcfg, batch, draws, i,
+                             probe=probe)
 
-    # the wrapper counts on the name it is bound to: while capturing, that
-    # is this function (phase 11 reads no count)
-    capture_fwd.launches = 0
-
-    def step(i, capture=False):
-        hg.fused_fwd = capture_fwd if capture else orig_fwd
-        try:
-            draws = s1.StepDraws.make(cfg, BENCH_RAYS, gen, dev)
-            return s1.train_step(model, opt, sched, lcfg, batch, draws, i,
-                                 probe=probe)
-        finally:
-            hg.fused_fwd = orig_fwd
-
-    for i in range(BENCH_WARMUP):
-        step(i, capture=i == 0)
+    # the last warm-up step is a background step, with its H1 calls
+    # captured: fine tier, tail, eikonal, patch (at the first step the
+    # geometric init gives the SDF grid zero cotangents)
+    for i in range(BENCH_WARMUP - 1):
+        step(i)
+    captured = capture_h1(lambda: step(BENCH_WARMUP - 1, with_bg=True))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(BENCH_TIMED):
@@ -1038,9 +1215,12 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
         f"{sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA) // PROFILED} "
         f"launches a step): {top_s}")
 
-    # the kernels at the step's shapes: the fine tier's H1 call as captured,
-    # H2 on the first bake chunk
-    x01, emb_a, emb_b, lt = captured[0]     # the fine tier's call
+    # the kernels at the step's shapes: the fine tier's H1 call as captured
+    # (random cotangents, as the earlier kernels were timed), H2 on the first bake chunk
+    if len(captured) != 4 or any(b is None for _, b in captured):
+        raise RuntimeError(f"background step: {len(captured)} H1 calls "
+                           "captured, expected 4 with their backwards")
+    x01, emb_a, emb_b, lt = captured[0][0]     # the fine tier's call
     emb_a, emb_b = emb_a.detach(), emb_b.detach()
     mode = hs.fused_mode(cfg, True)
     timed = compare_h1(x01, emb_a, emb_b, lt, 30, timed=True,
@@ -1061,17 +1241,31 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
     for k, meta in HASH_KERNELS.items():
         r = timed[k]
         r["max_abs_err"] = max([r["max_abs_err"]] + errs[k])
+        earlier = (f"; the kernel it replaced: {HASH_EARLIER_MS[k]:.4f} ms, "
+                   f"{HASH_EARLIER_MS[k] / r['ms']:.2f}x"
+                   if k in HASH_EARLIER_MS else "")
         log(f"   {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({100 * r['bound_ms'] / r['ms']:.1f}% of it); max abs err "
             f"{r['max_abs_err']:.3g}; launches on the Stage-1 path "
-            f"{launches[k]}")
+            f"{launches[k]}{earlier}")
         rows[k] = {**meta, "launches": launches[k],
                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": None,
                    "launches_by_path": {"stage1": launches[k],
-                                        "stage1_eval": eval_launches[k]}}
+                                        "stage1_eval": eval_launches[k],
+                                        "stage1_vjp": launches_b[k]}}
+    log("   H1 at every call of a background step (the step's own "
+        "cotangents):")
+    for tag, (fargs, bargs) in zip(("fine tier", "tail", "eikonal", "patch"),
+                                   captured):
+        r = h1_at_capture(fargs, bargs)
+        log(f"   {tag}: {r['points']} points x {r['levels']} levels, "
+            f"{r['tables']} table(s), backward {r['mode']}: " + "; ".join(
+                f"{k} {r[k]['ms']:.4f} ms, bound {r[k]['bound_ms']:.4f} ms "
+                f"by {r[k]['bound_by']} ({100 * r[k]['bound_ms'] / r[k]['ms']:.1f}%)"
+                for k in ("H1-fwd", "H1-bwd")))
     return rows
 
 

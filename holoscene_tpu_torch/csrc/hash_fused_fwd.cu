@@ -18,11 +18,22 @@
 //
 // Bounds on the card. Per (point, level) 8 rows x 16 bytes of gathers (a
 // 32-byte sector each, scattered through 49 MB tables at the fine levels)
-// and 12 + 24 floats written; ~250 flops. Memory: the gathers' sectors.
-// Design: one thread per (point, level), the level the slow index, so a
-// warp shares a level's metadata and writes J coalesced; the feature rows
-// are written 8 bytes a thread. Simple and right first: no shared-memory
-// staging, no vector loads of the packed pair.
+// and 12 + 24 floats written; ~250 flops. Memory: the gathers' sectors,
+// then the writes. The gathers are the largest part of its time: compiled
+// out (in a copy of this file, timed by utils/hash_bench.py) they take
+// about a third off the fine tier's call and half off the background
+// patch's.
+// Design: a block is a tile of kTilePoints consecutive points x all L
+// levels; lane = point, warp = level (a warp takes levels w, w + W, ...,
+// W = kFwdWarps), so a warp shares one level's metadata and its J stores
+// are coalesced.
+// The tile's coordinates are staged in shared memory by one coalesced load
+// (each point is read once, not once per level). The [P, 2L] feature rows
+// are assembled in shared memory (stride 2L + 1: conflict-free) and leave
+// as one contiguous, coalesced span per table, where one thread per
+// (point, level) wrote 8 bytes at a 128-byte stride. The arithmetic of
+// each (point, level) is the earlier kernel's, in the same order, so the
+// outputs are bitwise those of the one-thread-per-(point, level) kernel.
 
 #include "hash_grid.cuh"
 
@@ -30,57 +41,78 @@ namespace {
 
 using namespace hash_grid;
 
-__global__ void __launch_bounds__(kBlock) hash_fused_fwd_kernel(
-    const float* __restrict__ x01, const float2* __restrict__ emb_a,
-    const float2* __restrict__ emb_b, const float* __restrict__ scales,
-    const int* __restrict__ ints, float* __restrict__ fa,
-    float* __restrict__ J, float* __restrict__ fb, int N, int L) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(N) * L) return;
-  const int n = static_cast<int>(idx % N), l = static_cast<int>(idx / N);
-  float x[3];
-  load_point(x01, n, x);
-  float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
-  float j0[3] = {0.f, 0.f, 0.f}, j1[3] = {0.f, 0.f, 0.f};
-  if (!out_of_range(x)) {
-    const Level lv = load_level(scales, ints, L, l);
-    int rows[8];
-    float frac[3], w[3], dw[3];
-    corner_rows(lv, x, rows, frac);
-    weights(frac, w, dw);
+__global__ void __launch_bounds__(kTilePoints * kFwdWarps)
+    hash_fused_fwd_kernel(const float* __restrict__ x01,
+                          const float2* __restrict__ emb_a,
+                          const float2* __restrict__ emb_b,
+                          const float* __restrict__ scales,
+                          const int* __restrict__ ints, float* __restrict__ fa,
+                          float* __restrict__ J, float* __restrict__ fb, int N,
+                          int L) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x, warp = threadIdx.y, W = blockDim.y;
+  const int tid = warp * kTilePoints + lane, nthreads = kTilePoints * W;
+  const int n0 = blockIdx.x * kTilePoints;
+  const int np = min(kTilePoints, N - n0);
+  const int stride = 2 * L + 1;
+  float* xs = smem;                             // [kTilePoints * 3]
+  float* sa = xs + 3 * kTilePoints;             // [kTilePoints][stride]
+  float* sb = sa + kTilePoints * stride;
+
+  load_tile(x01 + 3 * static_cast<int64_t>(n0), xs, 3 * np, tid, nthreads);
+  __syncthreads();
+  const int n = n0 + lane;
+  const bool live = lane < np;
+  float x[3] = {xs[3 * lane], xs[3 * lane + 1], xs[3 * lane + 2]};
+  const bool valid = live && !out_of_range(x);
+
+  for (int l = warp; l < L; l += W) {
+    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+    float j0[3] = {0.f, 0.f, 0.f}, j1[3] = {0.f, 0.f, 0.f};
+    if (valid) {
+      const Level lv = load_level(scales, ints, L, l);
+      int rows[8];
+      float frac[3], w[3], dw[3];
+      corner_rows(lv, x, rows, frac);
+      weights(frac, w, dw);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float dcw[3];
-      const float cw = corner_weight(w, dw, lv.scale, k, dcw);
-      const float2 va = emb_a[rows[k]];
-      const float va0 = bf16_round(va.x), va1 = bf16_round(va.y);
-      a0 += cw * va0;
-      a1 += cw * va1;
+      for (int k = 0; k < 8; ++k) {
+        float dcw[3];
+        const float cw = corner_weight(w, dw, lv.scale, k, dcw);
+        const float2 va = emb_a[rows[k]];
+        const float va0 = bf16_round(va.x), va1 = bf16_round(va.y);
+        a0 += cw * va0;
+        a1 += cw * va1;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          j0[d] += dcw[d] * va0;
+          j1[d] += dcw[d] * va1;
+        }
+        if (emb_b != nullptr) {
+          const float2 vb = emb_b[rows[k]];
+          b0 += cw * bf16_round(vb.x);
+          b1 += cw * bf16_round(vb.y);
+        }
+      }
+    }
+    sa[lane * stride + 2 * l] = a0;
+    sa[lane * stride + 2 * l + 1] = a1;
+    sb[lane * stride + 2 * l] = b0;
+    sb[lane * stride + 2 * l + 1] = b1;
+    if (live) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        j0[d] += dcw[d] * va0;
-        j1[d] += dcw[d] * va1;
-      }
-      if (emb_b != nullptr) {
-        const float2 vb = emb_b[rows[k]];
-        b0 += cw * bf16_round(vb.x);
-        b1 += cw * bf16_round(vb.y);
+        J[(static_cast<int64_t>(2 * l) * 3 + d) * N + n] = j0[d];
+        J[(static_cast<int64_t>(2 * l + 1) * 3 + d) * N + n] = j1[d];
       }
     }
   }
-  const int64_t f = static_cast<int64_t>(n) * 2 * L + 2 * l;
-  fa[f] = a0;
-  fa[f + 1] = a1;
-  if (fb != nullptr) {
-    fb[f] = b0;
-    fb[f + 1] = b1;
-  }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    J[(static_cast<int64_t>(2 * l) * 3 + d) * N + n] = j0[d];
-    J[(static_cast<int64_t>(2 * l + 1) * 3 + d) * N + n] = j1[d];
-  }
+  __syncthreads();
+  store_tile(sa, fa + static_cast<int64_t>(n0) * 2 * L, np, 2 * L, stride,
+             tid, nthreads);
+  if (fb != nullptr)
+    store_tile(sb, fb + static_cast<int64_t>(n0) * 2 * L, np, 2 * L, stride,
+               tid, nthreads);
 }
 
 }  // namespace
@@ -90,9 +122,12 @@ extern "C" int hash_fused_fwd(const void* x01, const void* emb_a,
                               const void* emb_b, const void* scales,
                               const void* ints, void* fa, void* J, void* fb,
                               int n, int n_levels, void* stream) {
-  const int64_t total = static_cast<int64_t>(n) * n_levels;
-  const int blocks = static_cast<int>((total + kBlock - 1) / kBlock);
-  hash_fused_fwd_kernel<<<blocks, kBlock, 0,
+  const dim3 block(kTilePoints, tile_warps(n_levels, kFwdWarps));
+  const int blocks = (n + kTilePoints - 1) / kTilePoints;
+  const size_t shmem =
+      sizeof(float) * kTilePoints * (3 + 2 * (2 * n_levels + 1));
+  if (shmem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  hash_fused_fwd_kernel<<<blocks, block, shmem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x01), static_cast<const float2*>(emb_a),
       static_cast<const float2*>(emb_b), static_cast<const float*>(scales),

@@ -1,6 +1,7 @@
 // Device code shared by the hash-grid kernels H1-fwd (hash_fused_fwd.cu),
 // H1-bwd (hash_fused_bwd.cu) and H2 (hash_sampler_fwd.cu): one level's
-// metadata, the eight corner rows of a point, the smoothstep weights.
+// metadata, the eight corner rows of a point, the smoothstep weights, and
+// the staging of H1's point tiles through shared memory.
 //
 // Semantics (holoscene_tpu/ops/hashgrid.py _fused_core / hash_encode_sampler;
 // plain twins in holoscene_tpu_torch/ops/hashgrid.py): per level
@@ -20,6 +21,51 @@
 namespace hash_grid {
 
 constexpr int kBlock = 128;
+
+// H1's tile: kTilePoints consecutive points (one a lane) x every level, the
+// levels spread over at most kFwdWarps (H1-fwd) / kBwdWarps (H1-bwd) warps.
+// The counts are the faster of 2 / 4 / 8 / 16 at the fine tier and the
+// background patch (utils/hash_bench.py on an H100).
+constexpr int kTilePoints = 32;
+constexpr int kFwdWarps = 4;
+constexpr int kBwdWarps = 8;
+
+__host__ __device__ __forceinline__ int tile_warps(int n_levels,
+                                                   int max_warps) {
+  return n_levels < max_warps ? n_levels : max_warps;
+}
+
+// dst[0:count] = src[0:count], the block's threads on consecutive floats.
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+                                          float* dst, int count, int tid,
+                                          int nthreads) {
+  for (int i = tid; i < count; i += nthreads) dst[i] = src[i];
+}
+
+// Rows of `width` floats, `rows` of them: dst (contiguous) from a shared
+// tile whose rows are `stride` floats apart, one float a thread in order,
+// so each warp moves 128 contiguous bytes.
+__device__ __forceinline__ void store_tile(const float* tile,
+                                           float* __restrict__ dst, int rows,
+                                           int width, int stride, int tid,
+                                           int nthreads) {
+  const int count = rows * width;
+  for (int i = tid; i < count; i += nthreads) {
+    const int r = i / width;
+    dst[i] = tile[r * stride + (i - r * width)];
+  }
+}
+
+// The inverse: a shared tile with row stride `stride` from contiguous rows.
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          float* tile, int rows, int width,
+                                          int stride, int tid, int nthreads) {
+  const int count = rows * width;
+  for (int i = tid; i < count; i += nthreads) {
+    const int r = i / width;
+    tile[r * stride + (i - r * width)] = src[i];
+  }
+}
 
 struct Level {
   float scale;

@@ -7,10 +7,13 @@ The render path is `implicit_get_outputs_fused`: hash-grid features, their
 analytic jacobian and the colour-grid features from one H1 call
 (ops/hashgrid.py), the scene-SDF gradient by the chain rule through the MLP
 trunk (an inner autograd.grad with create_graph, so the outer backward
-reaches H1-bwd with the second-order cotangent). The eikonal jacobians of
+reaches H1-bwd with the second-order cotangent). The vjp gradient mode,
+`implicit_get_outputs` (the JAX default, and the background patch's field),
+is the same construction in H1-bwd's exact mode. The eikonal jacobians of
 `implicit_all_gradients` push three tangents through the trunk by hand
-(forward mode), from the single-table H1 call. The sampler's probes go
-through `implicit_sdf_raw_sampler` (H2, no gradient)."""
+(forward mode), from the single-table H1 call. `implicit_forward` /
+`implicit_sdf_raw` are the plain forward through H1. The sampler's probes
+go through `implicit_sdf_raw_sampler` (H2, no gradient)."""
 
 from __future__ import annotations
 
@@ -190,6 +193,17 @@ def _kaiming(rng, in_dim: int, out_dim: int) -> PlainLinear:
                        rng.uniform(-bb, bb, out_dim))
 
 
+def require_ported(cfg: ImplicitNetworkConfig) -> None:
+    """Raise unless the network runs on the fused dual-table encode (H1):
+    colour grid, level_dim 2, grid features, trilinear interpolation."""
+    if not (cfg.color_grid_feature and cfg.level_dim == 2
+            and cfg.use_grid_feature and cfg.grid_interp == "trilinear"):
+        raise NotImplementedError(
+            "the port runs the fused encode only (color_grid_feature, "
+            "level_dim 2, use_grid_feature, trilinear); see ROADMAP.md "
+            "queue A")
+
+
 class ImplicitNetwork(nn.Module):
     """ObjectImplicitNetworkGrid: hash-grid features + sin/cos embedding ->
     weight-norm softplus MLP -> K object SDFs; the colour grid through a
@@ -198,12 +212,7 @@ class ImplicitNetwork(nn.Module):
 
     def __init__(self, cfg: ImplicitNetworkConfig, seed: int = 0):
         super().__init__()
-        if not (cfg.color_grid_feature and cfg.level_dim == 2
-                and cfg.use_grid_feature and cfg.grid_interp == "trilinear"):
-            raise NotImplementedError(
-                "the port runs the fused encode only (color_grid_feature, "
-                "level_dim 2, use_grid_feature, trilinear); see ROADMAP.md "
-                "queue A")
+        require_ported(cfg)
         self.cfg = cfg
         rng = np.random.default_rng(seed)
         dims = cfg.layer_dims
@@ -323,6 +332,50 @@ def implicit_get_outputs_fused(net: ImplicitNetwork, x: torch.Tensor,
                  * (1.0 / (2.0 * cfg.divide_factor)) + ct_x)
     semantic = semantic_from_sdf(sdf_raw, cfg.sigmoid)
     return sdf, net.color_features(cf), gradients, semantic, sdf_raw
+
+
+def implicit_get_outputs(net: ImplicitNetwork, x: torch.Tensor,
+                         create_graph: bool = True):
+    """The vjp gradient mode (JAX implicit_get_outputs, fields.py:449):
+    (sdf, feature_vectors, gradients, semantic, sdf_raw) as
+    implicit_get_outputs_fused returns them, with H1-bwd in exact mode
+    (JAX's vjp mode has no sampled backward).
+
+    JAX builds the scene-SDF gradient as the pullback of the tie-sharing
+    min cotangent eq / eq.sum(-1) through one forward of the packed
+    hash_encode; here it is the same cotangent pulled back through the MLP
+    trunk and J_a from H1, which is that pullback written out. The two
+    encodes differ in one index rule: the packed encode wraps a dense
+    level's row index modulo the level's size, H1 clamps the dense cell to
+    [0, res - 2]. They pick different cells only for a point with a
+    coordinate at exactly x01 = 1 on a level whose scale * 1 is an integer,
+    and there the corners they disagree on carry zero weight, so features,
+    J and table gradients agree to rounding (tests/test_torch_fields.py
+    pins this)."""
+    return implicit_get_outputs_fused(net, x, "exact",
+                                      create_graph=create_graph)
+
+
+def implicit_forward(net: ImplicitNetwork, x: torch.Tensor,
+                     with_features: bool = True):
+    """x [N, 3] -> (sdf_raw [N, K], feature_vectors [N, F] or None): the
+    SDF network's forward (JAX implicit_forward, packed fetch), both tables
+    from one H1 call (its jacobian unused); with_features=False encodes the
+    SDF table alone. Differentiable in the parameters (H1-bwd, exact); the
+    points' cotangent is computed on the CPU only (ops/hashgrid.py)."""
+    cfg = net.cfg
+    out = hash_encode_fused_dual(_x01(net, x), net.grid,
+                                 net.color_grid if with_features else None,
+                                 cfg.grid_meta)
+    sdf_raw = net.trunk(x, out[0])
+    if not with_features:
+        return sdf_raw, None
+    return sdf_raw, net.color_features(out[2])
+
+
+def implicit_sdf_raw(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
+    """The object SDFs [N, K] alone (JAX implicit_sdf_raw)."""
+    return implicit_forward(net, x, with_features=False)[0]
 
 
 def implicit_all_gradients(net: ImplicitNetwork, x: torch.Tensor):

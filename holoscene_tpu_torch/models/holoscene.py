@@ -1,16 +1,18 @@
 """HoloScene Stage-1 renderer: object-compositional neural-SDF volume
 rendering (port of holoscene_tpu/models/holoscene.py: HoloSceneConfig,
-init_holoscene, get_beta, scene_sdf_nograd, make_probe_bake, render_rays).
+init_holoscene, get_beta, scene_sdf_nograd, make_probe_bake, render_rays,
+render_bg_patch).
 
 render_rays keeps the shipped fast path of the JAX package: sample
 placement from the error-bound sampler (probe grid or H2 probes), top-M
 pruning by the sampler's estimated weights, tiered fine levels (the F
 highest-weight samples of a ray get every hash level, the tail the coarse
 prefix), the fused encode-with-jacobian (H1), and the eikonal block from
-one single-table H1 call. Every random number is an argument
-(`RenderDraws`). Not ported yet (ROADMAP.md queue A): render_bg_patch, the
-*_multi_obj renders, query_point_colors, the occupancy grid, and the
-vjp / jvp gradient modes."""
+one single-table H1 call. The vjp gradient mode (the JAX default) renders
+untiered through `implicit_get_outputs` (H1, exact backward). Every random
+number is an argument (`RenderDraws`). Not ported yet (ROADMAP.md queue
+A): the *_multi_obj renders, query_point_colors, the occupancy grid, and
+the jvp gradient mode (A.17)."""
 
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from holoscene_tpu_torch.models.fields import (
     RenderingNetwork,
     RenderingNetworkConfig,
     implicit_all_gradients,
+    implicit_get_outputs,
     implicit_get_outputs_fused,
     implicit_sdf_raw_sampler,
 )
@@ -45,6 +48,8 @@ from holoscene_tpu_torch.ops.volrend import (
 )
 
 _NOT_PORTED = "not ported yet, see ROADMAP.md queue A"
+GRAD_MODES = ("vjp", "fused")
+BG_PATCH = 32     # the background patch's side in pixels (JAX make_train_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,11 +60,12 @@ class HoloSceneConfig:
     scene_bounding_sphere: float = 1.0
     white_bkgd: bool = False
     bg_color: tuple[float, float, float] = (1.0, 1.0, 1.0)
-    use_bg_reg: bool = False
+    use_bg_reg: bool = True
+    render_bg_iter: int = 10
     beta_init: float = 0.1
     beta_min: float = 1e-4
     sampler_grid_levels: int | None = None
-    forward_grad_mode: str = "fused"
+    forward_grad_mode: str = "vjp"
     render_top_m: int = 0
     render_fine_top_f: int = 0
     render_fine_levels: int = 8
@@ -68,10 +74,10 @@ class HoloSceneConfig:
     probe_update_every: int = 16
 
     def __post_init__(self):
-        if self.forward_grad_mode != "fused":
+        if self.forward_grad_mode not in GRAD_MODES:
             raise NotImplementedError(
                 f"forward_grad_mode={self.forward_grad_mode!r}: the port "
-                f"runs the fused mode only; vjp / jvp are {_NOT_PORTED}")
+                f"runs {GRAD_MODES}; jvp is {_NOT_PORTED} (A.17)")
         if self.use_occupancy:
             raise NotImplementedError(f"use_occupancy=True: the occupancy "
                                       f"grid is {_NOT_PORTED}")
@@ -91,6 +97,9 @@ class HoloSceneConfig:
             if not 1 <= self.render_fine_levels < self.implicit.num_levels:
                 raise ValueError("render_fine_levels must be in [1, "
                                  "num_levels)")
+            if self.forward_grad_mode != "fused":
+                raise ValueError("render_fine_top_f requires "
+                                 "forward_grad_mode='fused'")
 
     @property
     def num_semantic(self) -> int:
@@ -112,6 +121,7 @@ class HoloSceneConfig:
             white_bkgd=conf.get_bool("white_bkgd", False),
             bg_color=tuple(conf.get_list("bg_color", [1.0, 1.0, 1.0])),
             use_bg_reg=conf.get_bool("use_bg_reg", False),
+            render_bg_iter=conf.get_int("render_bg_iter", 10),
             beta_init=conf.get_float("density.params_init.beta", 0.1),
             beta_min=conf.get_float("density.beta_min", 1e-4),
             sampler_grid_levels=(conf.get_int("sampler_grid_levels")
@@ -150,9 +160,11 @@ def get_beta(model: HoloSceneModel) -> torch.Tensor:
 
 def fused_mode(cfg: HoloSceneConfig, training: bool) -> str:
     """H1-bwd's mode of the render calls: the sampled backward in training
-    when the config asks for it, else exact."""
+    when the config asks for it in the fused gradient mode, else exact
+    (the vjp mode has no sampled backward)."""
     ic = cfg.implicit
-    if not (training and ic.color_bwd_sample):
+    if not (training and ic.color_bwd_sample
+            and cfg.forward_grad_mode == "fused"):
         return "exact"
     return "sampled_all" if ic.sdf_bwd_sample else "sampled"
 
@@ -200,13 +212,18 @@ class RenderDraws:
         return cls(sampler, eik, nei, fused)
 
 
-def scene_sdf_nograd(model: HoloSceneModel, cfg: HoloSceneConfig):
+def scene_sdf_nograd(model: HoloSceneModel, cfg: HoloSceneConfig,
+                     obj_idxs=None):
     """The sampler's scene SDF: coarse-level probes through H2, no
-    gradient."""
+    gradient; obj_idxs takes the min over those objects only (the
+    background patch samples with (0,))."""
 
     def fn(pts):
-        return torch.amin(implicit_sdf_raw_sampler(
-            model.implicit, pts, cfg.sampler_grid_levels), -1)
+        raw = implicit_sdf_raw_sampler(model.implicit, pts,
+                                       cfg.sampler_grid_levels)
+        if obj_idxs is not None:
+            raw = raw[:, list(obj_idxs)]
+        return torch.amin(raw, -1)
 
     return fn
 
@@ -279,6 +296,9 @@ def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
     fused = draws.fused if training else [None, None]
 
     def outputs(pts, u, coarse_levels=None):
+        if cfg.forward_grad_mode == "vjp":
+            return implicit_get_outputs(model.implicit, pts,
+                                        create_graph=training)
         u_b, u_a = u if u is not None else (None, None)
         return implicit_get_outputs_fused(
             model.implicit, pts, mode, u_b, u_a, coarse_levels,
@@ -344,3 +364,39 @@ def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
         out["sample_sdf"] = raw_both[:M]
         out["sample_minsdf"] = torch.amin(raw_both[:M], -1)
     return out
+
+
+def render_bg_patch(model: HoloSceneModel, rays_o, rays_d, depth_scale,
+                    w2c_rot, draws: SamplerDraws | None = None,
+                    training: bool = True) -> dict:
+    """The background (object 0) render of a pixel patch for the
+    smoothness regulariser (JAX render_bg_patch): error-bound sampling
+    against the background SDF alone (H2 probes, no probe grid), the vjp
+    field on the samples, background and scene weights from the Laplace
+    density. Returns bg_depth_values [R, 1] (scaled by depth_scale),
+    bg_normal_map [R, 3] (rotated by w2c_rot) and bg_mask [R, 1], the
+    argmax of the scene-composited semantics. training=True needs the
+    sampler's `draws`."""
+    cfg = model.cfg
+    R = rays_o.shape[0]
+    z_vals, _ = error_bound_sample(
+        rays_o, rays_d, scene_sdf_nograd(model, cfg, obj_idxs=(0,)),
+        get_beta(model).detach(), cfg.sampler, draws, training=training)
+    S = z_vals.shape[-1]
+    points_flat = (rays_o[:, None, :] + z_vals[..., None]
+                   * rays_d[:, None, :]).reshape(-1, 3)
+    sdf_all, _, gradients, semantic, sdf_raw = implicit_get_outputs(
+        model.implicit, points_flat, create_graph=training)
+    beta = get_beta(model)
+    bg_weights, _, _ = volume_render_weights(
+        z_vals, laplace_density(sdf_raw[:, 0].reshape(R, S), beta))
+    scene_weights, _, _ = volume_render_weights(
+        z_vals, laplace_density(sdf_all.reshape(R, S), beta))
+    bg_semantic = composite(scene_weights,
+                            semantic.reshape(R, S, cfg.num_semantic))
+    normals = _normalize(gradients).reshape(R, S, 3)
+    return {
+        "bg_depth_values": depth_scale * composite_depth(bg_weights, z_vals),
+        "bg_normal_map": composite(bg_weights, normals) @ w2c_rot.T,
+        "bg_mask": torch.argmax(bg_semantic, -1, keepdim=True),
+    }

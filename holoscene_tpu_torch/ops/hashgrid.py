@@ -447,8 +447,8 @@ def _ptr(t):
 
 def fused_fwd(x01, emb_a, emb_b, lt: LevelTables):
     """H1-fwd. CUDA tensors: launches `hash_fused_fwd` of
-    csrc/hash_fused_fwd.cu (one thread per (point, level)) and counts it in
-    `fused_fwd.launches`; CPU tensors: fused_fwd_plain."""
+    csrc/hash_fused_fwd.cu (a block a tile of 32 points x all levels) and
+    counts it in `fused_fwd.launches`; CPU tensors: fused_fwd_plain."""
     if not x01.is_cuda:
         return fused_fwd_plain(x01, emb_a, emb_b, lt)
     from holoscene_tpu_torch import kernels
@@ -482,7 +482,7 @@ fused_fwd.launches = 0
 def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
               u_b=None, u_a=None):
     """H1-bwd. CUDA tensors: launches `hash_fused_bwd` of
-    csrc/hash_fused_bwd.cu (one thread per (point, level), atomicAdd into
+    csrc/hash_fused_bwd.cu (point tiles, warp-aggregated atomics into
     zero-initialised [n_rows, 2] grads) and counts it in
     `fused_bwd.launches`; CPU tensors: fused_bwd_plain. Returns (grad_a,
     grad_b or None)."""

@@ -122,7 +122,14 @@ def select_topk(xy, depth, radius, valid, width: int, height: int,
     """Per-tile selection: the k nearest overlapping gaussians of every
     tile, front to back, dead entries last. Returns (top_idx [T, k] int64,
     live [T, k] bool, origins [T, 2] float). `torch.topk` over -depth with
-    -inf for misses is exact; equal depths come out in no fixed order."""
+    -inf for misses is exact; equal depths come out in no fixed order.
+
+    The selection is exact on purpose. The reference selects with
+    jax.lax.approx_max_k (holoscene_tpu/ops/splat.py:304), which is exact
+    on the CPU but has a recall of ~0.95 on a TPU, so on its own hardware
+    it could composite a slightly different set of gaussians. The port
+    keeps the set the reference computes where it is exact (the CPU);
+    tests/test_torch_splat.py pins the port's sets to that result."""
     x0, y0 = _tile_origins(width, height, tile_size, xy.device)
     inf = torch.full_like(depth, float("inf"))
     neg_depth = -torch.where(valid, depth, inf)

@@ -4,15 +4,17 @@ rays_from_batch, the train step, make_eval_render, Stage1Runner).
 
 One training step: jittered rays -> error-bound sampling (placement from
 the baked probe grid) -> top-M pruning and tiered fine levels -> H1 encode
-with jacobian -> SDF / colour MLPs -> volume rendering -> the loss stack ->
-backward (H1-bwd) -> Adam. PyTorch runs it eagerly; every random number of
-the step is drawn up front from the runner's torch.Generator on the device
-(`StepDraws`), so a test can hand the step JAX's draws instead. Float32
-matmuls stay full float32 (TF32 off), set where the runner starts.
+with jacobian -> SDF / colour MLPs -> volume rendering (every
+render_bg_iter-th step also the background patch of the bg regulariser)
+-> the loss stack -> backward (H1-bwd) -> Adam. PyTorch runs it eagerly;
+every random number of the step is drawn up front from the runner's
+torch.Generator on the device (`StepDraws`), so a test can hand the step
+JAX's draws instead. Float32 matmuls stay full float32 (TF32 off), set
+where the runner starts.
 
 Not ported yet (ROADMAP.md queue A): extract_meshes and mesh plots, the
-multi-device mesh, the occupancy grid, the background-patch regulariser
-(use_bg_reg), loading the JAX package's msgpack checkpoints."""
+multi-device mesh, the occupancy grid, loading the JAX package's msgpack
+checkpoints."""
 
 from __future__ import annotations
 
@@ -31,14 +33,17 @@ from holoscene_tpu_torch.config import Config
 from holoscene_tpu_torch.datasets.ns_dataset import NSDataset
 from holoscene_tpu_torch.losses.holoscene_loss import LossConfig, holoscene_loss
 from holoscene_tpu_torch.models.holoscene import (
+    BG_PATCH,
     HoloSceneConfig,
     HoloSceneModel,
     RenderDraws,
     init_holoscene,
     make_probe_bake,
+    render_bg_patch,
     render_rays,
 )
 from holoscene_tpu_torch.ops.rays import get_camera_rays
+from holoscene_tpu_torch.ops.sampler import SamplerDraws
 from holoscene_tpu_torch.training import checkpoints as ckpt_lib
 from holoscene_tpu_torch.utils.logging import MetricsLogger
 
@@ -69,31 +74,59 @@ def rays_from_batch(uv, pose, intrinsics, jitter=None):
 
 @dataclasses.dataclass
 class StepDraws:
-    """Every random number of one train step: the ray jitter and the
-    render's draws."""
+    """Every random number of one train step: the ray jitter, the render's
+    draws and, on a background step, the patch origin's two uniforms bg_uv
+    [2] and the patch sampler's draws (BG_PATCH^2 rays)."""
 
     jitter: torch.Tensor
     render: RenderDraws
+    bg_uv: torch.Tensor | None = None
+    bg_sampler: SamplerDraws | None = None
 
     @classmethod
     def make(cls, cfg: HoloSceneConfig, n_rays: int, gen: torch.Generator,
-             device) -> "StepDraws":
+             device, with_bg: bool = False) -> "StepDraws":
         jitter = torch.rand(n_rays, 2, generator=gen, device=device) - 0.5
-        return cls(jitter, RenderDraws.make(cfg, n_rays, gen, device))
+        render = RenderDraws.make(cfg, n_rays, gen, device)
+        if not with_bg:
+            return cls(jitter, render)
+        return cls(jitter, render,
+                   torch.rand(2, generator=gen, device=device),
+                   SamplerDraws.make(cfg.sampler, BG_PATCH * BG_PATCH, gen,
+                                     device))
+
+
+def bg_patch_uv(intrinsics: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The BG_PATCH x BG_PATCH pixel grid [BG_PATCH^2, 2] (x fastest) at
+    origin u * (2 cx - BG_PATCH, 2 cy - BG_PATCH), u [2] in [0, 1)."""
+    span = torch.stack([intrinsics[0, 2] * 2.0 - BG_PATCH,
+                        intrinsics[1, 2] * 2.0 - BG_PATCH])
+    ar = torch.arange(BG_PATCH, device=u.device)
+    gy, gx = torch.meshgrid(ar, ar, indexing="ij")
+    grid = torch.stack([gx, gy], -1).reshape(-1, 2).to(torch.float32)
+    return grid + (u * span).to(torch.float32)[None, :]
 
 
 def train_step(model: HoloSceneModel, optimizer, scheduler, lcfg: LossConfig,
                batch: dict, draws: StepDraws, step_idx: int,
                call_reg: bool = False, probe=None) -> dict:
     """One optimizer step; returns the metrics as 0-d tensors (no host
-    sync). A non-finite loss zeroes every gradient and still steps the
-    optimizer (as the JAX step does), so every parameter gets a gradient,
-    zeros if unused, and Adam treats each as optax does."""
+    sync). Draws made with with_bg (draws.bg_uv set) also render the
+    background patch for the bg regulariser. A non-finite loss zeroes every
+    gradient and still steps the optimizer (as the JAX step does), so
+    every parameter gets a gradient, zeros if unused, and Adam treats each
+    as optax does."""
     optimizer.zero_grad(set_to_none=True)
     rays_o, rays_d, dscale, w2c = rays_from_batch(
         batch["uv"], batch["pose"], batch["intrinsics"], draws.jitter)
     out = render_rays(model, rays_o, rays_d, dscale, w2c, draws.render,
                       training=True, probe=probe)
+    if draws.bg_uv is not None:
+        po, pd, pscale, pw2c = rays_from_batch(
+            bg_patch_uv(batch["intrinsics"], draws.bg_uv), batch["pose"],
+            batch["intrinsics"])
+        out.update(render_bg_patch(model, po, pd, pscale, pw2c,
+                                   draws.bg_sampler, training=True))
     gt = {k: batch[k] for k in ("rgb", "depth", "normal", "segs", "mask")}
     losses = holoscene_loss(out, gt, lcfg, step=step_idx, call_reg=call_reg)
     losses["loss"].backward()
@@ -177,10 +210,6 @@ class Stage1Runner:
         conf.put("model.implicit_network.d_out",
                  len(self.dataset.label_mapping))
         self.model_cfg = HoloSceneConfig.from_conf(conf.get_config("model"))
-        if self.model_cfg.use_bg_reg:
-            raise NotImplementedError(
-                "model.use_bg_reg: the background-patch regulariser "
-                "(render_bg_patch) is not ported yet, see ROADMAP.md queue A")
         self.loss_cfg = LossConfig.from_conf(conf.get_config("loss"))
         self.num_pixels = conf.get_int("train.num_pixels", 1024)
         self.max_total_iters = (max_total_iters if max_total_iters is not None
@@ -310,8 +339,10 @@ class Stage1Runner:
             if 0 <= self.exact_bwd_from_iter <= it:
                 self.switch_to_exact_bwd()
             batch = batch_to_device(sample, gt, self.device)
+            with_bg = (self.model_cfg.use_bg_reg
+                       and it % self.model_cfg.render_bg_iter == 0)
             draws = StepDraws.make(self.model_cfg, self.num_pixels,
-                                   self.generator, self.device)
+                                   self.generator, self.device, with_bg)
             if self._probe_bake is not None and (
                     self.probe is None
                     or it % self.model_cfg.probe_update_every == 0):

@@ -360,6 +360,91 @@ def test_hash_fused_bwd_matches_plain(cuda, dmr, mode):
         _close(g2, g.cpu())
 
 
+def _bwd_case(x, meta, mode, seed=1):
+    """Random cotangents and uniforms for H1-bwd on points x (CPU), the
+    pairs whose sampled corner may flip in the last bit zeroed."""
+    lt = thash.level_tables(meta)
+    n, L = x.shape[0], lt.n_levels
+    gen = torch.Generator().manual_seed(seed)
+    cts = [torch.randn(n, 2 * L, generator=gen),
+           torch.randn(2 * L, 3, n, generator=gen),
+           torch.randn(n, 2 * L, generator=gen)]
+    u_b = torch.rand(3, lt.n_hashed, n, generator=gen)
+    u_a = torch.rand(lt.n_hashed, n, generator=gen)
+    if mode != "exact" and lt.n_hashed:
+        keep = torch.ones(L, n, dtype=torch.bool)
+        keep[lt.n_dense:] = ~thash.near_flip_pairs(x, lt, cts[0], cts[1],
+                                                   u_b, u_a, mode)
+        cts[0] = cts[0] * keep.T.repeat_interleave(2, 1)
+        cts[1] = cts[1] * keep.repeat_interleave(2, 0)[:, None, :]
+        cts[2] = cts[2] * keep.T.repeat_interleave(2, 1)
+    return lt, cts, u_b, u_a
+
+
+def _bwd_vs_plain(cuda, x, rows, meta, mode):
+    lt, cts, u_b, u_a = _bwd_case(x, meta, mode)
+    ref = thash.fused_bwd_plain(x, rows, *cts, lt, mode, u_b, u_a)[:2]
+    dev = [t.to(cuda) for t in (x, *cts, u_b, u_a)]
+    first = thash.fused_bwd(dev[0], rows, *dev[1:4], lt, mode, *dev[4:])
+    second = thash.fused_bwd(dev[0], rows, *dev[1:4], lt, mode, *dev[4:])
+    torch.cuda.synchronize()
+    for r, g, g2 in zip(ref, first, second):
+        _close(g, r)
+        _close(g2, g.cpu())
+
+
+def _clustered_points(n_rays=96, per_ray=32, seed=3):
+    """Ray-major points as the render's fine tier lays them out: per ray
+    `per_ray` consecutive samples within 0.02 of one surface point, so a
+    warp's lanes fall into the same cells at the coarse levels."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(0.2, 0.8, (n_rays, 1, 3))
+    d = rng.normal(size=(n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(-0.02, 0.02, (n_rays, per_ray, 1)), 1)
+    return torch.as_tensor((centre + t * d).reshape(-1, 3),
+                           dtype=torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["exact", "sampled", "sampled_all"])
+def test_hash_fused_bwd_clustered_rays(cuda, mode):
+    """32 samples a ray along one ray: the lanes of a warp contend for the
+    same rows (the warp-aggregated scatter's case), 16 levels."""
+    meta = thash.HashGridMeta(num_levels=16, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=14, desired_resolution=512)
+    x = _clustered_points()
+    _bwd_vs_plain(cuda, x, meta.table_rows, meta, mode)
+
+
+def test_hash_fused_bwd_exact_dense_heavy(cuda):
+    """Exact mode where every level is dense (8 corners x 2 tables a level
+    everywhere), on clustered points and on uniform ones."""
+    meta = thash.HashGridMeta(num_levels=12, level_dim=2, base_resolution=4,
+                              log2_hashmap_size=19, desired_resolution=64)
+    assert thash.level_tables(meta).n_hashed == 0
+    for x in (_clustered_points(64), _hash_case(0, n=2048)[3]):
+        _bwd_vs_plain(cuda, x, meta.table_rows, meta, "exact")
+
+
+@pytest.mark.parametrize("levels", [16, 11])
+def test_hash_fused_fwd_many_levels(cuda, levels):
+    """More levels than a tile has warps (each warp takes several), a
+    ragged last tile: bitwise repeatable, plain within tolerance."""
+    meta = thash.HashGridMeta(num_levels=levels, level_dim=2,
+                              base_resolution=4, log2_hashmap_size=10,
+                              desired_resolution=256)
+    _, ea, eb, x = _hash_case(0, n=1000, levels=levels, end=256, logmap=10)
+    lt = thash.level_tables(meta)
+    ref = thash.fused_fwd_plain(x, ea, eb, lt)
+    args = (x.to(cuda), ea.to(cuda), eb.to(cuda), lt)
+    first, second = thash.fused_fwd(*args), thash.fused_fwd(*args)
+    torch.cuda.synchronize()
+    for r, g, g2 in zip(ref, first, second):
+        assert torch.equal(g, g2)
+        _close(g, r)
+    _bwd_vs_plain(cuda, x, meta.table_rows, meta, "sampled_all")
+
+
 @pytest.mark.parametrize("dmr", [0, 16])
 def test_hash_sampler_matches_plain(cuda, dmr):
     meta, ea, _, x = _hash_case(dmr, levels=16, end=128, logmap=10)
@@ -372,6 +457,64 @@ def test_hash_sampler_matches_plain(cuda, dmr):
     assert thash.sampler_fwd.launches == n0 + 2
     assert torch.equal(a, b)
     _close(a, ref)
+
+
+@pytest.mark.parametrize("lin2", ["init", "perturbed"])
+def test_vjp_get_outputs_on_card_matches_cpu(cuda, lin2):
+    """The vjp gradient mode's field (implicit_get_outputs: H1-fwd, the
+    inner pullback, H1-bwd exact under the outer backward) on the card
+    against the same on the CPU: outputs and every parameter's gradient
+    within 1e-4 of its largest value (atomics and float32 sums in another
+    order). "perturbed" moves the objects' SDFs apart. "init" keeps the
+    geometric init's last layer, under which objects 1 and 2 agree to
+    ~1e-4 and at 12 of the points to < 1e-6 (one exact tie): rounding in
+    another order hands such a point's min to the other object, which
+    moves its cotangent between rows 1 and 2 of the last layer (on the
+    CPU, object 2's bias moved by 1e-7 changes lin2.v's gradient by 0.23
+    and the SDF by 9e-8). There the last layer's gradients are held row 0
+    and rows 1 + 2 summed, every other tensor as in "perturbed"."""
+    from holoscene_tpu_torch.models import fields as tf
+
+    cfg = tf.ImplicitNetworkConfig(feature_vector_size=16, d_out=3,
+                                   dims=(32, 32), multires=2, num_levels=8,
+                                   base_size=4, end_size=96, logmap=10)
+    x = torch.as_tensor(np.random.default_rng(4).uniform(-0.95, 0.95,
+                                                         (777, 3)),
+                        dtype=torch.float32)
+    results = []
+    for dev in ("cpu", cuda):
+        net = tf.ImplicitNetwork(cfg, seed=3)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            # grid inputs live (the geometric init zeroes them)
+            net.mlp["lin0"].v.normal_(0, 0.3, generator=gen)
+            if lin2 == "perturbed":
+                net.mlp["lin2"].v.add_(torch.randn(net.mlp["lin2"].v.shape,
+                                                   generator=gen))
+        net = net.to(dev)
+        outs = tf.implicit_get_outputs(net, x.to(dev))
+        gen = torch.Generator().manual_seed(2)
+        (sum((o * torch.randn(o.shape, generator=gen).to(dev)).sum()
+             for o in outs)).backward()
+        results.append(([o.detach().cpu() for o in outs],
+                        {k: p.grad.cpu() for k, p in net.named_parameters()}))
+    (ref_o, ref_g), (got_o, got_g) = results
+    errs = {f"output {i}": (g, r) for i, (g, r) in enumerate(zip(got_o,
+                                                                 ref_o))}
+    errs.update({k: (got_g[k], r) for k, r in ref_g.items()})
+    if lin2 == "init":
+        two = torch.topk(ref_o[4], 2, -1, largest=False)
+        assert float((two.values[:, 1] - two.values[:, 0]).min()) < 1e-6
+        assert set(two.indices[:, :1].unique().tolist()) >= {1, 2}
+        for k in ("mlp.lin2.v", "mlp.lin2.g", "mlp.lin2.b"):
+            g, r = errs.pop(k)
+            errs[k] = (torch.stack([g[0], g[1] + g[2]]),
+                       torch.stack([r[0], r[1] + r[2]]))
+    for k, (g, r) in errs.items():
+        err = float((g - r).abs().max())
+        assert torch.isfinite(g).all(), k
+        assert err <= 1e-4 * float(r.abs().max()) + 1e-7, (k, err)
+    assert ref_g["grid"].any() and ref_g["color_grid"].any()
 
 
 def test_hash_encode_autograd_on_card(cuda):

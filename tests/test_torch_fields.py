@@ -1,13 +1,18 @@
 """The port's Stage-1 fields (holoscene_tpu_torch/models/fields.py) against
 the JAX package's on the CPU, from the same parameters (convert.py):
 implicit_get_outputs_fused (sdf, feature vectors, scene-SDF gradients,
-semantic, raw SDFs; all levels and coarse_levels), implicit_all_gradients,
-the rendering network, and the backward of each with respect to every
-parameter, second order through the hash grid included.
+semantic, raw SDFs; all levels and coarse_levels), the vjp mode
+implicit_get_outputs (also at x01 = 1, where JAX's packed encode wraps
+the dense index and H1 clamps the cell), implicit_forward /
+implicit_sdf_raw, implicit_all_gradients, the rendering network, and the
+backward of each with respect to every parameter, second order through
+the hash grid included.
 
 Tolerances: outputs atol 1e-5 + rtol 1e-5 (float32 sums in another order);
 parameter gradients per tensor max |port - JAX| <= 1e-4 max |JAX| (the
 same, through the second-order path of softplus-100)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,7 @@ from holoscene_tpu.models import fields as jf
 from holoscene_tpu.ops.hashgrid import build_dense_block_tables
 from holoscene_tpu_torch.convert import stage1_params_from_jax
 from holoscene_tpu_torch.models import fields as tf
+from holoscene_tpu_torch.ops import hashgrid as thash
 
 OUT_ATOL = OUT_RTOL = 1e-5
 GRAD_REL = 1e-4
@@ -78,6 +84,86 @@ def test_get_outputs_fused_and_its_backward_match_jax(coarse):
     jgrads = jax.grad(loss)(params)
     sum((a * torch.tensor(c)).sum() for a, c in zip(got, cs)).backward()
     _check_grads(jgrads, net)
+
+
+def _outputs_and_backward_vs_jax(jfn, tfn, x, seed=1):
+    """Outputs of jfn / tfn (the JAX and port field functions of points
+    x) and the parameter gradients of a random weighting of all of them."""
+    jic, params, net = _implicit(seed)
+    ref = jfn(params, jic, jnp.asarray(x))
+    got = tfn(net, torch.tensor(x))
+    for i, (r, g) in enumerate(zip(ref, got)):
+        assert tuple(g.shape) == r.shape, i
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(r),
+                                   atol=OUT_ATOL, rtol=OUT_RTOL, err_msg=i)
+    rng = np.random.default_rng(seed)
+    cs = [rng.normal(size=np.asarray(r).shape).astype(np.float32)
+          for r in ref]
+    jgrads = jax.grad(lambda p: sum(jnp.sum(a * c) for a, c in zip(
+        jfn(p, jic, jnp.asarray(x)), cs)))(params)
+    sum((a * torch.tensor(c)).sum() for a, c in zip(got, cs)).backward()
+    return jgrads, net
+
+
+def test_get_outputs_vjp_and_its_backward_match_jax():
+    """The vjp gradient mode: JAX's pullback through one packed forward
+    against the port's H1 route (exact backward), outputs and the
+    backward through all five, the gradients' second order included."""
+    jgrads, net = _outputs_and_backward_vs_jax(
+        jf.implicit_get_outputs, tf.implicit_get_outputs, _points(97, 7))
+    _check_grads(jgrads, net)
+
+
+def test_vjp_route_and_packed_wrap_differ_only_at_x01_one():
+    """The packed encode wraps a dense row index where H1 clamps the dense
+    cell: the corner rows differ exactly at the points with a coordinate
+    at x01 = 1 (level 0 has scale 3, an integer, so 1 lands on the last
+    grid line), and there the differing corners carry zero weight, so the
+    vjp outputs and their backward still match JAX at every point."""
+    jic, _, net = _implicit()
+    x = _points(40, 8)
+    x[:6, 0] = 1.0                  # x01 = 1 in one coordinate
+    x[6:9] = 1.0                    # in all three
+    x[9, 1] = -1.0                  # x01 = 0: both rules agree
+    edge = np.zeros(len(x), bool)
+    edge[:9] = True
+    lt = thash.level_tables(jic.grid_meta)
+    x01 = torch.tensor((x / jic.divide_factor + 1.0) * 0.5)
+    clamped, _ = thash._fused_rows_frac(x01, lt)
+    ld = lt.n_dense
+    res, sizes, offs = (torch.as_tensor(a[:ld])
+                        for a in (lt.res, lt.sizes, lt.offsets))
+    pos = torch.as_tensor(lt.scales[:ld])[:, None, None] * x01.T[None]
+    wrapped = (thash._dense_rows(torch.floor(pos).long(), res,
+                                 torch.zeros_like(offs))
+               % sizes[:, None, None] + offs[:, None, None])
+    differs = (wrapped != clamped[:ld]).any(1).any(0).numpy()
+    np.testing.assert_array_equal(differs, edge)
+    jgrads, net = _outputs_and_backward_vs_jax(
+        jf.implicit_get_outputs, tf.implicit_get_outputs, x)
+    _check_grads(jgrads, net)
+
+
+@pytest.mark.parametrize("with_features", [True, False])
+def test_implicit_forward_and_sdf_raw_match_jax(with_features):
+    """implicit_forward (both tables, or the SDF table alone as
+    implicit_sdf_raw) through H1 against JAX's packed forward, outputs and
+    parameter gradients."""
+    def jfn(p, c, x):
+        raw, fv = jf.implicit_forward(p, c, x, with_features=with_features)
+        return (raw, fv) if with_features else (raw,)
+
+    def tfn(net, x):
+        raw, fv = tf.implicit_forward(net, x, with_features=with_features)
+        return (raw, fv) if with_features else (tf.implicit_sdf_raw(net, x),)
+
+    jgrads, net = _outputs_and_backward_vs_jax(jfn, tfn, _points(53, 9))
+    ref = stage1_params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    for k, p in net.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        err = float((g - ref[k]).abs().max())
+        assert err <= GRAD_REL * float(ref[k].abs().max()), (k, err)
+    assert dict(net.named_parameters())["grid"].grad.any()
 
 
 def test_all_gradients_and_their_backward_match_jax():
@@ -141,3 +227,8 @@ def test_config_rejects_what_is_not_ported():
         tf.ImplicitNetwork(implicit_cfgs(color_grid_feature=False)[1])
     with pytest.raises(ValueError, match="sdf_bwd_sample"):
         tf.ImplicitNetworkConfig(color_bwd_sample=False, sdf_bwd_sample=True)
+    _, tc = cfgs("exact")
+    with pytest.raises(NotImplementedError, match="jvp"):
+        dataclasses.replace(tc, forward_grad_mode="jvp", render_fine_top_f=0)
+    with pytest.raises(ValueError, match="fused"):
+        dataclasses.replace(tc, forward_grad_mode="vjp")

@@ -122,6 +122,41 @@ def test_overlap_counts_and_depth_picks_equal_jax(ortho):
     assert seen[0] == 16 and 16 <= got <= hi and len(seen) >= 2
 
 
+def test_select_topk_sets_equal_jax_approx_max_k_on_cpu():
+    """The port selects exactly (torch.topk); the reference's selection
+    (holoscene_tpu/ops/splat.py select_tile_chunk: the same overlap test,
+    then jax.lax.approx_max_k over -depth) is exact on the CPU, where its
+    per-tile sets must equal the port's. Depths are distinct, so the sets
+    are unique; k below and above every tile's overlap count."""
+    rng = np.random.default_rng(9)
+    n = 700
+    xy = rng.uniform(-8, W + 8, (n, 2)).astype(np.float32)
+    depth = rng.permutation(n).astype(np.float32) * 0.01 + 1.0
+    radius = rng.uniform(1.0, 14.0, n).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.1
+    x0, y0 = tsplat._tile_origins(W, H, 16, "cpu")
+    ov = tsplat._overlap(torch.as_tensor(xy), torch.as_tensor(radius), x0,
+                         y0, 16).numpy()
+    counts = (ov & valid[None, :]).sum(1)
+    assert counts.min() > 64 and counts.max() < 256
+    for k in (64, 256):
+        idx, live, _ = tsplat.select_topk(
+            *map(torch.as_tensor, (xy, depth, radius, valid)), W, H, 16, k)
+        gx, gy, r = xy[None, :, 0], xy[None, :, 1], radius[None, :]
+        jx0 = jnp.asarray(x0.numpy())[:, None]
+        jy0 = jnp.asarray(y0.numpy())[:, None]
+        overlap = ((gx + r >= jx0) & (gx - r <= jx0 + 16)
+                   & (gy + r >= jy0) & (gy - r <= jy0 + 16))
+        neg = jnp.where(overlap, -jnp.where(valid, depth, jnp.inf)[None, :],
+                        -jnp.inf)
+        vals, jidx = jax.lax.approx_max_k(neg, k)
+        jlive = np.isfinite(np.asarray(vals))
+        np.testing.assert_array_equal(live.numpy(), jlive)
+        for t in range(idx.shape[0]):
+            assert set(idx[t][live[t]].tolist()) \
+                == set(np.asarray(jidx)[t][jlive[t]].tolist()), (k, t)
+
+
 def test_non_pinhole_cameras_are_refused():
     host = _scene(10, 3)
     with pytest.raises(NotImplementedError, match="unscented"):

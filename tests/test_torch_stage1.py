@@ -12,6 +12,8 @@ sign(grad); it is compared where |grad| > 1e-2 max |grad| of its tensor,
 to 1e-5 of lr (the float32 rounding of the two Adams' bias corrections;
 elsewhere a rounding flips the sign of a near-zero gradient)."""
 
+import dataclasses
+import glob
 import os
 
 import jax
@@ -26,6 +28,7 @@ from torch_stage1_cases import (
     cfgs,
     jax_params,
     port_model,
+    sampler_draws,
     step_draws,
 )
 
@@ -44,13 +47,14 @@ LOSS_RTOL = 1e-4
 GRAD_REL = 1e-3
 KEYS = ("loss", "rgb_loss", "eikonal_loss", "smooth_loss", "depth_loss",
         "normal_l1", "normal_cos", "semantic_loss", "collision_reg_loss",
-        "psnr")
+        "background_reg_loss", "psnr")
 
 
-def _run_both(mode, probe, call_reg, jax_opt, port_opt, seed=5):
+def _run_both(mode, probe, call_reg, jax_opt, port_opt, seed=5,
+              grad_mode="fused", with_bg=False):
     """(JAX metrics, JAX delta, port metrics, port delta) of one step from
     the same state."""
-    jc, tc = cfgs(mode, probe)
+    jc, tc = cfgs(mode, probe, grad_mode, use_bg_reg=with_bg)
     params = jax_params(jc)
     before = jax.tree_util.tree_map(np.asarray, params)
     model = port_model(tc, params)
@@ -58,12 +62,12 @@ def _run_both(mode, probe, call_reg, jax_opt, port_opt, seed=5):
     probe_t = ths.make_probe_bake(tc)(model) if probe else None
     b = batch()
     key = jax.random.PRNGKey(seed)
-    draws = step_draws(key, jc, tc)
+    draws = step_draws(key, jc, tc, with_bg=with_bg)
     opt = jax_opt()
     step = js1.make_train_step(jc, JLossConfig(), opt)
     p2, _, jm = step(params, opt.init(params), key,
                      {k: jnp.asarray(v) for k, v in b.items()}, 0,
-                     call_reg=call_reg, with_bg=False, probe=probe_j)
+                     call_reg=call_reg, with_bg=with_bg, probe=probe_j)
     jdelta = stage1_params_from_jax(jax.tree_util.tree_map(
         lambda a, c: np.asarray(c) - a, before, p2))
     t_before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -105,6 +109,119 @@ def test_train_step_matches_jax(mode, probe, call_reg):
     assert moved == len(jd), "every parameter has a gradient"
     if call_reg:
         assert float(tm["collision_reg_loss"]) > 0
+
+
+@pytest.mark.parametrize("mode,grad_mode,with_bg", [
+    ("exact", "fused", True),
+    ("sampled_all", "fused", True),
+    ("exact", "vjp", False),
+])
+def test_bg_and_vjp_steps_match_jax(mode, grad_mode, with_bg):
+    """A background-regulariser step (the patch's render and its loss
+    term) in the exact and the sampled_all backward, and a step in the vjp
+    gradient mode (untiered, H1 exact), against JAX make_train_step at the
+    tolerances above."""
+    jm, jd, tm, td = _run_both(
+        mode, False, False, lambda: optax.sgd(1.0),
+        lambda m: (torch.optim.SGD(m.parameters(), lr=1.0), None),
+        grad_mode=grad_mode, with_bg=with_bg)
+    _check_losses(jm, tm)
+    assert (float(tm["background_reg_loss"]) > 0) == with_bg
+    for k, ref in jd.items():
+        scale = float(ref.abs().max())
+        err = float((td[k] - ref).abs().max())
+        assert scale > 0, k
+        assert err <= GRAD_REL * scale + 1e-9, (k, err, scale)
+
+
+def test_render_bg_patch_matches_jax():
+    """render_bg_patch on a 32 x 32 patch with JAX's sampler draws: depth,
+    normals and the mask, and the gradient of every parameter through a
+    random weighting of depth and normals. Depth and normals: 99% within
+    1e-5 and all within 1e-4 (the sampler's placement margin)."""
+    jc, tc = cfgs("exact", grad_mode="vjp", use_bg_reg=True)
+    params = jax_params(jc, seed=3)
+    model = port_model(tc, params)
+    b = batch()
+    key = jax.random.PRNGKey(11)
+    k_uv, k_bg = jax.random.split(key)
+    u = np.asarray(jax.random.uniform(k_uv, (2,)))
+    uv = ts1.bg_patch_uv(torch.tensor(b["intrinsics"]), torch.tensor(u))
+    po, pd, ps, pw = ts1.rays_from_batch(uv, torch.tensor(b["pose"]),
+                                         torch.tensor(b["intrinsics"]))
+    jrays = js1.rays_from_batch(jnp.asarray(uv.numpy()),
+                                jnp.asarray(b["pose"]),
+                                jnp.asarray(b["intrinsics"]))
+    rng = np.random.default_rng(4)
+    wd = rng.normal(size=(ths.BG_PATCH ** 2, 1)).astype(np.float32)
+    wn = rng.normal(size=(ths.BG_PATCH ** 2, 3)).astype(np.float32)
+
+    def jloss(p):
+        o = jhs.render_bg_patch(p, jc, k_bg, *jrays, training=True)
+        return (jnp.sum(o["bg_depth_values"] * wd)
+                + jnp.sum(o["bg_normal_map"] * wn)), o
+
+    (_, ref), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    out = ths.render_bg_patch(model, po, pd, ps, pw,
+                              sampler_draws(k_bg, jc.sampler,
+                                            ths.BG_PATCH ** 2))
+    for k in ("bg_depth_values", "bg_normal_map"):
+        # the sampler's margin (tests/test_torch_sampler.py): an ulp of
+        # 1 - exp at ~1e-7 free energies moves a sample by ~1e-4 of a ray
+        err = np.abs(out[k].detach().numpy() - np.asarray(ref[k]))
+        assert (err <= 1e-5).mean() >= 0.99 and err.max() <= 1e-4, (
+            k, err.max())
+    np.testing.assert_array_equal(out["bg_mask"].numpy(),
+                                  np.asarray(ref["bg_mask"]))
+    ((out["bg_depth_values"] * torch.tensor(wd)).sum()
+     + (out["bg_normal_map"] * torch.tensor(wn)).sum()).backward()
+    ref_g = stage1_params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    names = dict(model.named_parameters())
+    for k, r in ref_g.items():
+        g = names[k].grad
+        g = torch.zeros_like(r) if g is None else g
+        err = float((g - r).abs().max())
+        assert err <= GRAD_REL * float(r.abs().max()) + 1e-9, (k, err)
+    assert names["implicit.grid"].grad.any()
+
+
+def test_config_defaults_match_jax():
+    """Every default the port's HoloSceneConfig / ImplicitNetworkConfig
+    share with JAX's is JAX's (use_bg_reg True, forward_grad_mode vjp)."""
+    from holoscene_tpu.models import fields as jfields
+    from holoscene_tpu_torch.models import fields as tfields
+
+    for jcls, tcls in ((jhs.HoloSceneConfig, ths.HoloSceneConfig),
+                       (jfields.ImplicitNetworkConfig,
+                        tfields.ImplicitNetworkConfig)):
+        ref = {f.name: f.default for f in dataclasses.fields(jcls)}
+        for f in dataclasses.fields(tcls):
+            if f.default is not dataclasses.MISSING:
+                assert f.name in ref and f.default == ref[f.name], f.name
+    assert ths.HoloSceneConfig.use_bg_reg is True
+    assert ths.HoloSceneConfig.forward_grad_mode == "vjp"
+
+
+STAGE1_CONFS = sorted(
+    p for p in glob.glob(os.path.join(os.path.dirname(__file__), "..",
+                                      "confs", "*.conf"))
+    if not p.endswith(("_post.conf", "_tex.conf")))
+
+
+@pytest.mark.parametrize("path", STAGE1_CONFS, ids=os.path.basename)
+def test_every_stage1_conf_model_section_is_accepted(path):
+    """What Stage1Runner builds from each Stage-1 conf in confs/: the model
+    and loss sections parse, the network is one the port runs, and the
+    background regulariser is on every render_bg_iter-th step."""
+    from holoscene_tpu_torch.config import parse_file
+    from holoscene_tpu_torch.models.fields import require_ported
+
+    conf = parse_file(path)
+    cfg = ths.HoloSceneConfig.from_conf(conf.get_config("model"))
+    require_ported(cfg.implicit)
+    LossConfig.from_conf(conf.get_config("loss"))
+    assert cfg.use_bg_reg and cfg.render_bg_iter == 10
+    assert cfg.forward_grad_mode in ths.GRAD_MODES
 
 
 def test_adam_step_matches_optax():
@@ -212,7 +329,8 @@ dataset{{
 model{{
  feature_vector_size = 16
  scene_bounding_sphere = 1.0
- use_bg_reg = false
+ use_bg_reg = true
+ render_bg_iter = 3
  forward_grad_mode = fused
  sampler_grid_levels = 4
  render_top_m = 10
@@ -249,8 +367,9 @@ model{{
 def test_cli_trains_checkpoints_and_resumes(tmp_path):
     """exp_runner.main on the CPU: finite losses, probe bakes on the
     cadence, the exact backward from its iteration, the collision term
-    from add_objectvio_iter, a checkpoint, an eval frame; --is_continue
-    resumes at the saved step with the saved state."""
+    from add_objectvio_iter, the background regulariser on its cadence, a
+    checkpoint, an eval frame; --is_continue resumes at the saved step
+    with the saved state."""
     from holoscene_tpu_torch.training import exp_runner
 
     conf = _scene_conf(tmp_path, 4)
@@ -262,6 +381,8 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     assert runner.probe_bakes == [0, 2]
     assert not runner.model_cfg.implicit.color_bwd_sample   # exact from 3
     assert hist[0]["collision_reg_loss"] == 0.0
+    bg = [h["background_reg_loss"] > 0 for h in hist]
+    assert bg == [True, False, False, True]       # steps 0 and 3
     assert runner.model_cfg.implicit.d_out == len(runner.dataset.label_mapping)
     ck = os.path.join(runner.checkpoints_path, "ModelParameters", "latest.pth")
     assert os.path.exists(ck)

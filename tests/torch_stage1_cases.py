@@ -37,10 +37,12 @@ def implicit_cfgs(mode: str = "exact", **kw):
             tf.ImplicitNetworkConfig(**args))
 
 
-def cfgs(mode: str = "exact", probe: bool = False):
+def cfgs(mode: str = "exact", probe: bool = False, grad_mode: str = "fused",
+         use_bg_reg: bool = False):
     """(JAX, port) HoloSceneConfig: top-10 of 14 samples, tiers 6 / 3
-    levels, 3 sampler rounds, sampler probes at 4 levels, probe grid 8^3
-    when `probe`."""
+    levels in the fused gradient mode (untiered in vjp), 3 sampler rounds,
+    sampler probes at 4 levels, probe grid 8^3 when `probe`."""
+    tiers = grad_mode == "fused"
     out = []
     for pkg, ic, S in ((jf, implicit_cfgs(mode)[0], JSamplerConfig),
                        (tf, implicit_cfgs(mode)[1], TSamplerConfig)):
@@ -52,8 +54,10 @@ def cfgs(mode: str = "exact", probe: bool = False):
                 multires_point=2, multires_normal=2),
             sampler=S(N_samples=8, N_samples_eval=16, N_samples_extra=4,
                       max_total_iters=3, beta_iters=4),
-            use_bg_reg=False, sampler_grid_levels=4, forward_grad_mode="fused",
-            render_top_m=10, render_fine_top_f=6, render_fine_levels=3,
+            use_bg_reg=use_bg_reg, sampler_grid_levels=4,
+            forward_grad_mode=grad_mode, render_top_m=10,
+            render_fine_top_f=6 if tiers else 0,
+            render_fine_levels=3 if tiers else 8,
             probe_grid_res=8 if probe else 0))
     return tuple(out)
 
@@ -128,11 +132,12 @@ def sampler_draws(key, sc, n_rays: int) -> SamplerDraws:
            torch.int64))
 
 
-def step_draws(key, jc, tc, n_rays: int = R) -> StepDraws:
+def step_draws(key, jc, tc, n_rays: int = R, with_bg: bool = False
+               ) -> StepDraws:
     """The port's StepDraws holding the draws of JAX make_train_step's
     step(key): jitter, sampler, eikonal, neighbour and fused-backward
-    uniforms."""
-    k_jit, k_render, _, _ = jax.random.split(key, 4)
+    uniforms, and with_bg the patch origin and the patch sampler's."""
+    k_jit, k_render, k_bg_uv, k_bg = jax.random.split(key, 4)
     k_sampler, k_eik, k_nei = jax.random.split(k_render, 3)
     sbs = jc.scene_bounding_sphere
     mode = ths.fused_mode(tc, True)
@@ -148,4 +153,10 @@ def step_draws(key, jc, tc, n_rays: int = R) -> StepDraws:
         sampler_draws(k_sampler, jc.sampler, n_rays),
         _t(jax.random.uniform(k_eik, (n_rays, 3), minval=-sbs, maxval=sbs)),
         _t(jax.random.uniform(k_nei, (2 * n_rays, 3))), fused)
-    return StepDraws(_t(jax.random.uniform(k_jit, (n_rays, 2)) - 0.5), render)
+    draws = StepDraws(_t(jax.random.uniform(k_jit, (n_rays, 2)) - 0.5),
+                      render)
+    if with_bg:
+        draws.bg_uv = _t(jax.random.uniform(k_bg_uv, (2,)))
+        draws.bg_sampler = sampler_draws(k_bg, jc.sampler,
+                                         ths.BG_PATCH ** 2)
+    return draws

@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch/CUDA port (holoscene_tpu_torch) runs on an
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, then drives the Stage-4 Gaussian-on-Mesh paths through their
-entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3) and
-the Stage-1 neural-SDF trainer through its CLI at the flagship width.
+entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3),
+the Stage-1 neural-SDF trainer through its CLI at the flagship width, the
+mesh extraction of its run, and the synthetic quality gate's path.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -59,6 +60,22 @@ Phases, one '== ' line each:
                  regulariser) at the flagship widths, 40 steps: every loss
                  finite, rgb_loss falls, H1-bwd in exact mode on every call,
                  two H1 calls a step plus the patch's; rays/s
+ 12 meshes      right after phase 10's eval frame, on its trained runner:
+                 Stage1Runner.extract_meshes() at the conf's
+                 plot.resolution 512 (confs/replica_room0_tpu.conf's plot
+                 section), pruning on: the coarse 64^3 sweep and each
+                 object's fine grid evaluated through H2 (packed), launched
+                 exactly once per 262,144-point chunk and H1 never; marching
+                 tetrahedra on the host (C++), visibility pruning in the 8
+                 training views; surface_100_{k}.ply and bbox/bbox_{k}.json
+                 written, the room's mesh non-empty; the room's chamfer
+                 against the analytic room (printed, no threshold after 100
+                 steps); the wall table of the parts and the peak device
+                 memory. Then H2 (packed) against plain on the last chunk
+                 of the 512^3 grid (the x01 = 1 plane) at the flagship meta
+                 (kernel ms, plain ms, bound), and the grid evaluator
+                 against implicit_sdf_raw (H1-fwd) on the same points,
+                 within 1e-5 of the largest |SDF|
  11 bench shapes the train step at bench.py's flagship_config (d_out 32,
                  a random batch as bench.py::make_batch draws it): 3
                  warm-up + 20 timed steps, rays/s; the device's idle share
@@ -69,14 +86,20 @@ Phases, one '== ' line each:
                  warm-up step, a background step (fine tier, tail, eikonal,
                  patch), with the step's own cotangents: kernel ms and
                  bound
-Wherever a kernel is held against plain (phases 3, 8, 9 and 11) it is
+ 13 quality gate the 2500-iteration synthetic gate's code path, short:
+                 training/quality_gate.main at 300 iterations on the card
+                 (16 images at 128^2, the gate's widths and stack): eval
+                 PSNR finite and above iteration 0's training PSNR, the
+                 background chamfer finite, H1-fwd / H1-bwd / H2 launched
+Wherever a kernel is held against plain (phases 3, 8, 9, 11 and 12) it is
 launched twice on the same inputs and the two results must be the same bits
 (K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
 launch to launch, so its two launches must agree within its tolerance to
 plain (1e-5 of the largest gradient), not bitwise.
-The launch counts are set to 0 just before each of the paths 4-7, 10 and 10b
-and read just after. Then the kernel table as one JSON line and last the device
-line {"ok": true, "device": {...}}. Any failure exits non-zero before it.
+The launch counts are set to 0 just before each of the paths 4-7, 10,
+10b, 12 and 13 and read just after. Then the kernel table as one JSON line
+and last the device line {"ok": true, "device": {...}}. Any failure exits
+non-zero before it.
 
 The bound of a kernel is the larger of two times, both from this run's
 inputs. Bytes: the candidate rows of the chunks the walk really took (8 KB
@@ -543,6 +566,10 @@ def check_training(tag, runner, hist, steps, launches, per_step, card):
 
 S1_RES, S1_IMAGES, S1_STEPS = 512, 8, 100
 S1B_STEPS = 40        # phase 10b: the vjp mode's heavier untiered step
+PLOT_RES = 512        # phase 12: confs/replica_room0_tpu.conf's resolution
+EXTRACT_CHUNK = 1 << 18   # utils/plots.py::extract_object_meshes' chunk
+COARSE_RES = 64       # and its coarse sweep
+GATE_ITERS = 300      # phase 13: the quality gate's code path, short
 BENCH_RAYS, BENCH_WARMUP, BENCH_TIMED, PROFILED = 1024, 3, 20, 3
 H_REL = 1e-5          # hash kernels vs plain, relative to the largest value
 BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
@@ -666,6 +693,10 @@ loss{{
  semantic_weight = 5.0
  reg_vio_weight = 0.01
  bg_reg_weight = 0.01
+}}
+plot{{
+ resolution = {PLOT_RES}
+ grid_boundary = [-1.0, 1.0]
 }}
 dataset{{
  data_root_dir = {work / 'data_s1'}
@@ -861,23 +892,26 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
     return res
 
 
-def compare_h2(x01, emb, lt, timed: bool = False) -> dict:
-    """H2 against its plain version: two launches give the same bits, plain
-    within H_REL of the largest value."""
+def compare_h2(x01, emb, lt, timed: bool = False,
+               packed: bool = False) -> dict:
+    """H2 (packed: its mesh-extraction mode) against its plain version: two
+    launches give the same bits, plain within H_REL of the largest
+    value."""
     import torch
 
     from holoscene_tpu_torch.ops import hashgrid as hg
 
-    ref = hg.sampler_fwd_plain(x01, emb, lt)
-    out, again = (hg.sampler_fwd(x01, emb, lt) for _ in range(2))
+    ref = hg.sampler_fwd_plain(x01, emb, lt, packed)
+    out, again = (hg.sampler_fwd(x01, emb, lt, packed) for _ in range(2))
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise RuntimeError("H2: two launches on the same inputs differ")
     res = dict(max_abs_err=_check_close("H2", out, ref))
     if timed:
-        res.update(ms=cuda_ms(lambda: hg.sampler_fwd(x01, emb, lt), 20),
-                   plain_ms=cuda_ms(lambda: hg.sampler_fwd_plain(x01, emb, lt),
-                                    3))
+        res.update(ms=cuda_ms(lambda: hg.sampler_fwd(x01, emb, lt, packed),
+                              20),
+                   plain_ms=cuda_ms(lambda: hg.sampler_fwd_plain(
+                       x01, emb, lt, packed), 3))
         res["bound_ms"], res["bound_by"] = hash_bound("H2", x01, lt)
     return res
 
@@ -1042,6 +1076,115 @@ def check_stage1_run(tag, runner, steps, launches, bg_every, per_step,
     return trend
 
 
+def stage1_meshes(runner, dev, card: str) -> dict:
+    """Phase 12 on phase 10's trained runner. Returns H2's extraction
+    readings: launches, and on the last chunk of the 512^3 grid max abs
+    err / ms / plain ms / bound."""
+    import numpy as np
+    import torch
+
+    from holoscene_tpu_torch.models import fields as fl
+    from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.training import quality_gate
+    from holoscene_tpu_torch.utils.eval_geometry import calc_3d_metric
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    reset_counts()
+    meshes = runner.extract_meshes()
+    launches = read_hash_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fine_res = runner.extract_fine_res
+    res = runner.conf.get_int("plot.resolution")
+    epoch = runner.start_iter
+    want = -(-COARSE_RES ** 3 // EXTRACT_CHUNK) + sum(
+        -(-r ** 3 // EXTRACT_CHUNK) for r in fine_res)
+    faces = [None if m is None else len(m.faces) for m in meshes]
+    secs = runner.extract_seconds
+    log(f"== 12 meshes of phase 10's run (runner.extract_meshes at the conf's "
+        f"plot.resolution {res}, pruning on): fine grids {fine_res}, faces "
+        f"{faces}; wall s " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in secs.items())
+        + f"; peak device memory {peak / 2**30:.2f} GiB ("
+        f"{(peak - base_mem) / 2**30:.2f} GiB above the runner's "
+        f"{base_mem / 2**30:.2f}); launches {launches}; on {card}")
+    if res != PLOT_RES or launches["H2"] != want or launches["H1-fwd"] \
+            or launches["H1-bwd"]:
+        raise RuntimeError(f"extraction at {res}: launches {launches}, "
+                           f"expected H2 {want} (one a chunk of the coarse "
+                           f"{COARSE_RES}^3 sweep and of the fine grids "
+                           f"{fine_res}) and no H1")
+    if meshes[0] is None or not len(meshes[0].faces):
+        raise RuntimeError(f"the room's mesh is empty: faces {faces}")
+    plots_dir = Path(runner.plots_dir)
+    for k, m in enumerate(meshes):
+        arts = [plots_dir / f"surface_{epoch}_{k}.ply",
+                plots_dir / "bbox" / f"bbox_{k}.json"]
+        if [a.exists() for a in arts] != [m is not None] * 2:
+            raise RuntimeError(f"object {k} (faces {faces[k]}): artifacts "
+                               f"{[(str(a), a.exists()) for a in arts]}")
+    t0 = time.perf_counter()
+    chamfer = calc_3d_metric(meshes[0], quality_gate.analytic_room(),
+                             n_samples=30000, align=False)
+    log(f"   room vs the analytic room ({time.perf_counter() - t0:.1f} s): "
+        f"{chamfer}")
+    if not all(finite(v) for v in chamfer.values()):
+        raise RuntimeError(f"room chamfer not finite: {chamfer}")
+
+    # H2 at an extraction chunk: the last of the 512^3 grid (x01 = 1)
+    net = runner.model.implicit
+    n = res ** 3
+    axis = torch.as_tensor(np.linspace(-1.0, 1.0, res, dtype=np.float32),
+                           device=dev)
+    i = torch.arange(max(n - EXTRACT_CHUNK, 0), n, device=dev)
+    x = torch.stack([axis[i // (res * res)], axis[(i // res) % res],
+                     axis[i % res]], -1)
+    x01 = ((x / net.cfg.divide_factor + 1.0) * 0.5).contiguous()
+    lt = hg.level_tables(net.cfg.grid_meta)
+    h2 = compare_h2(x01, net.grid.detach(), lt, timed=True, packed=True)
+    got = fl.implicit_sdf_raw_grid(net, x)
+    ref = fl.implicit_sdf_raw(net, x).detach()
+    sdf_err = _check_close("grid evaluator vs implicit_sdf_raw (H1)", got,
+                           ref)
+    h2["launches"] = launches["H2"]
+    log(f"   H2 (packed) at an extraction chunk ({x.shape[0]} points x "
+        f"{lt.n_levels} levels, the x01 = 1 plane): kernel {h2['ms']:.4f} "
+        f"ms, plain {h2['plain_ms']:.3f} ms, bound {h2['bound_ms']:.4f} ms "
+        f"by {h2['bound_by']} ({100 * h2['bound_ms'] / h2['ms']:.1f}% of "
+        f"it); max abs err {h2['max_abs_err']:.3g}, two launches bitwise "
+        f"equal; grid evaluator vs implicit_sdf_raw (H1-fwd) max abs err "
+        f"{sdf_err:.3g} of largest |SDF| {float(ref.abs().max()):.4f}; on "
+        f"{card}")
+    return h2
+
+
+def gate_phase(work: Path, card: str) -> dict:
+    """Phase 13: the quality gate's code path at GATE_ITERS iterations.
+    Returns its launches."""
+    from holoscene_tpu_torch.training import quality_gate
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = quality_gate.main(["--iters", str(GATE_ITERS), "--work",
+                             str(work / "gate"), "--device", "cuda"])
+    launches = read_hash_counts()
+    first = out["history"][0]["psnr"]
+    log(f"== 13 quality gate, {GATE_ITERS} iterations, in "
+        f"{time.perf_counter() - t0:.1f} s (training "
+        f"{out['train_seconds']:.1f} s): eval PSNR {out['psnr']:.3f} (iteration 0's training PSNR "
+        f"{first:.3f}), bg chamfer {out['chamfer']}, faces {out['faces']}; "
+        f"launches {launches}; on {card}")
+    chamfer = out["chamfer"] or {}
+    if not (finite(out["psnr"]) and out["psnr"] > first) or not chamfer \
+            or not all(finite(v) for v in chamfer.values()) \
+            or min(launches.values()) < 1:
+        raise RuntimeError(f"quality gate: PSNR {out['psnr']} (iteration 0: "
+                           f"{first}), chamfer {out['chamfer']}, launches "
+                           f"{launches}")
+    return launches
+
+
 def stage1_phases(work: Path, dev, card: str) -> dict:
     """Phases 9-11. Returns {H kernel: its row of the kernel table}."""
     import torch
@@ -1121,6 +1264,8 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
             or eval_launches["H1-fwd"] < 1 or eval_launches["H1-bwd"]:
         raise RuntimeError(f"eval render: PSNR {psnr}, launches "
                            f"{eval_launches}")
+    # 12 the meshes of this run
+    h2_extract = stage1_meshes(runner, dev, card)
     del runner
 
     # 10b the conf defaults: the vjp gradient mode, untiered
@@ -1256,6 +1401,12 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
                    "launches_by_path": {"stage1": launches[k],
                                         "stage1_eval": eval_launches[k],
                                         "stage1_vjp": launches_b[k]}}
+    rows["H2"]["max_abs_err"] = max(rows["H2"]["max_abs_err"],
+                                    h2_extract["max_abs_err"])
+    rows["H2"]["launches_by_path"]["stage1_meshes"] = h2_extract["launches"]
+    rows["H2"]["extraction_chunk"] = {
+        k: h2_extract[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")}
     log("   H1 at every call of a background step (the step's own "
         "cotangents):")
     for tag, (fargs, bargs) in zip(("fine tier", "tail", "eikonal", "patch"),
@@ -1507,6 +1658,9 @@ def main() -> int:
                         for path, r in other.items()))
 
         hash_rows = stage1_phases(work, dev, card)
+        gate = gate_phase(work, card)
+        for k, row in hash_rows.items():
+            row["launches_by_path"]["quality_gate"] = gate[k]
 
     main_path = {"K1": "flat", "K2": "flat", "K3": "topk", "K4": "topk"}
     table = []

@@ -51,8 +51,8 @@ _SIGNATURES = {
     # n_levels, mode, stream
     "hash_fused_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P),
-    # x01, emb, scales, ints, out, n, n_levels, stream
-    "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # x01, emb, scales, ints, out, n, n_levels, packed, stream
+    "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -378,6 +378,36 @@ def implicit_sdf_raw(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
     return implicit_forward(net, x, with_features=False)[0]
 
 
+def implicit_sdf_raw_grid(net: ImplicitNetwork,
+                          x: torch.Tensor) -> torch.Tensor:
+    """The object SDFs [N, K] for mesh extraction's grid evaluation: JAX
+    implicit_sdf_raw (the packed encode, every level's values rounded to
+    bf16), no gradient, every level through H2 in its packed mode (H1-fwd
+    would also write the [P, 2L, 3] jacobian, which a grid throws away).
+    The packed encode wraps a dense level's row where H2 clamps the cell;
+    they name different rows only at x01 = 1 on a level of integer scale,
+    and those corners carry zero weight (tests/test_torch_extract.py, on
+    the boundary planes of an extraction grid at every dense level)."""
+    with torch.no_grad():
+        feats = hash_encode_sampler(_x01(net, x), net.grid, net.cfg.grid_meta,
+                                    packed=True)
+        return net.trunk(x, feats)
+
+
+def implicit_shift_sdf_raw(net: ImplicitNetwork,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Disentangled per-object SDFs [N, K] (JAX implicit_shift_sdf_raw):
+    where the scene SDF (the min) is negative, every other object's SDF is
+    raised to at least -min, and the winning object keeps the min, so a
+    per-object extraction cannot take in another object's interior. On
+    the grid evaluator (no gradient)."""
+    raw = implicit_sdf_raw_grid(net, x)
+    idx = torch.argmin(raw, -1)
+    sdf = raw.gather(-1, idx[:, None])
+    shifted = torch.where(sdf < 0.0, torch.maximum(raw, -sdf), raw)
+    return shifted.scatter(-1, idx[:, None], sdf)
+
+
 def implicit_all_gradients(net: ImplicitNetwork, x: torch.Tensor):
     """Jacobian of the K object SDFs and the scene SDF w.r.t. the points,
     [N, K+1, 3], by three forward-mode tangents through the trunk from one

@@ -22,7 +22,9 @@ at x01 == 1 and in rounding):
     single-table mode (features + J of table a) the eikonal jacobians use.
   * `hash_encode_sampler`: the first `grid_levels` levels, dense levels
     from exact float32 rows with clamped cells, hashed levels as the packed
-    encode; no gradient. H2 (csrc/hash_sampler_fwd.cu).
+    encode; no gradient. H2 (csrc/hash_sampler_fwd.cu). With packed=True
+    the dense levels' values are rounded to bf16 too: the packed encode
+    with clamped cells, which mesh extraction evaluates its grids with.
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (and counts
 the launch on itself, `fused_fwd.launches` ...) and runs its plain PyTorch
@@ -597,10 +599,11 @@ def hash_encode_fused_dual(x01, emb_a, emb_b, meta: HashGridMeta,
 # ---------------------------------------------------------------------------
 
 
-def sampler_fwd_plain(x01, emb, lt: LevelTables) -> torch.Tensor:
+def sampler_fwd_plain(x01, emb, lt: LevelTables,
+                      packed: bool = False) -> torch.Tensor:
     """H2's plain version: [N, L*2] for the first L = lt.n_levels levels;
-    dense levels exact float32 with clamped cells, hashed levels bf16 with
-    the wrapped hash; out-of-range points zero."""
+    dense levels exact float32 (bf16 when packed) with clamped cells,
+    hashed levels bf16 with the wrapped hash; out-of-range points zero."""
     n, L, ld = x01.shape[0], lt.n_levels, lt.n_dense
     dev = x01.device
     res, sizes, offsets = (torch.as_tensor(a, device=dev)
@@ -616,7 +619,7 @@ def sampler_fwd_plain(x01, emb, lt: LevelTables) -> torch.Tensor:
             top = (res[lo:hi] - 2).to(torch.float32)[:, None, None]
             pg = torch.minimum(torch.clamp(torch.floor(p), min=0.0), top)
             rows = _dense_rows(pg.long(), res[lo:hi], offsets[lo:hi])
-            vals = emb[rows]
+            vals = (emb.to(torch.bfloat16).float() if packed else emb)[rows]
         else:
             pg = torch.floor(p)
             rows = _hash_rows(pg.long(), sizes[lo:hi], offsets[lo:hi])
@@ -631,12 +634,13 @@ def sampler_fwd_plain(x01, emb, lt: LevelTables) -> torch.Tensor:
     return out.permute(1, 0, 2).reshape(n, L * 2)
 
 
-def sampler_fwd(x01, emb, lt: LevelTables) -> torch.Tensor:
+def sampler_fwd(x01, emb, lt: LevelTables,
+                packed: bool = False) -> torch.Tensor:
     """H2. CUDA tensors: launches `hash_sampler_fwd` of
     csrc/hash_sampler_fwd.cu (one thread per (point, level)) and counts it
     in `sampler_fwd.launches`; CPU tensors: sampler_fwd_plain."""
     if not x01.is_cuda:
-        return sampler_fwd_plain(x01, emb, lt)
+        return sampler_fwd_plain(x01, emb, lt, packed)
     from holoscene_tpu_torch import kernels
 
     n, L, dev = x01.shape[0], lt.n_levels, x01.device
@@ -647,7 +651,8 @@ def sampler_fwd(x01, emb, lt: LevelTables) -> torch.Tensor:
         scales, ints = lt.device_arrays(dev)
         st = kernels.library().hash_sampler_fwd(
             x01.data_ptr(), emb.data_ptr(), scales.data_ptr(), ints.data_ptr(),
-            out.data_ptr(), n, L, torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), n, L, int(packed),
+            torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(st, "hash_sampler_fwd")
         sampler_fwd.launches += 1
     return out
@@ -657,9 +662,12 @@ sampler_fwd.launches = 0
 
 
 def hash_encode_sampler(inputs, embeddings, meta: HashGridMeta,
-                        grid_levels: int | None = None) -> torch.Tensor:
+                        grid_levels: int | None = None,
+                        packed: bool = False) -> torch.Tensor:
     """SDF-probe encode of the error-bound sampler, no gradient: [N,
-    grid_levels*2] (the caller zero-pads the fine levels)."""
+    grid_levels*2] (the caller zero-pads the fine levels); packed rounds
+    the dense levels' values to bf16 as well."""
     lt = level_tables(meta, grid_levels)
     with torch.no_grad():
-        return sampler_fwd(inputs.contiguous(), embeddings.detach(), lt)
+        return sampler_fwd(inputs.contiguous(), embeddings.detach(), lt,
+                           packed)

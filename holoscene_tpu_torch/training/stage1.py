@@ -12,9 +12,14 @@ torch.Generator on the device (`StepDraws`), so a test can hand the step
 JAX's draws instead. Float32 matmuls stay full float32 (TF32 off), set
 where the runner starts.
 
-Not ported yet (ROADMAP.md queue A): extract_meshes and mesh plots, the
-multi-device mesh, the occupancy grid, loading the JAX package's msgpack
-checkpoints."""
+On the plot cadence (`run(plot_freq=...)`) the runner eval-renders a
+frame and, with extract_meshes_on_plot, extracts the per-object meshes
+(`extract_meshes`: grid evaluation through H2 on the device, marching
+tetrahedra on the host, visibility pruning, surface_{it}_{k}.ply and
+bbox/bbox_{k}.json).
+
+Not ported yet (ROADMAP.md queue A): the multi-device mesh, the occupancy
+grid, loading the JAX package's msgpack checkpoints."""
 
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from holoscene_tpu_torch import as_tensor, resolve_device
 from holoscene_tpu_torch.config import Config
 from holoscene_tpu_torch.datasets.ns_dataset import NSDataset
 from holoscene_tpu_torch.losses.holoscene_loss import LossConfig, holoscene_loss
+from holoscene_tpu_torch.models.fields import implicit_sdf_raw_grid
 from holoscene_tpu_torch.models.holoscene import (
     BG_PATCH,
     HoloSceneConfig,
@@ -45,7 +51,13 @@ from holoscene_tpu_torch.models.holoscene import (
 from holoscene_tpu_torch.ops.rays import get_camera_rays
 from holoscene_tpu_torch.ops.sampler import SamplerDraws
 from holoscene_tpu_torch.training import checkpoints as ckpt_lib
+from holoscene_tpu_torch.training.pruning import instance_meshes_post_pruning
 from holoscene_tpu_torch.utils.logging import MetricsLogger
+from holoscene_tpu_torch.utils.plots import (
+    extract_object_meshes,
+    generate_bbox,
+    save_object_meshes,
+)
 
 
 def make_optimizer(model: HoloSceneModel, lr: float, lr_factor_for_grid: float,
@@ -270,6 +282,8 @@ class Stage1Runner:
         self.probe_bakes: list[int] = []
         self.history: list[dict] = []
         self.run_seconds = 0.0
+        self.extract_seconds: dict = {}
+        self.extract_fine_res: list[int] = []
         self.logger = MetricsLogger(self.rundir)
 
     def switch_to_exact_bwd(self):
@@ -287,9 +301,53 @@ class Stage1Runner:
             print(f"[{self.expname}] exact table backward from iter "
                   f"{self.exact_bwd_from_iter}", flush=True)
 
-    def plot(self, it: int, frame_idx: int = 0, split: str = "train"):
-        """Eval-render a frame to PNGs (rgb, normal, depth, instance);
-        returns {"psnr": ...}. Mesh extraction is not ported yet."""
+    def extract_meshes(self, resolution: int | None = None,
+                       prune: bool = True, epoch: int | None = None,
+                       save: bool = True):
+        """Per-object mesh extraction + visibility pruning + bbox artifacts
+        (reference holoscene_train.py:326-327, :523-641): the K object
+        SDFs on the plot.grid_boundary cube at plot.resolution (256 when
+        the conf has none), evaluated on the runner's device in chunks
+        through H2 (implicit_sdf_raw_grid), triangulated on the host, then
+        pruned against the training views' instance masks and written as
+        surface_{epoch}_{k}.ply and bbox/bbox_{k}.json. Returns the meshes
+        (None for an empty object) and leaves the wall time of each part
+        in self.extract_seconds (grid_eval, marching_tetrahedra, pruning,
+        writing, total) and each object's fine-grid resolution in
+        self.extract_fine_res."""
+        t_all = time.perf_counter()
+        res = resolution or self.conf.get_int("plot.resolution", 256)
+        bound = self.conf.get_list("plot.grid_boundary", [-1.0, 1.0])
+        net = self.model.implicit
+        seconds: dict = {}
+        self.extract_fine_res = []
+        meshes = extract_object_meshes(
+            lambda pts: implicit_sdf_raw_grid(net, pts),
+            self.model_cfg.implicit.d_out, resolution=res,
+            grid_boundary=tuple(bound), device=self.device, seconds=seconds,
+            fine_resolutions=self.extract_fine_res)
+        if prune:
+            t0 = time.perf_counter()
+            meshes = instance_meshes_post_pruning(meshes, self.dataset,
+                                                  device=self.device)
+            seconds["pruning"] = time.perf_counter() - t0
+        if save:
+            t0 = time.perf_counter()
+            epoch = self.start_iter if epoch is None else epoch
+            save_object_meshes(meshes, self.plots_dir, epoch)
+            generate_bbox(meshes, self.plots_dir)
+            seconds["writing"] = time.perf_counter() - t0
+        seconds["total"] = time.perf_counter() - t_all
+        self.extract_seconds = seconds
+        return meshes
+
+    def plot(self, it: int, frame_idx: int = 0, extract_meshes: bool = False,
+             split: str = "train"):
+        """Plot-cadence artifacts (reference holoscene_train.py:283-353):
+        eval-render a frame to PNGs (rgb, normal, depth, instance) and,
+        with extract_meshes, extract + prune the meshes and write them with
+        their bboxes; returns {"psnr": ...}. split="test" renders a
+        held-out frame (dataset.test_split)."""
         from PIL import Image
 
         sample, gt = self.dataset.full_frame(frame_idx, split=split)
@@ -312,9 +370,16 @@ class Stage1Runner:
         if not self.quiet:
             print(f"[{self.expname}] plot it={it} {split}-frame={frame_idx} "
                   f"psnr={psnr:.2f}")
+        if extract_meshes:
+            self.extract_meshes(epoch=it)
         return {"psnr": float(psnr)}
 
-    def run(self, n_iters: int | None = None, log_every: int = 20):
+    def run(self, n_iters: int | None = None, log_every: int = 20,
+            plot_freq: int | None = None,
+            extract_meshes_on_plot: bool = False):
+        """Train to n_iters more steps (default: to train.stop_iter),
+        recording the metrics every log_every steps; every plot_freq-th
+        step also plots (and extracts meshes with extract_meshes_on_plot)."""
         end = self.start_iter + (n_iters if n_iters is not None
                                  else self.stop_iter - self.start_iter)
         n_steps = end - self.start_iter
@@ -365,6 +430,8 @@ class Stage1Runner:
                           f"rgb={m['rgb_loss']:.4f} psnr={m['psnr']:.2f} "
                           f"beta={m['beta']:.4f} "
                           f"rays/s={m['rays_per_sec']:.0f}", flush=True)
+            if plot_freq and (it + 1) % plot_freq == 0:
+                self.plot(it, extract_meshes=extract_meshes_on_plot)
             if (it + 1) % self.checkpoint_freq == 0 or it == end - 1:
                 ckpt_lib.save_checkpoint(
                     self.checkpoints_path, epoch=it, model=self.model,

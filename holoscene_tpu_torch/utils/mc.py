@@ -1,19 +1,24 @@
-"""Isosurface extraction: vectorized marching tetrahedra (numpy copy of
-holoscene_tpu/utils/mc.py::marching_tetrahedra).
+"""Isosurface extraction: vectorized marching tetrahedra + chunked SDF-grid
+evaluation (port of holoscene_tpu/utils/mc.py).
 
 Marching tetrahedra (each cube split into 6 tets) is table-free and correct
 by construction: every tet has at most one sign-crossing quad/triangle,
 derived from the 16 sign cases directly. Shared vertices are welded by edge
-identity so the output is watertight across cube and tet boundaries.
+identity so the output is watertight across cube and tet boundaries. Grids
+of 64^3 points and more go to the C++ extractor (holoscene_tpu_torch/native,
+built with g++ on first use; a failed build raises); the numpy path is the
+reference implementation.
 
-Only the host-side triangulation lives here. The C++ extractor the reference
-uses for large grids and the on-device SDF-grid evaluation are not ported
-yet (ROADMAP.md queue A.10).
+The SDF grid is evaluated on the device in fixed chunks of at most 262,144
+points (the reference's marching-cubes batches, utils/plots.py:350): the
+points of a chunk are made on the device from the grid's three float32
+axes, and the values stream back to the host, where the triangulation runs.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # 6-tetrahedra decomposition of the unit cube (corner ids 0..7 with
 # corner k at bits (x=k&1, y=(k>>1)&1, z=(k>>2)&1)); all share the 0-7
@@ -51,7 +56,11 @@ def marching_tetrahedra(
 
     sdf: [X, Y, Z] float array. Returns (verts [V,3] float64, faces [F,3]
     int64) with outward orientation for SDF convention (negative inside).
+    Grids of 64^3 points or more run the C++ extractor, which gives the
+    same vertices and faces.
     """
+    if np.asarray(sdf).size >= 64 ** 3:
+        return _marching_tetrahedra_native(sdf, level, origin, spacing)
     sdf = np.asarray(sdf, dtype=np.float64) - level
     nx, ny, nz = sdf.shape
     if min(nx, ny, nz) < 2:
@@ -186,6 +195,18 @@ def marching_tetrahedra(
     return verts, faces
 
 
+def _marching_tetrahedra_native(sdf, level, origin, spacing):
+    """marching_tetrahedra through the C++ extractor."""
+    from holoscene_tpu_torch.native import marching_tetrahedra_native
+
+    verts, faces = marching_tetrahedra_native(np.asarray(sdf), level=level)
+    if len(faces) == 0:
+        return np.zeros((0, 3)), np.zeros((0, 3), dtype=np.int64)
+    verts = verts * np.asarray(spacing)[None, :] + np.asarray(origin)[None, :]
+    sdf64 = np.asarray(sdf, dtype=np.float64) - level
+    return _orient_outward(sdf64, verts, faces, origin, spacing)
+
+
 def _orient_outward(sdf, verts, faces, origin, spacing):
     """Flip faces whose normal disagrees with the local SDF gradient."""
     if len(faces) == 0:
@@ -203,3 +224,59 @@ def _orient_outward(sdf, verts, faces, origin, spacing):
     faces = faces.copy()
     faces[flip] = faces[flip][:, ::-1]
     return verts, faces
+
+
+def evaluate_grid(fn, axes, chunk: int = 262144, device="cuda") -> np.ndarray:
+    """fn ([M, 3] float32 points on `device` -> [M] or [M, K] values) over
+    the "ij" meshgrid of three float32 axes, at most `chunk` points a call:
+    [X * Y * Z] or [X * Y * Z, K] float32 on the host, point (i, j, k) at
+    row (i * Y + j) * Z + k."""
+    dev = torch.device(device)
+    ax = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+          for a in axes]
+    ny, nz = len(ax[1]), len(ax[2])
+    n = len(ax[0]) * ny * nz
+    out = None
+    for start in range(0, n, chunk):
+        i = torch.arange(start, min(start + chunk, n), device=dev)
+        pts = torch.stack([ax[0][i // (ny * nz)], ax[1][(i // nz) % ny],
+                           ax[2][i % nz]], -1)
+        vals = fn(pts).detach().to("cpu", torch.float32).numpy()
+        if out is None:
+            out = np.empty((n,) + vals.shape[1:], dtype=np.float32)
+        out[start:start + len(vals)] = vals
+    return out
+
+
+def evaluate_sdf_grid(
+    sdf_fn,
+    resolution: int,
+    bounds=(-1.0, 1.0),
+    chunk: int = 262144,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Evaluate sdf_fn ([M, 3] -> [M]) over a dense grid in device chunks.
+
+    Returns (grid [R,R,R], origin [3], spacing [3])."""
+    lo, hi = bounds
+    axis = np.linspace(lo, hi, resolution, dtype=np.float32)
+    vals = evaluate_grid(sdf_fn, (axis,) * 3, chunk, device)
+    grid = vals.reshape(resolution, resolution, resolution)
+    spacing = np.full(3, (hi - lo) / (resolution - 1))
+    origin = np.full(3, lo)
+    return grid, origin, spacing
+
+
+def extract_mesh(
+    sdf_fn,
+    resolution: int = 128,
+    bounds=(-1.0, 1.0),
+    level: float = 0.0,
+    chunk: int = 262144,
+    device="cuda",
+):
+    """Grid-evaluate + marching tetrahedra; returns (verts, faces)."""
+    grid, origin, spacing = evaluate_sdf_grid(sdf_fn, resolution, bounds,
+                                              chunk, device)
+    return marching_tetrahedra(grid, level=level, origin=origin,
+                               spacing=spacing)

@@ -459,6 +459,65 @@ def test_hash_sampler_matches_plain(cuda, dmr):
     _close(a, ref)
 
 
+def test_hash_sampler_packed_at_an_extraction_chunk(cuda):
+    """H2 in its packed mode (mesh extraction's grid evaluation) at the
+    flagship meta (16 levels 16-2048, 2^19 rows) on the last chunk of a
+    512^3 extraction grid over [-1, 1]^3: 262,144 points on the x01 = 1
+    plane, its edges at y, z = 0 and 1 included. Two launches bitwise
+    equal, plain within H_REL of the largest value."""
+    meta = thash.HashGridMeta(num_levels=16, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=19, desired_resolution=2048)
+    rng = np.random.default_rng(5)
+    emb = torch.as_tensor(rng.uniform(-0.5, 0.5, (meta.table_rows, 2)),
+                          dtype=torch.float32)
+    axis = torch.linspace(-1.0, 1.0, 512)
+    gy, gz = torch.meshgrid(axis, axis, indexing="ij")
+    x = torch.stack([torch.ones_like(gy), gy, gz], -1).reshape(-1, 3)
+    x01 = ((x + 1.0) * 0.5).contiguous()
+    assert x01.shape[0] == 1 << 18 and (x01[:, 0] == 1.0).all()
+    lt = thash.level_tables(meta)
+    ref = thash.sampler_fwd_plain(x01, emb, lt, packed=True)
+    n0 = thash.sampler_fwd.launches
+    args = (x01.to(cuda), emb.to(cuda), lt, True)
+    a, b = thash.sampler_fwd(*args), thash.sampler_fwd(*args)
+    torch.cuda.synchronize()
+    assert thash.sampler_fwd.launches == n0 + 2
+    assert torch.equal(a, b)
+    _close(a, ref)
+    assert not torch.equal(a.cpu(), thash.sampler_fwd_plain(x01, emb, lt))
+
+
+def test_grid_evaluator_on_card_matches_the_h1_route(cuda):
+    """implicit_sdf_raw_grid (H2, packed) on the card against
+    implicit_sdf_raw (H1-fwd) on the card and against itself on the CPU,
+    on every point of a 33^3 grid over [-1, 1]^3 (whole planes at x01 = 0
+    and 1): within 1e-5 of the largest |SDF|; H2 launched once, H1-fwd
+    not at all, by the grid evaluator."""
+    from holoscene_tpu_torch.models import fields as tf
+
+    cfg = tf.ImplicitNetworkConfig(feature_vector_size=16, d_out=3,
+                                   dims=(32, 32), multires=2, num_levels=8,
+                                   base_size=4, end_size=96, logmap=10)
+    net = tf.ImplicitNetwork(cfg, seed=3)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        net.mlp["lin0"].v.normal_(0, 0.3, generator=gen)
+        net.grid.uniform_(-0.1, 0.1, generator=gen)
+    axis = torch.linspace(-1.0, 1.0, 33)
+    x = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"),
+                    -1).reshape(-1, 3)
+    ref_cpu = tf.implicit_sdf_raw_grid(net, x)
+    net = net.to(cuda)
+    n2, n1 = thash.sampler_fwd.launches, thash.fused_fwd.launches
+    got = tf.implicit_sdf_raw_grid(net, x.to(cuda))
+    torch.cuda.synchronize()
+    assert (thash.sampler_fwd.launches, thash.fused_fwd.launches) \
+        == (n2 + 1, n1)
+    h1 = tf.implicit_sdf_raw(net, x.to(cuda)).detach()
+    _close(got, h1.cpu(), 1e-5)
+    _close(got, ref_cpu, 1e-5)
+
+
 @pytest.mark.parametrize("lin2", ["init", "perturbed"])
 def test_vjp_get_outputs_on_card_matches_cpu(cuda, lin2):
     """The vjp gradient mode's field (implicit_get_outputs: H1-fwd, the

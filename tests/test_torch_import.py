@@ -34,7 +34,9 @@ def test_port_lists_its_slice_modules():
                  "ops.hashgrid", "ops.probe_grid", "ops.sampler",
                  "models.fields", "models.holoscene",
                  "losses.holoscene_loss", "training.stage1",
-                 "training.exp_runner", "utils.logging"):
+                 "training.exp_runner", "utils.logging", "native",
+                 "utils.plots", "utils.eval_geometry", "training.pruning",
+                 "training.quality_gate"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 

@@ -59,7 +59,9 @@ Phases, one '== ' line each:
                  no probe grid, 5 sampler rounds, the background
                  regulariser) at the flagship widths, 40 steps: every loss
                  finite, rgb_loss falls, H1-bwd in exact mode on every call,
-                 two H1 calls a step plus the patch's; rays/s
+                 two H1 calls a step plus the patch's; rays/s; then H2
+                 against plain at the run's first sampler call (1024 rays
+                 x 129 points, 16 levels): kernel ms, plain ms, bound
  12 meshes      right after phase 10's eval frame, on its trained runner:
                  Stage1Runner.extract_meshes() at the conf's
                  plot.resolution 512 (confs/replica_room0_tpu.conf's plot
@@ -71,11 +73,17 @@ Phases, one '== ' line each:
                  written, the room's mesh non-empty; the room's chamfer
                  against the analytic room (printed, no threshold after 100
                  steps); the wall table of the parts and the peak device
-                 memory. Then H2 (packed) against plain on the last chunk
-                 of the 512^3 grid (the x01 = 1 plane) at the flagship meta
-                 (kernel ms, plain ms, bound), and the grid evaluator
-                 against implicit_sdf_raw (H1-fwd) on the same points,
-                 within 1e-5 of the largest |SDF|
+                 memory; H2's time summed over the extraction's launches,
+                 its grid evaluations replayed after it (CUDA events around
+                 each launch, after a spin of the card that outlasts the
+                 host's enqueue), so the wall table is untimed. Then H2
+                 (packed) against plain on chunk 256 of the 512^3 grid (a
+                 mid-grid x-plane) and on its last chunk (the x01 = 1
+                 plane) at the flagship meta (kernel ms, plain ms, bound,
+                 and at the last chunk the time of the kernel its redesign
+                 replaced), and the grid evaluator against
+                 implicit_sdf_raw (H1-fwd) on the last chunk, within 1e-5
+                 of the largest |SDF|
  11 bench shapes the train step at bench.py's flagship_config (d_out 32,
                  a random batch as bench.py::make_batch draws it): 3
                  warm-up + 20 timed steps, rays/s; the device's idle share
@@ -580,10 +588,12 @@ BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
 # the backward (the two fused cotangents 14, b's 2) or of H2 (4)
 OPS_POINT_LEVEL = 18
 OPS_CORNER = {"H1-fwd": 2 + 9 + 20, "H1-bwd": 2 + 9 + 16, "H2": 2 + 4}
-# H1 before its redesign (one thread per (point, level), commit 43206f0),
-# at the fine tier of this script's phase 11 on an NVIDIA H100 80GB HBM3 at
-# 700.00 W
-HASH_EARLIER_MS = {"H1-fwd": 0.0820, "H1-bwd": 0.3737}
+# The kernels before their redesign (one thread per (point, level)) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: H1 (commit 43206f0) at the fine tier
+# of this script's phase 11, H2 (commit 2c8f867) at phase 11's bake chunk
+# and (H2_EARLIER_EXTRACT_MS) at phase 12's chunk of the x01 = 1 plane
+HASH_EARLIER_MS = {"H1-fwd": 0.0820, "H1-bwd": 0.3737, "H2": 0.0564}
+H2_EARLIER_EXTRACT_MS = 0.2782
 HASH_KERNELS = {
     "H1-fwd": dict(name="H1-fwd hash_fused_fwd", route="cuda",
                    source="holoscene_tpu_torch/csrc/hash_fused_fwd.cu",
@@ -951,15 +961,14 @@ def device_kernels(prof):
     return busy / 1e3, by_name
 
 
-def record_h1(fn, keep=lambda name, args: args):
-    """fn() with H1-fwd / H1-bwd wrapped to record keep(name, args) of each
-    call (name "fused_fwd" or "fused_bwd"):
-    (fn's result, [H1-fwd records], [H1-bwd records]) in call order. The
-    wrapped calls still launch, and their launches are counted on the
+def record_hash(fn, names, keep=lambda name, args: args):
+    """fn() with the hash-kernel wrappers `names` of ops/hashgrid.py
+    ("fused_fwd", "fused_bwd", "sampler_fwd") wrapped to record keep(name,
+    args) of each call: (fn's result, {name: [records] in call order}).
+    The wrapped calls still launch, and their launches are counted on the
     kernels' own wrappers."""
     from holoscene_tpu_torch.ops import hashgrid as hg
 
-    names = ("fused_fwd", "fused_bwd")
     origs = {k: getattr(hg, k) for k in names}
     records = {k: [] for k in names}
 
@@ -982,7 +991,7 @@ def record_h1(fn, keep=lambda name, args: args):
         for k, o in origs.items():
             setattr(hg, k, o)
             o.launches += wrappers[k].launches
-    return out, records["fused_fwd"], records["fused_bwd"]
+    return out, records
 
 
 def capture_h1(step_fn) -> list:
@@ -990,7 +999,8 @@ def capture_h1(step_fn) -> list:
     forward order, a call's backward found by its points tensor."""
     import torch
 
-    _, fwd, bwd = record_h1(step_fn)
+    _, rec = record_hash(step_fn, ("fused_fwd", "fused_bwd"))
+    fwd, bwd = rec["fused_fwd"], rec["fused_bwd"]
     torch.cuda.synchronize()
     by_points = {a[0].data_ptr(): a for a in bwd}
     return [(a, by_points.get(a[0].data_ptr())) for a in fwd]
@@ -1019,14 +1029,6 @@ def h1_at_capture(fargs, bargs, reps: int = 20) -> dict:
             "H1-bwd", x01, lt, bargs[1], has_b=bargs[4] is not None,
             mode=mode)
     return out
-
-
-def h1_modes(fn):
-    """fn() with H1-bwd's calls recorded: (its result, the set of modes
-    H1-bwd ran in)."""
-    out, _, modes = record_h1(
-        fn, keep=lambda name, args: args[6] if name == "fused_bwd" else None)
-    return out, set(modes)
 
 
 def check_stage1_run(tag, runner, steps, launches, bg_every, per_step,
@@ -1076,23 +1078,78 @@ def check_stage1_run(tag, runner, steps, launches, bg_every, per_step,
     return trend
 
 
+# a spin of the card (~0.11 ms at 1.755 GHz) before each timed H2 launch
+# of phase 12: longer than the host takes to enqueue the launch
+SPIN_CYCLES = 200_000
+
+
+def h2_launch_times(fn):
+    """fn() with every H2 launch timed alone: (fn's result, [ms of each
+    launch]). CUDA events bracket the launch, after a spin of the card
+    (torch.cuda._sleep) that keeps it busy while the host enqueues the
+    start event and the launch, so the pair times the kernel and not the
+    host."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    orig = hg.sampler_fwd
+    events = []
+
+    def sampler_fwd(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        out = orig(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    # the kernel wrapper counts its launches on the name it is bound to
+    sampler_fwd.launches = 0
+    hg.sampler_fwd = sampler_fwd
+    try:
+        out = fn()
+    finally:
+        hg.sampler_fwd = orig
+        orig.launches += sampler_fwd.launches
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in events]
+
+
 def stage1_meshes(runner, dev, card: str) -> dict:
     """Phase 12 on phase 10's trained runner. Returns H2's extraction
-    readings: launches, and on the last chunk of the 512^3 grid max abs
-    err / ms / plain ms / bound."""
+    readings: launches, its device ms summed over the extraction, and on
+    the last chunk of the 512^3 grid (x01 = 1) and on its chunk 256 (a
+    mid-grid x-plane) max abs err / ms / plain ms / bound."""
     import numpy as np
     import torch
 
     from holoscene_tpu_torch.models import fields as fl
     from holoscene_tpu_torch.ops import hashgrid as hg
     from holoscene_tpu_torch.training import quality_gate
+    from holoscene_tpu_torch.utils import plots
     from holoscene_tpu_torch.utils.eval_geometry import calc_3d_metric
+
+    # the extraction runs untimed; its grid evaluations are recorded (no
+    # device work) and replayed after it with each H2 launch timed
+    grids = []
+    evaluate_grid = plots.evaluate_grid
+
+    def record_grid(*args):
+        grids.append(args)
+        return evaluate_grid(*args)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     reset_counts()
-    meshes = runner.extract_meshes()
+    plots.evaluate_grid = record_grid
+    try:
+        meshes = runner.extract_meshes()
+    finally:
+        plots.evaluate_grid = evaluate_grid
     launches = read_hash_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     fine_res = runner.extract_fine_res
@@ -1115,6 +1172,18 @@ def stage1_meshes(runner, dev, card: str) -> dict:
                            f"expected H2 {want} (one a chunk of the coarse "
                            f"{COARSE_RES}^3 sweep and of the fine grids "
                            f"{fine_res}) and no H1")
+    _, h2_ms = h2_launch_times(
+        lambda: [evaluate_grid(*args) for args in grids])
+    if len(h2_ms) != launches["H2"]:
+        raise RuntimeError(f"the replayed grid evaluations timed "
+                           f"{len(h2_ms)} H2 launches, the extraction made "
+                           f"{launches['H2']}")
+    h2_sum = sum(h2_ms)
+    log(f"   H2 over the extraction's {len(grids)} grid evaluations, "
+        f"replayed (CUDA events around each launch): "
+        f"{h2_sum:.3f} ms over {len(h2_ms)} launches, "
+        f"{h2_sum / len(h2_ms):.4f} ms a launch (fastest {min(h2_ms):.4f}, "
+        f"slowest {max(h2_ms):.4f})")
     if meshes[0] is None or not len(meshes[0].faces):
         raise RuntimeError(f"the room's mesh is empty: faces {faces}")
     plots_dir = Path(runner.plots_dir)
@@ -1132,30 +1201,42 @@ def stage1_meshes(runner, dev, card: str) -> dict:
     if not all(finite(v) for v in chamfer.values()):
         raise RuntimeError(f"room chamfer not finite: {chamfer}")
 
-    # H2 at an extraction chunk: the last of the 512^3 grid (x01 = 1)
+    # H2 at two extraction chunks of the 512^3 grid: chunk 256 (the plane
+    # x01 = 256/511, as most chunks are) and the last (the x01 = 1 plane,
+    # every point in one x cell a level), where the grid evaluator is also
+    # held against the H1 route
     net = runner.model.implicit
     n = res ** 3
     axis = torch.as_tensor(np.linspace(-1.0, 1.0, res, dtype=np.float32),
                            device=dev)
-    i = torch.arange(max(n - EXTRACT_CHUNK, 0), n, device=dev)
-    x = torch.stack([axis[i // (res * res)], axis[(i // res) % res],
-                     axis[i % res]], -1)
-    x01 = ((x / net.cfg.divide_factor + 1.0) * 0.5).contiguous()
     lt = hg.level_tables(net.cfg.grid_meta)
-    h2 = compare_h2(x01, net.grid.detach(), lt, timed=True, packed=True)
+    h2 = {"launches": launches["H2"], "sum_ms": h2_sum}
+    for tag, start in (("mid", min(res // 2 * res * res, n - EXTRACT_CHUNK)),
+                       ("last", max(n - EXTRACT_CHUNK, 0))):
+        i = torch.arange(start, start + EXTRACT_CHUNK, device=dev)
+        x = torch.stack([axis[i // (res * res)], axis[(i // res) % res],
+                         axis[i % res]], -1)
+        x01 = ((x / net.cfg.divide_factor + 1.0) * 0.5).contiguous()
+        h2[tag] = compare_h2(x01, net.grid.detach(), lt, timed=True,
+                             packed=True)
+        r = h2[tag]
+        earlier = (f"; the kernel it replaced: {H2_EARLIER_EXTRACT_MS:.4f} "
+                   f"ms, {H2_EARLIER_EXTRACT_MS / r['ms']:.2f}x"
+                   if tag == "last" else "")
+        log(f"   H2 (packed) at extraction chunk {start // EXTRACT_CHUNK} "
+            f"({x.shape[0]} points x {lt.n_levels} levels, x01 = "
+            f"{float(x01[0, 0]):.5f}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of it); "
+            f"max abs err {r['max_abs_err']:.3g}, two launches bitwise "
+            f"equal{earlier}; on {card}")
     got = fl.implicit_sdf_raw_grid(net, x)
     ref = fl.implicit_sdf_raw(net, x).detach()
     sdf_err = _check_close("grid evaluator vs implicit_sdf_raw (H1)", got,
                            ref)
-    h2["launches"] = launches["H2"]
-    log(f"   H2 (packed) at an extraction chunk ({x.shape[0]} points x "
-        f"{lt.n_levels} levels, the x01 = 1 plane): kernel {h2['ms']:.4f} "
-        f"ms, plain {h2['plain_ms']:.3f} ms, bound {h2['bound_ms']:.4f} ms "
-        f"by {h2['bound_by']} ({100 * h2['bound_ms'] / h2['ms']:.1f}% of "
-        f"it); max abs err {h2['max_abs_err']:.3g}, two launches bitwise "
-        f"equal; grid evaluator vs implicit_sdf_raw (H1-fwd) max abs err "
-        f"{sdf_err:.3g} of largest |SDF| {float(ref.abs().max()):.4f}; on "
-        f"{card}")
+    log(f"   grid evaluator vs implicit_sdf_raw (H1-fwd) on chunk "
+        f"{start // EXTRACT_CHUNK}: max abs err {sdf_err:.3g} of largest "
+        f"|SDF| {float(ref.abs().max()):.4f}")
     return h2
 
 
@@ -1271,11 +1352,14 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
     # 10b the conf defaults: the vjp gradient mode, untiered
     conf = stage1_conf(work, "smoke_s1_vjp", S1_MODEL_DEFAULT)
     reset_counts()
-    runner, modes = h1_modes(lambda: exp_runner.main(
+    # H1-bwd's modes and H2's calls recorded
+    runner, rec = record_hash(lambda: exp_runner.main(
         ["--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
          "--max_niters", str(S1B_STEPS), "--log_every", "1", "--quiet",
-         "--device", "cuda"]))
+         "--device", "cuda"]), ("fused_bwd", "sampler_fwd"),
+        keep=lambda name, args: args[6] if name == "fused_bwd" else args)
     launches_b = read_hash_counts()
+    modes = set(rec["fused_bwd"])
     cfg10b = runner.model_cfg
     log(f"== 10b conf defaults (confs/replica_room0.conf's model section: "
         f"forward_grad_mode {cfg10b.forward_grad_mode}, render_top_m "
@@ -1291,6 +1375,18 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
     if launches_b["H2"] < S1B_STEPS:
         raise RuntimeError(f"10b: H2 launches {launches_b}")
     del runner
+    # H2 at the run's first sampler call (the first step's rays)
+    x01, emb, lt, packed = rec["sampler_fwd"][0]
+    h2_vjp = compare_h2(x01, emb, lt, timed=True, packed=packed)
+    h2_vjp["shape"] = (x01.shape[0], lt.n_levels, packed)
+    del rec
+    log(f"   H2 at the first sampler call ({x01.shape[0]} points x "
+        f"{lt.n_levels} levels, packed {packed}): kernel "
+        f"{h2_vjp['ms']:.4f} ms, plain {h2_vjp['plain_ms']:.3f} ms, bound "
+        f"{h2_vjp['bound_ms']:.4f} ms by {h2_vjp['bound_by']} "
+        f"({100 * h2_vjp['bound_ms'] / h2_vjp['ms']:.1f}% of it); max abs "
+        f"err {h2_vjp['max_abs_err']:.3g}, two launches bitwise equal; on "
+        f"{card}")
 
     # 11 the train step at bench.py's shapes (d_out 32, random batch)
     cfg = flag_cfg
@@ -1401,12 +1497,18 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
                    "launches_by_path": {"stage1": launches[k],
                                         "stage1_eval": eval_launches[k],
                                         "stage1_vjp": launches_b[k]}}
-    rows["H2"]["max_abs_err"] = max(rows["H2"]["max_abs_err"],
-                                    h2_extract["max_abs_err"])
-    rows["H2"]["launches_by_path"]["stage1_meshes"] = h2_extract["launches"]
-    rows["H2"]["extraction_chunk"] = {
-        k: h2_extract[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "max_abs_err")}
+    # H2's other shapes: the extraction chunks (phase 12), the vjp run's
+    # sampler call (phase 10b)
+    h2 = rows["H2"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    for tag, r in (("extraction_chunk_last", h2_extract["last"]),
+                   ("extraction_chunk_mid", h2_extract["mid"]),
+                   ("vjp_sampler", h2_vjp)):
+        h2["max_abs_err"] = max(h2["max_abs_err"], r["max_abs_err"])
+        h2[tag] = {k: r[k] for k in keys}
+    h2["vjp_sampler"]["shape"] = h2_vjp["shape"]
+    h2["launches_by_path"]["stage1_meshes"] = h2_extract["launches"]
+    h2["extraction_sum_ms"] = h2_extract["sum_ms"]
     log("   H1 at every call of a background step (the step's own "
         "cotangents):")
     for tag, (fargs, bargs) in zip(("fine tier", "tail", "eikonal", "patch"),

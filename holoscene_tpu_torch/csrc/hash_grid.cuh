@@ -99,7 +99,9 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // The eight corner rows of point x at level lv, and its fractional
-// position per dimension.
+// position per dimension. A hashed level's size is a power of two
+// (ops/hashgrid.py::level_tables refuses any other), so the 32-bit hash
+// wraps by a mask: the rows of its remainder without the division.
 __device__ __forceinline__ void corner_rows(const Level& lv, const float x[3],
                                             int rows[8], float frac[3]) {
   int c[3];
@@ -121,7 +123,7 @@ __device__ __forceinline__ void corner_rows(const Level& lv, const float x[3],
       const uint32_t h = static_cast<uint32_t>(gx) ^
                          (static_cast<uint32_t>(gy) * 2654435761u) ^
                          (static_cast<uint32_t>(gz) * 805459861u);
-      rows[k] = static_cast<int>(h % static_cast<uint32_t>(lv.size)) +
+      rows[k] = static_cast<int>(h & static_cast<uint32_t>(lv.size - 1)) +
                 lv.offset;
     }
   }

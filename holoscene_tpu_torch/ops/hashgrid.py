@@ -158,7 +158,13 @@ def level_tables(meta: HashGridMeta, levels: int | None = None) -> LevelTables:
     res, sizes, offsets = (a.astype(np.int64)[:n] for a in meta.level_tables())
     if int(sizes.sum() + offsets[0]) >= 2 ** 31:
         raise ValueError("table rows exceed int32 indexing")
-    return LevelTables(n, min(dense_level_count(meta), n), res, sizes, offsets,
+    n_dense = min(dense_level_count(meta), n)
+    hashed = sizes[n_dense:]
+    if np.any(hashed & (hashed - 1)):
+        # the kernels wrap a hashed level's hash by a mask (hash_grid.cuh)
+        raise ValueError(f"hashed level sizes must be powers of two, got "
+                         f"{hashed.tolist()}")
+    return LevelTables(n, n_dense, res, sizes, offsets,
                        level_scales(meta)[:n])
 
 
@@ -637,8 +643,9 @@ def sampler_fwd_plain(x01, emb, lt: LevelTables,
 def sampler_fwd(x01, emb, lt: LevelTables,
                 packed: bool = False) -> torch.Tensor:
     """H2. CUDA tensors: launches `hash_sampler_fwd` of
-    csrc/hash_sampler_fwd.cu (one thread per (point, level)) and counts it
-    in `sampler_fwd.launches`; CPU tensors: sampler_fwd_plain."""
+    csrc/hash_sampler_fwd.cu (a thread a point, the levels in groups of 4
+    staged in shared memory) and counts it in `sampler_fwd.launches`; CPU
+    tensors: sampler_fwd_plain."""
     if not x01.is_cuda:
         return sampler_fwd_plain(x01, emb, lt, packed)
     from holoscene_tpu_torch import kernels

@@ -5,7 +5,7 @@ synthetic scene, then report the eval PSNR of frame 0 and the chamfer of
 the extracted background mesh against the analytic room.
 
     python -m holoscene_tpu_torch.training.quality_gate [--iters 2500] \
-        [--res 128] [--work DIR] [--device cuda]
+        [--res 128] [--work DIR] [--device cuda] [--seed 0]
 
 The scene: 16 images at --res^2 (datasets/synthetic.py::generate_scene,
 written once under --work). The model: confs/synthetic.conf at 12 levels,
@@ -13,9 +13,11 @@ logmap 17, end 512, MLPs 128 x 2, feature 128, 1024 rays a step; the
 sampler 48 / 96 / 24 with 4 rounds and probes at 8 levels; top-56
 samples, the fine tier 32 at 6 levels, the fused gradient mode with the
 colour and SDF tables' sampled backward, the probe grid 128^3 re-baked
-every 16 steps. Then plot(it=iters) (eval PSNR), extract_meshes(resolution
-96, no pruning, nothing written) and calc_3d_metric of mesh 0 against the
-room, -(max|x| - 1/1.3) on a 64^3 grid, without alignment.
+every 16 steps; --seed seeds the model's init, the rays' draws and the
+pixel batches (the scene is the same at every seed). Then plot(it=iters)
+(eval PSNR), extract_meshes(resolution 96, no pruning, nothing written)
+and calc_3d_metric of mesh 0 against the room, -(max|x| - 1/1.3) on a
+64^3 grid, without alignment.
 
 Printed on lines of their own: the loss every 250 steps, "train wall: S s",
 "FINAL eval psnr: P", "bg chamfer: {...}" and "mesh k: F faces". main
@@ -92,6 +94,8 @@ def main(argv=None) -> dict:
         "--device", type=str, default="cuda",
         help="torch device; 'cuda' launches the hand-written kernels and "
              "fails without a card, 'cpu' runs their plain versions")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the model's init and the draws")
     args = parser.parse_args(argv)
 
     work = Path(args.work).resolve()
@@ -104,7 +108,8 @@ def main(argv=None) -> dict:
     for key, value in GATE_CONF.items():
         conf.put(key, value)
     runner = Stage1Runner(conf, exps_folder=str(work / "exps"),
-                          data_root_override=str(data), device=args.device)
+                          data_root_override=str(data), device=args.device,
+                          seed=args.seed)
     cfg = runner.model_cfg
     print(f"quality run: top_m={cfg.render_top_m} "
           f"grad_mode={cfg.forward_grad_mode} "
@@ -112,7 +117,7 @@ def main(argv=None) -> dict:
           f"color_bwd_sample={cfg.implicit.color_bwd_sample} "
           f"sdf_bwd_sample={cfg.implicit.sdf_bwd_sample} "
           f"probe_grid={cfg.probe_grid_res}/{cfg.probe_update_every} "
-          f"device={runner.device}", flush=True)
+          f"device={runner.device} seed={args.seed}", flush=True)
 
     t0 = time.time()
     runner.run(n_iters=args.iters, log_every=250)

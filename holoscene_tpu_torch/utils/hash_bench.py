@@ -1,46 +1,65 @@
-"""Time the hash-grid kernels H1-fwd (hash_fused_fwd) and H1-bwd
-(hash_fused_bwd) on the card at every H1 call of one background step at
-chip_smoke.py's phase-11 shapes (bench.py's flagship_config, d_out 32, a
-random 1024-ray batch, the background patch on; the third step, since at
-the first the geometric init gives the SDF grid zero cotangents): the
-fine tier (32,768
-points x 16 levels, sampled_all), the tail (24,576 x 6, sampled_all), the
-eikonal call (4,096 x 16, one table, exact) and the background patch
-(100,352 x 16, exact), each with the step's own cotangents and draws.
-Needs one NVIDIA GPU with nvcc; run from the repository root:
+"""Time the hash-grid kernels on the card: H1-fwd (hash_fused_fwd) and
+H1-bwd (hash_fused_bwd) at every H1 call of one background step, and H2
+(hash_sampler_fwd) at the shapes it runs at. Needs one NVIDIA GPU with
+nvcc; run from the repository root:
 
     python -m holoscene_tpu_torch.utils.hash_bench
-    python -m holoscene_tpu_torch.utils.hash_bench \
-        --variant old=path/to/other/csrc \
-        --variant zero=holoscene_tpu_torch/csrc:HASH_BWD_ZERO_FILL_ONLY
+    python -m holoscene_tpu_torch.utils.hash_bench --kernel H2 \
+        --variant old=path/to/other/csrc
+
+H1: chip_smoke.py's phase-11 shapes (bench.py's flagship_config, d_out 32,
+a random 1024-ray batch, the background patch on; the third step, since at
+the first the geometric init gives the SDF grid zero cotangents): the fine
+tier (32,768 points x 16 levels, sampled_all), the tail (24,576 x 6,
+sampled_all), the eikonal call (4,096 x 16, one table, exact) and the
+background patch (100,352 x 16, exact), each with the step's own
+cotangents and draws.
+
+H2, at the flagship meta (16 levels 16-2048, 2^19 rows) with phase 9's
+random tables (the time depends on the points and the meta, which fix the
+rows gathered, not on the table's values): `extract_last` and
+`extract_mid`, the chunks of mesh extraction's 512^3 grid (packed,
+262,144 points, one x-plane each) at x01 = 1 (the last chunk, which
+chip_smoke.py's phase 12 also times: every point in one x cell) and at
+plane 256 (x01 = 256/511, as the other 638 chunks of an extraction are);
+`bake`, the first 262,144-point chunk of the 129^3 probe bake at its 8
+levels; `vjp_sampler`, the first sampler call of the first step of the
+vjp conf (chip_smoke.py's phase 10b: confs/replica_room0.conf's model
+section, 1024 rays x 129 points at 16 levels, not packed), captured from
+that step with its own table.
 
 It prints the card (nvidia-smi name, power limit) and, for the tree's
 csrc/ and every --variant NAME=DIR[:DEFINE,...] (another csrc directory,
-built with -DDEFINE ...): what ptxas reports for the two kernels
-(registers, spills), H1-fwd and H1-bwd ms at each call (CUDA events, REPS
-launches, taken in two rounds over all variants so that the spread between
-rounds shows; H1-bwd's time includes the wrapper's zero-fill of the
-gradient tables), each call's bound (chip_smoke.hash_bound), the largest
-deviation of each output from the tree's (H1-fwd: whether it is bitwise
-the tree's; H1-bwd: relative to the largest gradient) and whether two
-launches agree (H1-fwd bitwise, H1-bwd within chip_smoke.H_REL: atomics).
-The earlier kernels are a variant: their sources out of git, e.g.
-`git archive 43206f0 holoscene_tpu_torch/csrc | tar -x -C .checkout/old`
-and `--variant old=.checkout/old/holoscene_tpu_torch/csrc` (one thread per
-(point, level)). The
-ablation switches of H1-bwd are listed in the header note of
-csrc/hash_fused_bwd.cu; any other change is timed from an edited copy of
-csrc/ passed as a variant. The last line is one JSON object with all of
-it.
+built with -DDEFINE ...): what ptxas reports for the kernels (registers,
+spills) and each kernel's ms at each call (CUDA events, REPS launches back
+to back, taken in two rounds over all variants so that the spread between
+rounds shows). H1: H1-bwd's time includes the wrapper's
+zero-fill; the largest deviation of each output from the tree's (H1-fwd:
+whether it is bitwise the tree's; H1-bwd: relative to the largest
+gradient) and whether two launches agree (H1-fwd bitwise, H1-bwd within
+chip_smoke.H_REL: atomics). H2: also the ms of a launch that finds the L2
+cold (a 128 MB buffer written before each launch, as the trunk's
+activations between two chunks of an extraction write it), whether the
+output is bitwise the tree's and two launches bitwise equal, and for the
+tree the plain version's ms and max abs error. Each call's bound is
+chip_smoke.hash_bound's. The earlier kernels are a variant: their sources
+out of git, e.g. `git archive 2c8f867 holoscene_tpu_torch/csrc | tar -x
+-C .checkout/old` and `--variant old=.checkout/old/holoscene_tpu_torch/csrc`.
+The ablation switches of H1-bwd are listed in the header note of
+csrc/hash_fused_bwd.cu; any other ablation is an edited copy of csrc/
+passed as a variant. The last line is one JSON object with all of it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from holoscene_tpu_torch import kernels
@@ -50,7 +69,8 @@ from holoscene_tpu_torch.utils.walk_bench import load_variant
 ROOT = Path(__file__).resolve().parents[2]
 REPS = 50
 CALLS = ("fine", "tail", "eikonal", "patch")
-
+H2_SHAPES = ("extract_last", "extract_mid", "bake", "vjp_sampler")
+FLUSH_BYTES = 128 << 20
 
 def captured_calls(cs_, dev):
     """The H1 calls of the third step at the bench shapes, a background
@@ -83,38 +103,65 @@ def captured_calls(cs_, dev):
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=DIR[:DEFINE,...]")
-    ap.add_argument("--reps", type=int, default=REPS)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("hash_bench: needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs_
+def h2_calls(cs_, dev) -> dict:
+    """{shape: (x01, emb, lt, packed)} of H2_SHAPES."""
+    from holoscene_tpu_torch.training import exp_runner
 
-    card = cs_.card_line()
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    cfg = cs_.flagship_cfg(32)
+    meta = cfg.implicit.grid_meta
+    _, emb, _ = cs_.random_hash_inputs(meta, 3, dev, 40)
+    res, chunk = cs_.PLOT_RES, cs_.EXTRACT_CHUNK
+    axis = torch.as_tensor(np.linspace(-1.0, 1.0, res, dtype=np.float32),
+                           device=dev)
 
-    specs = [("tree", kernels.CSRC, [])]
-    for spec in args.variant:
-        name, _, rest = spec.partition("=")
-        path, _, defs = rest.partition(":")
-        specs.append((name, Path(path).resolve(),
-                      [d for d in defs.split(",") if d]))
-    libs, ptxas = {}, {}
-    for name, path, defs in specs:
-        libs[name], report = load_variant(name, path, defs)
-        ptxas[name] = [r for r in report if "hash_fused" in r]
-        print(f"{name}: {path} {defs}: " + " | ".join(ptxas[name]),
-              flush=True)
-    tree_library = kernels.library
-    kernels.library = lambda: libs["tree"]
+    def extract_chunk(start):
+        i = torch.arange(start, start + chunk, device=dev)
+        x = torch.stack([axis[i // (res * res)], axis[(i // res) % res],
+                         axis[i % res]], -1)
+        return ((x / cfg.implicit.divide_factor + 1.0) * 0.5).contiguous()
+
+    n = cfg.probe_grid_res + 1
+    ax = torch.linspace(-1.0, 1.0, n, device=dev)
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1)
+    bake = ((grid.reshape(-1, 3)[:cs_.BAKE_CHUNK] + 1.0) * 0.5).contiguous()
+    full = hg.level_tables(meta)
+    with tempfile.TemporaryDirectory(prefix="hash_bench_") as tmp:
+        conf = cs_.stage1_conf(Path(tmp), "bench_vjp", cs_.S1_MODEL_DEFAULT)
+        _, sampled = cs_.record_hash(lambda: exp_runner.main(
+            ["--conf", str(conf), "--exps_folder", str(Path(tmp) / "exps"),
+             "--max_niters", "1", "--quiet", "--device", "cuda"]),
+            ("sampler_fwd",))
+    vjp = sampled["sampler_fwd"][0]
+    if vjp[2].n_levels != full.n_levels or vjp[3]:
+        raise RuntimeError(f"the vjp step's sampler call: {vjp[2].n_levels} "
+                           f"levels, packed {vjp[3]}")
+    return {"extract_last": (extract_chunk(res ** 3 - chunk), emb, full,
+                             True),
+            "extract_mid": (extract_chunk(res // 2 * res * res), emb, full,
+                            True),
+            "bake": (bake, emb, hg.level_tables(meta, cfg.sampler_grid_levels),
+                     False),
+            "vjp_sampler": vjp}
+
+
+def cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean ms of fn() over reps launches, each after writing `flush`
+    (which evicts the L2), each timed alone with CUDA events."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.add_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bench_h1(cs_, libs, reps: int, dev) -> dict:
     calls = captured_calls(cs_, dev)
     bounds = {}
     for name, ((x01, _, eb, lt), b) in calls.items():
@@ -126,7 +173,7 @@ def main(argv=None) -> int:
                                      has_b=b[4] is not None, mode=b[6])}
         print(f"call {name}: {bounds[name]}", flush=True)
 
-    results = {name: {"ptxas": ptxas[name]} for name in libs}
+    results = {name: {} for name in libs}
     base = {}
     for rnd in range(2):
         for name, lib in libs.items():
@@ -135,9 +182,9 @@ def main(argv=None) -> int:
             for call, (fargs, bargs) in calls.items():
                 r = res.setdefault(call, {"H1-fwd_ms": [], "H1-bwd_ms": []})
                 r["H1-fwd_ms"].append(cs_.cuda_ms(
-                    lambda: hg.fused_fwd(*fargs), args.reps))
+                    lambda: hg.fused_fwd(*fargs), reps))
                 r["H1-bwd_ms"].append(cs_.cuda_ms(
-                    lambda: hg.fused_bwd(*bargs), args.reps))
+                    lambda: hg.fused_bwd(*bargs), reps))
                 if rnd:
                     continue
                 first, second = hg.fused_fwd(*fargs), hg.fused_fwd(*fargs)
@@ -163,7 +210,6 @@ def main(argv=None) -> int:
                     for a, _, c in grads)
                 r["H1-bwd_two_launches_within_tolerance"] = \
                     r["H1-bwd_rel_dev_two_launches"] <= cs_.H_REL
-    kernels.library = tree_library
     for name, res in results.items():
         for call in calls:
             r = res[call]
@@ -174,8 +220,99 @@ def main(argv=None) -> int:
                   f"(bound {bounds[call]['H1-bwd'][0]:.4f}), deviation from "
                   f"tree {r['H1-bwd_rel_dev_from_tree']:.3g}, two launches "
                   f"{r['H1-bwd_rel_dev_two_launches']:.3g}", flush=True)
-    print(json.dumps({"card": card, "reps": args.reps, "calls": bounds,
-                      "variants": results}), flush=True)
+    return {"calls": bounds, "variants": results}
+
+
+def bench_h2(cs_, libs, reps: int, dev) -> dict:
+    calls = h2_calls(cs_, dev)
+    shapes, base = {}, {}
+    for name, (x01, emb, lt, packed) in calls.items():
+        ref = hg.sampler_fwd_plain(x01, emb, lt, packed)
+        out = hg.sampler_fwd(x01, emb, lt, packed)
+        torch.cuda.synchronize()
+        base[name] = out
+        shapes[name] = {
+            "points": x01.shape[0], "levels": lt.n_levels, "packed": packed,
+            "bound": cs_.hash_bound("H2", x01, lt),
+            "plain_ms": cs_.cuda_ms(lambda: hg.sampler_fwd_plain(
+                x01, emb, lt, packed), 3),
+            "max_abs_err": cs_._check_close(f"H2 {name}", out, ref)}
+        print(f"H2 {name}: {shapes[name]}", flush=True)
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    results = {name: {} for name in libs}
+    for rnd in range(2):
+        for name, lib in libs.items():
+            kernels.library = lambda lib=lib: lib
+            for shape, args in calls.items():
+                r = results[name].setdefault(shape, {"ms": [], "cold_ms": []})
+                r["ms"].append(cs_.cuda_ms(lambda: hg.sampler_fwd(*args),
+                                           reps))
+                r["cold_ms"].append(cold_ms(lambda: hg.sampler_fwd(*args),
+                                            reps, flush))
+                if rnd:
+                    continue
+                a, b = hg.sampler_fwd(*args), hg.sampler_fwd(*args)
+                torch.cuda.synchronize()
+                r["two_launches_equal"] = torch.equal(a, b)
+                r["bitwise_tree"] = torch.equal(a, base[shape])
+                r["max_abs_dev_from_tree"] = float(
+                    (a - base[shape]).abs().max())
+    for name, res in results.items():
+        for shape in calls:
+            r = res[shape]
+            bound = shapes[shape]["bound"][0]
+            print(f"{name} H2 {shape}: {r['ms']} ms, cold L2 {r['cold_ms']} "
+                  f"ms (bound {bound:.4f}, {100 * bound / min(r['ms']):.1f}%"
+                  f"), two launches equal {r['two_launches_equal']}, bitwise "
+                  f"tree {r['bitwise_tree']}", flush=True)
+    return {"shapes": shapes, "variants": results}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("H1", "H2"), action="append",
+                    help="the kernels to time (default both)")
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="NAME=DIR[:DEFINE,...]")
+    ap.add_argument("--reps", type=int, default=REPS)
+    args = ap.parse_args(argv)
+    which = args.kernel or ["H1", "H2"]
+    if not torch.cuda.is_available():
+        print("hash_bench: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs_
+
+    card = cs_.card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    specs = [("tree", kernels.CSRC, [])]
+    for spec in args.variant:
+        name, _, rest = spec.partition("=")
+        path, _, defs = rest.partition(":")
+        specs.append((name, Path(path).resolve(),
+                      [d for d in defs.split(",") if d]))
+    libs, ptxas = {}, {}
+    for name, path, defs in specs:
+        libs[name], report = load_variant(name, path, defs)
+        ptxas[name] = [r for r in report if "hash_" in r]
+        print(f"{name}: {path} {defs}: " + " | ".join(ptxas[name]),
+              flush=True)
+    tree_library = kernels.library
+    kernels.library = lambda: libs["tree"]
+    out = {"card": card, "reps": args.reps, "ptxas": ptxas,
+           "ncu": shutil.which("ncu")}
+    try:
+        if "H1" in which:
+            out["H1"] = bench_h1(cs_, libs, args.reps, dev)
+        if "H2" in which:
+            out["H2"] = bench_h2(cs_, libs, args.reps, dev)
+    finally:
+        kernels.library = tree_library
+    print(json.dumps(out), flush=True)
     return 0
 
 

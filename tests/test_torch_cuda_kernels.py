@@ -487,6 +487,107 @@ def test_hash_sampler_packed_at_an_extraction_chunk(cuda):
     assert not torch.equal(a.cpu(), thash.sampler_fwd_plain(x01, emb, lt))
 
 
+def _h2_on_card(cuda, x, emb, lt, packed):
+    """H2 on the card against its plain version: launched once a call,
+    two launches bitwise equal, plain within H_REL of the largest value.
+    Returns the card's output (on the card)."""
+    ref = thash.sampler_fwd_plain(x, emb, lt, packed)
+    n0 = thash.sampler_fwd.launches
+    args = (x.to(cuda), emb.to(cuda), lt, packed)
+    a, b = thash.sampler_fwd(*args), thash.sampler_fwd(*args)
+    torch.cuda.synchronize()
+    assert thash.sampler_fwd.launches == n0 + 2
+    assert a.shape == (x.shape[0], 2 * lt.n_levels)
+    assert torch.equal(a, b)
+    _close(a, ref)
+    return a
+
+
+# H2's metas: 6 dense levels then hashed ones at odd offsets; 24 levels
+# (more than a block encodes between two stores), 8 dense; all dense; all
+# hashed
+H2_METAS = {
+    "mixed": dict(num_levels=16, base_resolution=4, log2_hashmap_size=10,
+                  desired_resolution=128, dense_max_res=16),
+    "deep": dict(num_levels=24, base_resolution=4, log2_hashmap_size=10,
+                 desired_resolution=256, dense_max_res=16),
+    "dense": dict(num_levels=4, base_resolution=4, log2_hashmap_size=12,
+                  desired_resolution=16),
+    "hashed": dict(num_levels=8, base_resolution=8, log2_hashmap_size=8,
+                   desired_resolution=64),
+}
+
+
+def _h2_points(n, seed):
+    """n points: random in [0, 1]^3, then points outside it, on its
+    faces and at its corners (as many as n leaves room for)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 3))
+    edge = np.array([[1.2, 0.5, 0.5], [-0.1, 0.3, 0.3], [0.5, 0.5, 1.01],
+                     [0.5, -1e-7, 0.5], [0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                     [0.0, 0.4, 1.0], [1.0, 0.0, 0.7], [0.3, 1.0, 0.0]])
+    k = min(n // 2, len(edge))
+    x[n - k:] = edge[:k]
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("levels", [1, 4, 8, 16, 24])
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_hash_sampler_tiles_and_level_groups(cuda, n, levels, packed):
+    """H2 at point counts that leave a ragged last tile (1, 33, 1000 are
+    not multiples of its 64 points) and at 1, 4, 8, 16 and 24 levels (a
+    coarse prefix of the table, and more levels than a block encodes
+    between two stores), on the 24-level meta with points on and outside
+    the unit cube's faces."""
+    meta = thash.HashGridMeta(level_dim=2, **H2_METAS["deep"])
+    emb = torch.as_tensor(np.random.default_rng(levels).uniform(
+        -0.5, 0.5, (meta.table_rows, 2)), dtype=torch.float32)
+    _h2_on_card(cuda, _h2_points(n, n), emb, thash.level_tables(meta, levels),
+                packed)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("kind", sorted(H2_METAS))
+def test_hash_sampler_metas(cuda, kind, packed):
+    """H2 on each of H2_METAS, on random points, the x01 = 0 and x01 = 1
+    planes of a 33^2 grid, and points outside [0, 1]; the same bits from
+    a copy of the table 8 bytes past a 16-byte boundary."""
+    meta = thash.HashGridMeta(level_dim=2, **H2_METAS[kind])
+    lt = thash.level_tables(meta)
+    emb = torch.as_tensor(np.random.default_rng(7).uniform(
+        -0.5, 0.5, (meta.table_rows, 2)), dtype=torch.float32)
+    axis = torch.linspace(0.0, 1.0, 33)
+    gy, gz = (g.reshape(-1) for g in torch.meshgrid(axis, axis,
+                                                      indexing="ij"))
+    planes = [torch.stack([torch.full_like(gy, v), gy, gz], -1)
+              for v in (0.0, 1.0)]
+    x = torch.cat([_h2_points(2000, 3)] + planes)
+    got = _h2_on_card(cuda, x, emb, lt, packed)
+    # the same rows 8 bytes past a 16-byte boundary
+    shifted = torch.cat([torch.zeros(1, 2), emb]).to(cuda)[1:]
+    assert shifted.data_ptr() % 16 == 8
+    assert torch.equal(thash.sampler_fwd(x.to(cuda), shifted, lt, packed),
+                       got)
+
+
+def test_hash_sampler_packed_at_a_mid_grid_chunk(cuda):
+    """H2 packed at the flagship meta on chunk 256 of a 512^3 extraction
+    grid over [-1, 1]^3 (the x-plane x01 = 256/511, where points do not
+    share the x cell of the last chunk's plane), against plain."""
+    meta = thash.HashGridMeta(num_levels=16, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=19, desired_resolution=2048)
+    emb = torch.as_tensor(np.random.default_rng(6).uniform(
+        -0.5, 0.5, (meta.table_rows, 2)), dtype=torch.float32)
+    axis = torch.as_tensor(np.linspace(-1.0, 1.0, 512, dtype=np.float32))
+    gy, gz = torch.meshgrid(axis, axis, indexing="ij")
+    x = torch.stack([torch.full_like(gy, float(axis[256])), gy, gz],
+                    -1).reshape(-1, 3)
+    x01 = ((x + 1.0) * 0.5).contiguous()
+    assert x01.shape[0] == 1 << 18
+    _h2_on_card(cuda, x01, emb, thash.level_tables(meta), True)
+
+
 def test_grid_evaluator_on_card_matches_the_h1_route(cuda):
     """implicit_sdf_raw_grid (H2, packed) on the card against
     implicit_sdf_raw (H1-fwd) on the card and against itself on the CPU,

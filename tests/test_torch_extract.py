@@ -639,3 +639,24 @@ def test_quality_gate_runs_on_the_cpu(tmp_path, capsys):
                                    "completion_ratio"}
     assert all(np.isfinite(v) for v in out["chamfer"].values())
     assert [h["iter"] for h in out["history"]] == [0, 2]
+
+
+def test_quality_gate_passes_its_seed(tmp_path, monkeypatch):
+    """--seed reaches the runner, which seeds the model's init, the draws
+    and the pixel batches with it."""
+    from holoscene_tpu_torch.training import quality_gate
+
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def runner(*args, **kw):
+        seen.update(kw)
+        raise Built
+
+    monkeypatch.setattr(quality_gate, "Stage1Runner", runner)
+    with pytest.raises(Built):
+        quality_gate.main(["--iters", "1", "--res", "16", "--work",
+                           str(tmp_path), "--device", "cpu", "--seed", "2"])
+    assert seen["seed"] == 2 and seen["device"] == "cpu"

@@ -226,3 +226,19 @@ def test_modes_and_draws_are_checked_and_cpu_counts_no_launch():
     th.hash_encode_sampler(x, ea, tm, 4)
     assert (th.fused_fwd.launches, th.fused_bwd.launches,
             th.sampler_fwd.launches) == counts
+
+
+def test_level_tables_refuses_a_hashed_size_not_a_power_of_two():
+    """The kernels wrap a hashed level's hash by a mask. A meta whose
+    resolutions fall (desired below base) hashes level 0 into 2^19 rows
+    and its level 1 into r^3 < 2^19 rows: refused."""
+    meta = th.HashGridMeta(num_levels=2, level_dim=2, base_resolution=128,
+                           log2_hashmap_size=19, desired_resolution=50)
+    assert th.dense_level_count(meta) == 0
+    assert meta.level_tables()[1][1] & (meta.level_tables()[1][1] - 1)
+    with pytest.raises(ValueError, match="powers of two"):
+        th.level_tables(meta)
+    for dmr in (0, 16, 64):
+        lt = th.level_tables(_metas(dmr)[1])
+        hashed = lt.sizes[lt.n_dense:]
+        assert not np.any(hashed & (hashed - 1))

@@ -4,7 +4,9 @@ NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, then drives the Stage-4 Gaussian-on-Mesh paths through their
 entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3),
 the Stage-1 neural-SDF trainer through its CLI at the flagship width, the
-mesh extraction of its run, and the synthetic quality gate's path.
+mesh extraction of its run, the synthetic quality gate's path, and Stage 2
+(per-object refinement checked by physics) through its CLI on a Stage-1
+run's checkpoint.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -99,13 +101,32 @@ Phases, one '== ' line each:
                  (16 images at 128^2, the gate's widths and stack): eval
                  PSNR finite and above iteration 0's training PSNR, the
                  background chamfer finite, H1-fwd / H1-bwd / H2 launched
+ 14 Stage 2      training/exp_runner_post.main on phase 10b's checkpoint
+                 (its model section is the post conf's: vjp, no probe
+                 grid, 5 sampler rounds) with the loss, invis_loss and
+                 model sections of confs/replica_room0_post.conf, the
+                 dataset pointed at the generated 512^2 scene (d_out from
+                 it), --mesh_resolution 256 (the CLI's default),
+                 --finetune_iters 100 of the conf's 500 an object (a cut to
+                 stay in time), physics quasi-static (set here, so nothing
+                 downgrades silently): every finetune loss finite,
+                 invis_loss and collision_loss on the object steps, H1-fwd
+                 and H1-bwd launched 3 times a background step and 4 an
+                 object step (render, eikonal points, [invisible render,]
+                 collision points), H2 in every step and once a grid chunk,
+                 every artifact written, each accepted mesh non-empty and
+                 inside the runner's sanity radius, translations finite;
+                 the wall table by part, ms a finetune step, the peak
+                 device memory and the physics provider; then H1-fwd /
+                 H1-bwd / H2 against plain at one object step's invisible
+                 render and collision points (kernel ms, plain ms, bound)
 Wherever a kernel is held against plain (phases 3, 8, 9, 11 and 12) it is
 launched twice on the same inputs and the two results must be the same bits
 (K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
 launch to launch, so its two launches must agree within its tolerance to
 plain (1e-5 of the largest gradient), not bitwise.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
-10b, 12 and 13 and read just after. Then the kernel table as one JSON line
+10b, 12, 13 and 14 and read just after. Then the kernel table as one JSON line
 and last the device line {"ok": true, "device": {...}}. Any failure exits
 non-zero before it.
 
@@ -844,39 +865,43 @@ def _check_close(name, got, ref, rel=H_REL) -> float:
 def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
                modes=("exact", "sampled", "sampled_all")):
     """H1-fwd and H1-bwd (each mode) against their plain versions on these
-    inputs. H1-fwd: two launches give the same bits, plain within H_REL of
-    the largest value. H1-bwd: atomicAdd orders the sums differently each
-    launch, so two launches and plain agree within H_REL, not bitwise; the
-    pairs whose sampled corner can flip in the last bit carry zero
-    cotangents. Returns {kernel: dict(max_abs_err, and when timed ms /
-    plain_ms / bound_ms / bound_by, H1-bwd's in the last mode)}."""
+    inputs (emb_b None: the single-table call, exact mode only). H1-fwd:
+    two launches give the same bits, plain within H_REL of the largest
+    value. H1-bwd: atomicAdd orders the sums differently each launch, so
+    two launches and plain agree within H_REL, not bitwise; the pairs whose
+    sampled corner can flip in the last bit carry zero cotangents. Returns
+    {kernel: dict(max_abs_err, and when timed ms / plain_ms / bound_ms /
+    bound_by, H1-bwd's in the last mode)}."""
     import torch
 
     from holoscene_tpu_torch.ops import hashgrid as hg
 
     n, L, rows = x01.shape[0], lt.n_levels, emb_a.shape[0]
+    has_b = emb_b is not None
     res = {}
     ref = hg.fused_fwd_plain(x01, emb_a, emb_b, lt)
     out, again = (hg.fused_fwd(x01, emb_a, emb_b, lt) for _ in range(2))
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+    if not all(a is b or torch.equal(a, b) for a, b in zip(out, again)):
         raise RuntimeError("H1-fwd: two launches on the same inputs differ")
     res["H1-fwd"] = dict(max_abs_err=max(
         _check_close(f"H1-fwd {k}", o, r)
-        for k, o, r in zip(("feats_a", "J", "feats_b"), out, ref)))
+        for k, o, r in zip(("feats_a", "J", "feats_b"), out, ref)
+        if o is not None))
     if timed:
         res["H1-fwd"].update(
             ms=cuda_ms(lambda: hg.fused_fwd(x01, emb_a, emb_b, lt), 20),
             plain_ms=cuda_ms(lambda: hg.fused_fwd_plain(x01, emb_a, emb_b,
                                                         lt), 3))
         res["H1-fwd"]["bound_ms"], res["H1-fwd"]["bound_by"] = hash_bound(
-            "H1-fwd", x01, lt)
+            "H1-fwd", x01, lt, has_b=has_b)
     gen = torch.Generator(device=x01.device).manual_seed(seed)
     errs = []
     for mode in modes:
         cts = [torch.randn(n, 2 * L, generator=gen, device=x01.device),
                torch.randn(2 * L, 3, n, generator=gen, device=x01.device),
-               torch.randn(n, 2 * L, generator=gen, device=x01.device)]
+               torch.randn(n, 2 * L, generator=gen, device=x01.device)
+               if has_b else None]
         u_b = torch.rand(3, lt.n_hashed, n, generator=gen, device=x01.device)
         u_a = torch.rand(lt.n_hashed, n, generator=gen, device=x01.device)
         if mode != "exact" and lt.n_hashed:
@@ -890,6 +915,8 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
         ref = hg.fused_bwd_plain(*args)[:2]
         got, again = hg.fused_bwd(*args), hg.fused_bwd(*args)
         for g, a, r, t in zip(got, again, ref, "ab"):
+            if g is None:
+                continue
             errs.append(_check_close(f"H1-bwd {mode} table {t}", g, r))
             _check_close(f"H1-bwd {mode} table {t}, second launch", a, g)
         if timed and mode == modes[-1]:
@@ -897,7 +924,7 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
                 ms=cuda_ms(lambda: hg.fused_bwd(*args), 20),
                 plain_ms=cuda_ms(lambda: hg.fused_bwd_plain(*args), 3))
             res["H1-bwd"]["bound_ms"], res["H1-bwd"]["bound_by"] = \
-                hash_bound("H1-bwd", x01, lt, rows, mode=mode)
+                hash_bound("H1-bwd", x01, lt, rows, has_b=has_b, mode=mode)
     res.setdefault("H1-bwd", {})["max_abs_err"] = max(errs)
     return res
 
@@ -1264,6 +1291,241 @@ def gate_phase(work: Path, card: str) -> dict:
                            f"{first}), chamfer {out['chamfer']}, launches "
                            f"{launches}")
     return launches
+
+
+S2_ITERS = 100        # phase 14: finetune iterations a finetune (conf: 500)
+S2_MESH_RES = 256     # exp_runner_post's --mesh_resolution default
+POST_CONF = Path(__file__).resolve().parent / "confs" / "replica_room0_post.conf"
+
+
+def stage2_conf(work: Path) -> Path:
+    """confs/replica_room0_post.conf with its dataset pointed at phase
+    10b's generated 512^2 scene and its expname at phase 10b's run (whose
+    checkpoint the CLI loads); d_out comes from the scene."""
+    import re
+
+    text = POST_CONF.read_text()
+    text = re.sub(r"expname = \S+", "expname = smoke_s1_vjp", text)
+    text = re.sub(r"dataset\s*\{[^}]*\}", f"""dataset{{
+ data_root_dir = {work / 'data_s1'}
+ data_dir = scene_0
+ img_res = [{S1_RES}, {S1_RES}]
+}}""", text)
+    conf = work / "smoke_s2_post.conf"
+    conf.write_text(text)
+    return conf
+
+
+def stage2_phase(work: Path, dev, card: str) -> dict:
+    """Phase 14: exp_runner_post on phase 10b's checkpoint (the conf
+    defaults' model, which the post conf's model section shares). Returns
+    {H kernel: {launches, and at the invisible render's / the collision
+    points' call: max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.physics import sim
+    from holoscene_tpu_torch.stage2 import runner as s2runner
+    from holoscene_tpu_torch.stage2.providers import load_vis_info
+    from holoscene_tpu_torch.training import exp_runner_post
+    from holoscene_tpu_torch.utils import mc, plots
+
+    conf = stage2_conf(work)
+    os.environ["HOLOSCENE_PHYSICS"] = "quasistatic"
+    sim._PROVIDER = None
+    # each finetune step's launches, and each grid evaluation's chunks
+    # beside its H2 launches (host-side counters: no device work)
+    steps, grids = [], []
+    step_fn, grid_fns = s2runner.finetune_step, (mc.evaluate_grid,
+                                                 plots.evaluate_grid)
+
+    def counted_step(model, *args, **kw):
+        before = read_hash_counts()          # each reading synchronizes
+        t0 = time.perf_counter()
+        out = step_fn(model, *args, **kw)
+        after = read_hash_counts()
+        steps.append({k: after[k] - before[k] for k in after})
+        steps[-1]["ms"] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def counted_grid(fn):
+        def wrapped(f, axes, chunk=EXTRACT_CHUNK, device="cuda"):
+            h2 = hg.sampler_fwd.launches
+            out = fn(f, axes, chunk, device)
+            n = int(np.prod([len(a) for a in axes]))
+            grids.append((-(-n // chunk), hg.sampler_fwd.launches - h2))
+            return out
+        return wrapped
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    s2runner.finetune_step = counted_step
+    mc.evaluate_grid, plots.evaluate_grid = (counted_grid(f)
+                                             for f in grid_fns)
+    t0 = time.perf_counter()
+    try:
+        runner = exp_runner_post.main([
+            "--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
+            "--mesh_resolution", str(S2_MESH_RES), "--finetune_iters",
+            str(S2_ITERS), "--quiet", "--device", "cuda"])
+    finally:
+        s2runner.finetune_step = step_fn
+        mc.evaluate_grid, plots.evaluate_grid = grid_fns
+    wall = time.perf_counter() - t0
+    launches = read_hash_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = runner.result
+    hist = runner.finetune_history
+    order = runner.object_order
+    timer = runner.timer.seconds
+    ft_s = sum(v for k, v in timer.items() if k.endswith("finetune"))
+    n_steps = len(hist)
+    log(f"== 14 Stage 2 (exp_runner_post on phase 10b's checkpoint, "
+        f"{POST_CONF.name}'s loss / invis_loss / model sections, "
+        f"--mesh_resolution {S2_MESH_RES}, --finetune_iters {S2_ITERS} of the "
+        f"conf's 500, physics {res['physics']}) in {wall:.1f} s: objects "
+        f"{order}, {n_steps} finetune steps, {1e3 * ft_s / max(n_steps, 1):.2f}"
+        f" ms a step ({100 * ft_s / wall:.1f}% of the phase), peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}; on {card}")
+    log("   wall s by part: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in timer.items()))
+
+    # every loss finite; the object steps carry the invisible view and the
+    # collision loss; H1 on every step (render, eikonal, [invisible
+    # render,] collision points, each with its exact backward), H2 in the
+    # samplers and the collision target; H2 once a grid chunk
+    want_steps = S2_ITERS * (1 + len(order))
+    if n_steps != want_steps or len(steps) != n_steps:
+        raise RuntimeError(f"Stage 2: {n_steps} finetune steps ({len(steps)} "
+                           f"counted), expected {want_steps}")
+    bad = [h for h in hist if not all(finite(float(v)) for k, v in h.items()
+                                      if k != "obj")]
+    obj_steps = [h for h in hist if h["obj"]]
+    if bad or not obj_steps or not all(
+            "invis_loss" in h and "collision_loss" in h for h in obj_steps):
+        raise RuntimeError(f"Stage 2 finetune: {len(bad)} steps with a "
+                           "non-finite loss, or object steps without "
+                           "invis_loss / collision_loss")
+    per_kind = {}
+    for h, c in zip(hist, steps):
+        kind = "object" if h["obj"] else "background"
+        want_h1 = 4 if h["obj"] else 3
+        if c["H1-fwd"] != want_h1 or c["H1-bwd"] != want_h1 \
+                or c["H2"] < want_h1 - 2:
+            raise RuntimeError(f"Stage 2 {kind} step launches {c}, expected "
+                               f"H1-fwd / H1-bwd {want_h1} and H2 >= "
+                               f"{want_h1 - 2}")
+        per_kind.setdefault(kind, []).append(c)
+    if not grids or any(n != h2 for n, h2 in grids):
+        raise RuntimeError(f"Stage 2 grid evaluations (chunks, H2 "
+                           f"launches): {grids}")
+    log("   a finetune step, its first excluded (between synchronizations): "
+        + "; ".join(
+            f"{k} {np.mean([c['ms'] for c in v[1:]]):.2f} ms (median "
+            f"{np.median([c['ms'] for c in v[1:]]):.2f}, first "
+            f"{v[0]['ms']:.1f}), H1-fwd / H1-bwd {v[0]['H1-fwd']}, H2 "
+            f"{min(c['H2'] for c in v)}-{max(c['H2'] for c in v)} (mean "
+            f"{np.mean([c['H2'] for c in v]):.2f})"
+            for k, v in per_kind.items())
+        + f"; {len(grids)} grid evaluations, {sum(n for n, _ in grids)} "
+        f"chunks, H2 once a chunk")
+
+    # artifacts, meshes, translations
+    plots_dir = Path(runner.out_dir)
+    meshes = res["meshes"]
+    want_files = ["graph_node_dict.pkl", "translation_dict.pkl",
+                  "scene_settle.json"] + [
+        f"coarse_recon_obj_{i}.ply" for i, m in enumerate(meshes)
+        if m is not None] + [f"vis_info_{i}.pkl" for i in order]
+    missing = [f for f in want_files if not (plots_dir / f).exists()]
+    sane = runner.sanity_radius
+    extents = [None if m is None else float(np.abs(m.vertices).max())
+               for m in meshes]
+    if missing or meshes[0] is None or any(
+            m is not None and (not len(m.faces) or e > sane)
+            for m, e in zip(meshes, extents)) \
+            or not all(np.isfinite(t).all()
+                       for t in res["translations"].values()):
+        raise RuntimeError(f"Stage 2 artifacts missing {missing}; mesh faces "
+                           f"{[None if m is None else len(m.faces) for m in meshes]}"
+                           f", extents {extents} (sanity radius {sane}); "
+                           f"translations {res['translations']}")
+    with open(plots_dir / "scene_settle.json") as f:
+        settle = json.load(f)
+    log(f"   artifacts {sorted(p.name for p in plots_dir.iterdir() if p.is_file())}; "
+        f"accepted faces {[None if m is None else len(m.faces) for m in meshes]}"
+        f", largest |coordinate| {extents} (sanity radius {sane}); "
+        f"failed objects {res['failed_objects']}; translations "
+        + ", ".join(f"{i}: {np.round(t, 4).tolist()}"
+                    for i, t in res["translations"].items())
+        + f"; scene_settle stable {settle['stable']}, physics "
+        f"{settle['physics']}")
+    if res["physics"] != {"provider": "quasistatic"}:
+        raise RuntimeError(f"Stage 2 physics {res['physics']}")
+    # the generative steps that the runner guards with a catch-all (as JAX
+    # does): every object that asked for novel views got some from the
+    # seed ladder, and coarse_recon made a candidate of them
+    report = runner.object_report
+    asked = [i for i in order if report.get(i, {}).get("novel_views")
+             is not None]
+    log(f"   novel views and coarse_recon by object: {report}")
+    if not asked or any(not report[i]["novel_views"]
+                        or not report[i]["coarse_recon"] for i in asked) \
+            or any(e.startswith("coarse_recon") for r in report.values()
+                   for e in r["errors"]):
+        raise RuntimeError(f"Stage 2 novel views / coarse_recon: objects "
+                           f"{order}, report {report}")
+
+    # H1 / H2 against plain at one object finetune step's shapes: one more
+    # step of the last object, its calls recorded (after the counts above)
+    obj = order[-1]
+    mesh = meshes[obj]
+    b = mesh.bounds
+    _, rec = record_hash(lambda: runner.finetune_object(
+        obj, load_vis_info(str(plots_dir / f"vis_info_{obj}.pkl")),
+        (b[0] + b[1]) / 2, (b[1] - b[0]) / 2 + 0.05, (0,), n_iters=1),
+        ("fused_fwd", "fused_bwd", "sampler_fwd"))
+    fwd = rec["fused_fwd"]
+    n_inv = runner.fcfg.invis_pixels * runner.cfg.sampler.n_final
+    n_coll = runner.fcfg.collision_pts
+    if len(fwd) != 4 or [a[0].shape[0] for a in fwd[2:]] != [n_inv, n_coll]:
+        raise RuntimeError(f"object step H1 calls {[a[0].shape for a in fwd]}"
+                           f", expected the invisible render's {n_inv} "
+                           f"points and the {n_coll} collision points last")
+    e = runner.cfg.sampler.N_samples_eval + 1
+    h2_inv = [a for a in rec["sampler_fwd"]
+              if a[0].shape[0] == runner.fcfg.invis_pixels * e]
+    out = {k: {"launches": launches[k]} for k in HASH_KERNELS}
+    for tag, (x01, emb_a, emb_b, lt) in (("invisible_render", fwd[2]),
+                                         ("collision", fwd[3])):
+        got = compare_h1(x01, emb_a.detach(),
+                         None if emb_b is None else emb_b.detach(), lt,
+                         40, timed=True, modes=("exact",))
+        for k in ("H1-fwd", "H1-bwd"):
+            out[k][f"stage2_{tag}"] = got[k]
+        log(f"   {tag} ({x01.shape[0]} points x {lt.n_levels} levels, "
+            f"{1 if emb_b is None else 2} table(s)): " + "; ".join(
+                f"{k} kernel {got[k]['ms']:.4f} ms, plain "
+                f"{got[k]['plain_ms']:.3f} ms, bound {got[k]['bound_ms']:.4f}"
+                f" ms by {got[k]['bound_by']} "
+                f"({100 * got[k]['bound_ms'] / got[k]['ms']:.1f}%), max abs "
+                f"err {got[k]['max_abs_err']:.3g}" for k in ("H1-fwd",
+                                                             "H1-bwd"))
+            + f"; on {card}")
+    x01, emb, lt, packed = h2_inv[0]
+    r = compare_h2(x01, emb.detach(), lt, timed=True, packed=packed)
+    out["H2"]["stage2_invisible_render"] = r
+    log(f"   H2 at the invisible render's first sampler call "
+        f"({x01.shape[0]} points x {lt.n_levels} levels): kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({100 * r['bound_ms'] / r['ms']:.1f}%), max abs err "
+        f"{r['max_abs_err']:.3g}; on {card}")
+    return out
 
 
 def stage1_phases(work: Path, dev, card: str) -> dict:
@@ -1761,8 +2023,15 @@ def main() -> int:
 
         hash_rows = stage1_phases(work, dev, card)
         gate = gate_phase(work, card)
+        stage2 = stage2_phase(work, dev, card)
         for k, row in hash_rows.items():
             row["launches_by_path"]["quality_gate"] = gate[k]
+            row["launches_by_path"]["stage2"] = stage2[k].pop("launches")
+            for tag, r in stage2[k].items():
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         r["max_abs_err"])
+                row[tag] = {key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
 
     main_path = {"K1": "flat", "K2": "flat", "K3": "topk", "K4": "topk"}
     table = []

@@ -10,9 +10,11 @@ highest-weight samples of a ray get every hash level, the tail the coarse
 prefix), the fused encode-with-jacobian (H1), and the eikonal block from
 one single-table H1 call. The vjp gradient mode (the JAX default) renders
 untiered through `implicit_get_outputs` (H1, exact backward). Every random
-number is an argument (`RenderDraws`). Not ported yet (ROADMAP.md queue
-A): the *_multi_obj renders, query_point_colors, the occupancy grid, and
-the jvp gradient mode (A.17)."""
+number is an argument (`RenderDraws`). Stage 2 renders objects in isolation
+with render_rays_only_multi_obj (H2 sampler over the subset's SDF, H1
+exact). Not ported yet (ROADMAP.md queue A): render_rays_multi_obj,
+query_point_colors, the occupancy grid, and the jvp gradient mode
+(A.17)."""
 
 from __future__ import annotations
 
@@ -399,4 +401,48 @@ def render_bg_patch(model: HoloSceneModel, rays_o, rays_d, depth_scale,
         "bg_depth_values": depth_scale * composite_depth(bg_weights, z_vals),
         "bg_normal_map": composite(bg_weights, normals) @ w2c_rot.T,
         "bg_mask": torch.argmax(bg_semantic, -1, keepdim=True),
+    }
+
+
+def render_rays_only_multi_obj(model: HoloSceneModel, rays_o, rays_d,
+                               depth_scale, w2c_rot, obj_idxs,
+                               draws: SamplerDraws | None = None,
+                               training: bool = False,
+                               detach_rgb_geometry: bool = False) -> dict:
+    """Render ONLY the objects obj_idxs, as if nothing else existed (JAX
+    render_rays_only_multi_obj; reference forward_only_multi_obj_rays and
+    its _detach_rgb_for_geometry variants), for Stage 2's orthographic
+    object views and its invisible-view loss: error-bound sampling of the
+    subset's min-SDF (H2), the field through implicit_get_outputs (H1,
+    exact backward), weights from the subset's min-SDF. training=True needs
+    the sampler's `draws`. detach_rgb_geometry stops the gradient of the
+    weights into the colour composite only (depth, normals and acc keep
+    it). Returns rgb_values, depth_values, normal_map (rotated by w2c_rot),
+    acc, weights, z_vals and the subset SDF."""
+    cfg = model.cfg
+    R = rays_o.shape[0]
+    z_vals, _ = error_bound_sample(
+        rays_o, rays_d, scene_sdf_nograd(model, cfg, obj_idxs=obj_idxs),
+        get_beta(model).detach(), cfg.sampler, draws, training=training)
+    S = z_vals.shape[-1]
+    points_flat = (rays_o[:, None, :] + z_vals[..., None]
+                   * rays_d[:, None, :]).reshape(-1, 3)
+    dirs_flat = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    _, feature_vectors, gradients, _, sdf_raw = implicit_get_outputs(
+        model.implicit, points_flat, create_graph=training)
+    rgb_flat = model.rendering(points_flat, gradients, dirs_flat,
+                               feature_vectors)
+    subset_sdf = torch.amin(sdf_raw[:, list(obj_idxs)], -1).reshape(R, S)
+    weights, _, _ = volume_render_weights(
+        z_vals, laplace_density(subset_sdf, get_beta(model)))
+    w_rgb = weights.detach() if detach_rgb_geometry else weights
+    normals = _normalize(gradients).reshape(R, S, 3)
+    return {
+        "rgb_values": composite(w_rgb, rgb_flat.reshape(R, S, 3)),
+        "depth_values": depth_scale * composite_depth(weights, z_vals),
+        "normal_map": composite(weights, normals) @ w2c_rot.T,
+        "acc": weights.sum(-1),
+        "weights": weights,
+        "z_vals": z_vals,
+        "sdf": subset_sdf,
     }

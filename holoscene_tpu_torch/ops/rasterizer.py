@@ -229,22 +229,28 @@ def _screen_subdivide(vertices, faces, pose_c2w, intrinsics, img_res,
 
 
 def _prepare_screen(vertices, faces, pose_c2w, intrinsics, img_res,
-                    grid_size, ortho_half_extent, dev):
+                    grid_size, ortho_half_extent, dev, auto_subdivide=True):
     """Shared preamble of the rasterization entry points: screen-size-guard
-    subdivision, then projection, on `dev`.
+    subdivision (with auto_subdivide), then projection, on `dev`.
 
     Returns (vertices, faces, xy, z, parents, fbary) as tensors;
     parents / fbary are None when no face was split (face ids already in
-    the caller's frame)."""
-    verts, faces_t, parents, fbary = _screen_subdivide(
-        as_tensor(vertices, dev, torch.float64),
-        as_tensor(faces, dev, torch.int64), pose_c2w, intrinsics, img_res,
-        grid_size, ortho_half_extent)
-    if len(parents) == len(faces) and torch.equal(
-            parents, torch.arange(len(faces), device=dev)):
-        parents = fbary = None
+    the caller's frame). A vertex tensor that carries a graph keeps it
+    (the dtype round trip and the midpoints are differentiable)."""
+    parents = fbary = None
+    if auto_subdivide:
+        verts, faces_t, parents, fbary = _screen_subdivide(
+            as_tensor(vertices, dev, torch.float64),
+            as_tensor(faces, dev, torch.int64), pose_c2w, intrinsics,
+            img_res, grid_size, ortho_half_extent)
+        if len(parents) == len(faces) and torch.equal(
+                parents, torch.arange(len(faces), device=dev)):
+            parents = fbary = None
+        else:
+            fbary = fbary.to(torch.float32)
     else:
-        fbary = fbary.to(torch.float32)
+        verts = as_tensor(vertices, dev, torch.float64)
+        faces_t = as_tensor(faces, dev, torch.int64)
     verts = verts.to(torch.float32)
     w2c = view_matrix(pose_c2w, dev)
     if ortho_half_extent is not None:
@@ -259,7 +265,8 @@ def rasterize_mesh(vertices, faces, pose_c2w, intrinsics,
                    img_res: tuple[int, int], grid_size: int = 6,
                    cull_backfaces: bool = False,
                    ortho_half_extent: float | None = None,
-                   device: str | torch.device = "cpu"):
+                   device: str | torch.device = "cpu",
+                   auto_subdivide: bool = True):
     """Rasterize one mesh. Returns a dict of tensors on `device`: depth
     [H,W] (BIG_DEPTH where empty), face_id [H,W] (-1 empty), mask [H,W]
     bool, bary [H,W,3], pix_verts [H,W,3,3] world-space triangle vertices
@@ -268,13 +275,16 @@ def rasterize_mesh(vertices, faces, pose_c2w, intrinsics,
 
     Screen-oversized triangles are split before scattering so coverage
     is hole-free for any input geometry; face_id, bary and pix_verts are
-    reported against the caller's faces."""
+    reported against the caller's faces. auto_subdivide=False skips the
+    split, as JAX does for a traced call (Stage 2's coarse_recon).
+    pix_verts and world_pos are differentiable in a vertex tensor that
+    carries a graph, with or without the split."""
     height, width = img_res
     dev = torch.device(device)
     orig_vertices, orig_faces = vertices, faces
     vertices, faces, xy, z, parents, fbary = _prepare_screen(
         vertices, faces, pose_c2w, intrinsics, img_res, grid_size,
-        ortho_half_extent, dev)
+        ortho_half_extent, dev, auto_subdivide)
 
     _, face_id = _rasterize_core(xy, z, faces, height, width, grid_size,
                                  cull_backfaces)
@@ -307,9 +317,13 @@ def rasterize_mesh(vertices, faces, pose_c2w, intrinsics,
 
 def rasterize_mesh_list(meshes, pose_c2w, intrinsics,
                         img_res: tuple[int, int], grid_size: int = 6,
+                        cull_backfaces: bool = False,
+                        ortho_half_extent: float | None = None,
                         device: str | torch.device = "cpu"):
     """Rasterize several meshes (list of (vertices, faces)) into one buffer
-    (reference rasterize_mesh_list(_front_face), utils/general.py:542-567).
+    (reference rasterize_mesh_list(_front_face), utils/general.py:542-567),
+    perspective or orthographic (ortho_half_extent), optionally culling
+    back faces.
 
     Returns rasterize_mesh's outputs, face_id indexing the concatenated
     meshes, plus instance_id [H,W] (the mesh's index in the list, -1
@@ -323,7 +337,8 @@ def rasterize_mesh_list(meshes, pose_c2w, intrinsics,
         off += len(v)
     out = rasterize_mesh(
         np.concatenate(verts_list), np.concatenate(faces_list), pose_c2w,
-        intrinsics, img_res, grid_size, device=device)
+        intrinsics, img_res, grid_size, cull_backfaces, ortho_half_extent,
+        device)
     fid = out["face_id"]
     face_owner = torch.as_tensor(np.concatenate(owner), device=fid.device)
     out["instance_id"] = torch.where(fid >= 0,

@@ -50,10 +50,14 @@ def extract_object_meshes(
     device="cuda",
     seconds: dict | None = None,
     fine_resolutions: list | None = None,
+    only: "set[int] | None" = None,
 ) -> list[Mesh | None]:
     """Extract one mesh per object SDF (None when an object is empty).
 
     sdf_raw_fn: [M,3] points on `device` -> [M,K] per-object SDFs.
+    only: when given, run the fine extraction for just these object
+    indices; every other slot is None (Stage 2 re-extracts the objects the
+    disentangled SDF emptied).
     seconds, when given, gathers the wall time of the grid evaluations
     ("grid_eval") and of marching tetrahedra ("marching_tetrahedra");
     fine_resolutions, when given, gathers the resolution of each fine
@@ -70,6 +74,9 @@ def extract_object_meshes(
     spacing_coarse = (hi - lo) / (coarse_resolution - 1)
 
     for k in range(num_objects):
+        if only is not None and k not in only:
+            meshes.append(None)
+            continue
         occ = coarse[..., k] < 0
         if not occ.any():
             meshes.append(None)

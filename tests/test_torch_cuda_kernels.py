@@ -694,3 +694,123 @@ def test_hash_encode_autograd_on_card(cuda):
         xx = x.to(cuda).requires_grad_(True)
         thash.hash_encode_fused_dual(xx, ea.to(cuda), eb.to(cuda),
                                      meta)[0].sum().backward()
+
+
+def _stage2_case(dev):
+    """A tiny vjp-mode model (grid inputs live, the objects' SDFs moved
+    apart), one finetune step's batch, generated view, collision points
+    and draws, all made on the CPU from seeds and moved to `dev`."""
+    from holoscene_tpu_torch.models import fields as tf
+    from holoscene_tpu_torch.models import holoscene as ths
+    from holoscene_tpu_torch.ops.sampler import SamplerConfig
+    from holoscene_tpu_torch.stage2.refine import FinetuneDraws
+
+    cfg = ths.HoloSceneConfig(
+        implicit=tf.ImplicitNetworkConfig(
+            feature_vector_size=16, d_out=3, dims=(32, 32), multires=2,
+            num_levels=6, base_size=4, end_size=48, logmap=8),
+        rendering=tf.RenderingNetworkConfig(
+            feature_vector_size=16, dims=(32, 32), multires_view=2,
+            multires_point=2, multires_normal=2),
+        sampler=SamplerConfig(N_samples=8, N_samples_eval=16,
+                              N_samples_extra=4, max_total_iters=3,
+                              beta_iters=4),
+        use_bg_reg=False, sampler_grid_levels=4)
+    model = ths.init_holoscene(cfg, 5)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        model.implicit.mlp["lin0"].v.normal_(0, 0.3, generator=gen)
+        model.implicit.mlp["lin2"].v.add_(torch.randn(
+            model.implicit.mlp["lin2"].v.shape, generator=gen))
+        model.implicit.grid.uniform_(-0.1, 0.1, generator=gen)
+        model.implicit.color_grid.uniform_(-0.1, 0.1, generator=gen)
+    rng = np.random.default_rng(0)
+    n, m, p = 64, 48, 128
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.1, 0.05, -0.4]
+    batch = {"uv": rng.uniform(0, 32, (n, 2)), "pose": pose,
+             "intrinsics": np.array([[20.0, 0, 16], [0, 20.0, 16],
+                                     [0, 0, 1]]),
+             "rgb": rng.uniform(0, 1, (n, 3)),
+             "depth": rng.uniform(0.5, 2.0, (n, 1)),
+             "normal": rng.normal(size=(n, 3)), "mask": np.ones((n, 1))}
+    batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+             for k, v in batch.items()}
+    batch["segs"] = torch.as_tensor(rng.integers(0, 3, n))
+    vpose = np.eye(4, dtype=np.float32)
+    vpose[:3, 3] = [0.05, 0.0, -0.6]
+    view = {"pose": vpose, "half_extent": np.float32(0.6),
+            "rgb": rng.uniform(0, 1, (m, 3)),
+            "normal": rng.normal(size=(m, 3)),
+            "mask": rng.uniform(size=m) > 0.3,
+            "nm_mask": rng.uniform(size=m) > 0.3,
+            "inp_mask": rng.uniform(size=m) > 0.5,
+            "depth": rng.uniform(0.5, 1.5, m),
+            "depth_mask": rng.uniform(size=m) > 0.3,
+            "uv": rng.uniform(-1, 1, (m, 2)), "mask_boost": np.float32(25.0)}
+    view = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+            for k, v in view.items()}
+    coll = (torch.as_tensor(rng.uniform(-0.5, 0.5, (p, 3)),
+                            dtype=torch.float32),
+            torch.as_tensor(rng.uniform(-0.2, 0.2, p), dtype=torch.float32))
+    draws = FinetuneDraws.make(model, n, m,
+                               torch.Generator().manual_seed(2), "cpu")
+
+    def move(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.to(dev)
+        if isinstance(obj, dict):
+            return {k: move(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(move(v) for v in obj)
+        if obj is None:
+            return None
+        return type(obj)(**{f: move(getattr(obj, f))
+                            for f in obj.__dataclass_fields__})
+
+    return (model.to(dev), move(batch), move(view), move(coll),
+            move(draws), (n, m, p))
+
+
+def test_stage2_finetune_step_on_card_matches_cpu(cuda):
+    """One Stage-2 object finetune step (the class-targeted render, the
+    invisible view, the collision loss; SGD lr 1) on the card against the
+    same step on the CPU (the kernels' plain versions) with the same
+    draws: every loss term within 1e-4 relative, every parameter's
+    gradient within 1e-4 of its largest value (the vjp card test's
+    tolerance: atomics and float32 sums in another order); H1-fwd and
+    H1-bwd launched four times (render, eikonal points, invisible render,
+    collision points), H2 in every sampler round."""
+    from holoscene_tpu_torch.losses.holoscene_loss import LossConfig
+    from holoscene_tpu_torch.stage2 import refine as tr
+
+    results = []
+    for dev in ("cpu", cuda):
+        model, batch, view, (pts, sdf), draws, (n, m, p) = _stage2_case(dev)
+        fcfg = tr.FinetuneConfig(rays_per_step=n, invis_pixels=m,
+                                 collision_pts=p, depth_weight=2.0,
+                                 lama_rgb_weight=2.0, smooth_weight=0.3)
+        before = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+        counts = (thash.fused_fwd.launches, thash.fused_bwd.launches,
+                  thash.sampler_fwd.launches)
+        metrics = tr.finetune_step(
+            model, torch.optim.SGD(model.parameters(), lr=1.0), None,
+            LossConfig(), fcfg, 1, batch, view, 1.0, pts, sdf, draws)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            h1f, h1b, h2 = (thash.fused_fwd.launches - counts[0],
+                            thash.fused_bwd.launches - counts[1],
+                            thash.sampler_fwd.launches - counts[2])
+            assert (h1f, h1b) == (4, 4) and h2 >= 2, (h1f, h1b, h2)
+        results.append(({k: float(v) for k, v in metrics.items()},
+                        {k: (before[k] - v).cpu() for k, v in
+                         model.state_dict().items()}))
+    (ref_m, ref_g), (got_m, got_g) = results
+    assert set(got_m) == set(ref_m) and "invis_loss" in got_m
+    for k, r in ref_m.items():
+        assert abs(got_m[k] - r) <= 1e-4 * abs(r) + 1e-7, (k, got_m[k], r)
+    for k, r in ref_g.items():
+        err = float((got_g[k] - r).abs().max())
+        assert torch.isfinite(got_g[k]).all(), k
+        assert err <= 1e-4 * float(r.abs().max()) + 1e-7, (k, err)

@@ -36,7 +36,11 @@ def test_port_lists_its_slice_modules():
                  "losses.holoscene_loss", "training.stage1",
                  "training.exp_runner", "utils.logging", "native",
                  "utils.plots", "utils.eval_geometry", "training.pruning",
-                 "training.quality_gate"):
+                 "training.quality_gate", "physics", "physics.sim",
+                 "stage2", "stage2.scene_graph", "stage2.views",
+                 "stage2.inpaint_views", "stage2.providers",
+                 "stage2.refine", "stage2.remesh", "stage2.runner",
+                 "training.exp_runner_post"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 

@@ -6,7 +6,8 @@ entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3),
 the Stage-1 neural-SDF trainer through its CLI at the flagship width, the
 mesh extraction of its run, the synthetic quality gate's path, and Stage 2
 (per-object refinement checked by physics) through its CLI on a Stage-1
-run's checkpoint.
+run's checkpoint, Stage 3 (per-object texture baking) through its CLI on
+Stage 2's output, and the scene export CLI on the result.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -120,13 +121,37 @@ Phases, one '== ' line each:
                  device memory and the physics provider; then H1-fwd /
                  H1-bwd / H2 against plain at one object step's invisible
                  render and collision points (kernel ms, plain ms, bound)
-Wherever a kernel is held against plain (phases 3, 8, 9, 11 and 12) it is
+ 15 Stage 3      training/exp_runner_texture.main on phase 14's run (its
+                 coarse_recon_obj_{i}.ply) with the train section of
+                 confs/replica_room0_tex.conf, the dataset pointed at the
+                 generated 512^2 scene, ColorFieldConfig's defaults (16
+                 levels 16-2048, 2^19 rows, hidden 256), 4096 pixels a
+                 step, --max_niters 5000 (5000 background iterations, 500
+                 an object) and --texture_res 2048: every step's loss
+                 finite, each object's MSE falling, H2 and H1-bwd (no
+                 jacobian term) launched once an image step and H1-fwd
+                 never, H2 once a bake chunk, surface_{i}.obj/.mtl/.png for
+                 every mesh with one UV a vertex and a non-constant
+                 texture; the wall table by part, ms an image step, the
+                 peak device memory. Then train_object of one object for 50
+                 iterations with its Stage-2 packs (vis_info_{k}.pkl): an
+                 image step and an invisible-view step an iteration, H2 and
+                 H1-bwd each launched by both. Then export/cli.py glb, usd
+                 and gs (on phase 4's gauss_scene.ply), read back with
+                 load_scene: the mesh count and every translation of
+                 translation_dict.pkl. Then H2 (packed) and H1-bwd (no
+                 jacobian) against plain at a colour step's captured points
+                 (4096 x 16) and at the background's first bake chunk
+                 (65,536 x 16): kernel ms, plain ms, bound
+Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14 and
+15) it is
 launched twice on the same inputs and the two results must be the same bits
 (K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
 launch to launch, so its two launches must agree within its tolerance to
 plain (1e-5 of the largest gradient), not bitwise.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
-10b, 12, 13 and 14 and read just after. Then the kernel table as one JSON line
+10b, 12, 13, 14 and 15 (its CLI run and its invisible-view run) and read
+just after. Then the kernel table as one JSON line
 and last the device line {"ok": true, "device": {...}}. Any failure exits
 non-zero before it.
 
@@ -153,8 +178,9 @@ H1-fwd and H2 per level the lesser of its table's bytes and the 32-byte
 sectors its corner gathers touch (8-byte rows, per table); over 3.35 TB/s.
 Operations: per (in-range point, level) 18 for the smoothstep weights and their derivatives plus per corner 31
 (H1-fwd: weight, jacobian weights, the multiply-adds of a, J and b), 27
-(H1-bwd: weight, jacobian weights, the fused cotangents) or 6 (H2), over
-67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
+(H1-bwd: weight, jacobian weights, the fused cotangents; 4 without the
+jacobian term, whose [L*2, 3, N] cotangent is then not read either) or 6
+(H2), over 67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
 is null.
 """
 
@@ -609,6 +635,9 @@ BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
 # the backward (the two fused cotangents 14, b's 2) or of H2 (4)
 OPS_POINT_LEVEL = 18
 OPS_CORNER = {"H1-fwd": 2 + 9 + 20, "H1-bwd": 2 + 9 + 16, "H2": 2 + 4}
+# H1-bwd with no jacobian term (the packed encode's transpose): the
+# corner's weight (2) and its two products with the feature cotangent (2)
+OPS_CORNER_NO_J = 2 + 2
 # The kernels before their redesign (one thread per (point, level)) on an
 # NVIDIA H100 80GB HBM3 at 700.00 W: H1 (commit 43206f0) at the fine tier
 # of this script's phase 11, H2 (commit 2c8f867) at phase 11's bake chunk
@@ -825,17 +854,19 @@ def _gather_bytes(x01, lt, n_tables: int) -> int:
 
 
 def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
-               mode: str = "exact"):
+               mode: str = "exact", has_j: bool = True):
     """(bound ms, "bytes" | "operations") of one launch on these inputs:
     the bytes are the inputs read once, the outputs written once and the
     table sectors gathered (H1-bwd: its draws read once and each gradient
     table written once instead of the gathers);
     the operations OPS_POINT_LEVEL + 8 OPS_CORNER a (point, level) of an
-    in-range point."""
+    in-range point. has_j False: H1-bwd without the jacobian cotangent
+    (OPS_CORNER_NO_J a corner, no [L*2, 3, N] cotangent read)."""
     n, L = x01.shape[0], lt.n_levels
     valid = int((~((x01 < 0) | (x01 > 1)).any(-1)).sum())
     tables = 2 if has_b else 1
-    ops = valid * L * (OPS_POINT_LEVEL + 8 * OPS_CORNER[kernel])
+    corner = OPS_CORNER[kernel] if has_j else OPS_CORNER_NO_J
+    ops = valid * L * (OPS_POINT_LEVEL + 8 * corner)
     feats = n * L * 2 * 4
     if kernel == "H1-fwd":
         nbytes = n * 12 + feats * tables + n * L * 6 * 4 \
@@ -843,7 +874,7 @@ def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
     elif kernel == "H2":
         nbytes = n * 12 + feats + _gather_bytes(x01, lt, 1)
     else:
-        cts = feats * tables + n * L * 6 * 4
+        cts = feats * tables + (n * L * 6 * 4 if has_j else 0)
         draws = {"exact": 0, "sampled": 3, "sampled_all": 4}[mode] \
             * n * lt.n_hashed * 4
         nbytes = n * 12 + cts + draws + n_rows * 8 * tables
@@ -1528,6 +1559,285 @@ def stage2_phase(work: Path, dev, card: str) -> dict:
     return out
 
 
+S3_ITERS = 5000       # phase 15: exp_runner_texture's --max_niters default
+S3_TEX_RES = 2048     # and its --texture_res
+S3_INVIS_ITERS = 50   # the invisible-view run of one object
+S3_CHUNK = 1 << 16    # Stage3Runner.export_mesh_texture's bake chunk
+TEX_CONF = Path(__file__).resolve().parent / "confs" / "replica_room0_tex.conf"
+
+
+def stage3_conf(work: Path) -> Path:
+    """confs/replica_room0_tex.conf with its dataset pointed at the
+    generated 512^2 scene and its expname at phase 14's run (phase 10b's,
+    whose plots dir holds Stage 2's meshes), as stage2_conf does."""
+    import re
+
+    text = TEX_CONF.read_text()
+    text = re.sub(r"expname = \S+", "expname = smoke_s1_vjp", text)
+    text = re.sub(r"dataset\s*\{[^}]*\}", f"""dataset{{
+ data_root_dir = {work / 'data_s1'}
+ data_dir = scene_0
+ img_res = [{S1_RES}, {S1_RES}]
+}}""", text)
+    conf = work / "smoke_s3_tex.conf"
+    conf.write_text(text)
+    return conf
+
+
+def compare_h1_bwd_no_j(x01, n_rows, lt, seed: int) -> dict:
+    """H1-bwd with no jacobian term (one table, exact mode: the packed
+    encode's table gradient) against plain on a random cotangent: two
+    launches agree with each other and with plain within H_REL of the
+    largest gradient (atomics); kernel ms, plain ms, bound."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    ct = torch.randn(x01.shape[0], 2 * lt.n_levels, device=x01.device,
+                     generator=torch.Generator(x01.device).manual_seed(seed))
+    args = (x01, n_rows, ct, None, None, lt, "exact")
+    ref = hg.fused_bwd_plain(*args)[0]
+    got, again = hg.fused_bwd(*args)[0], hg.fused_bwd(*args)[0]
+    res = dict(max_abs_err=_check_close("H1-bwd (no jacobian)", got, ref))
+    _check_close("H1-bwd (no jacobian), second launch", again, got)
+    res.update(ms=cuda_ms(lambda: hg.fused_bwd(*args), 20),
+               plain_ms=cuda_ms(lambda: hg.fused_bwd_plain(*args), 3))
+    res["bound_ms"], res["bound_by"] = hash_bound(
+        "H1-bwd", x01, lt, n_rows, has_b=False, has_j=False)
+    return res
+
+
+def stage3_phase(work: Path, dev, card: str, gauss_ply: Path) -> dict:
+    """Phase 15: exp_runner_texture on phase 14's run, an invisible-view
+    run of one object, and the export CLI on the result. Returns {H
+    kernel: {launches, and at the colour step's / a bake chunk's inputs:
+    max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from holoscene_tpu_torch.export import cli as export_cli
+    from holoscene_tpu_torch.export.load_scene import load_scene
+    from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.stage2.providers import load_vis_info
+    from holoscene_tpu_torch.training import exp_runner_texture
+    from holoscene_tpu_torch.training import stage3 as s3
+
+    conf = stage3_conf(work)
+    steps, chunks, bake_pts = [], [], []
+    step_fn, query_fn = s3.color_step, s3._query_color_field
+
+    def counted_step(*args):
+        before = read_hash_counts()          # each reading synchronizes
+        t0 = time.perf_counter()
+        loss = step_fn(*args)
+        after = read_hash_counts()
+        steps.append({k: after[k] - before[k] for k in after})
+        steps[-1]["ms"] = 1e3 * (time.perf_counter() - t0)
+        steps[-1]["loss"] = loss
+        steps[-1]["covered"] = bool(args[4])   # valid_any: a pixel to fit
+        return loss
+
+    def counted_query(field, pts, chunk):
+        h2 = hg.sampler_fwd.launches
+        out = query_fn(field, pts, chunk)
+        chunks.append((-(-len(pts) // chunk), hg.sampler_fwd.launches - h2))
+        if not bake_pts:
+            bake_pts.append(np.array(pts[:chunk], dtype=np.float32))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    s3.color_step, s3._query_color_field = counted_step, counted_query
+    t0 = time.perf_counter()
+    try:
+        runner = exp_runner_texture.main([
+            "--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
+            "--max_niters", str(S3_ITERS), "--texture_res", str(S3_TEX_RES),
+            "--quiet", "--device", "cuda"])
+    finally:
+        s3.color_step, s3._query_color_field = step_fn, query_fn
+    wall = time.perf_counter() - t0
+    launches = read_hash_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    plots = Path(runner.out_dir)
+    n_obj = len(runner.meshes)
+    want_steps = S3_ITERS + (n_obj - 1) * (S3_ITERS // 10)
+    timer = runner.timer.seconds
+    train_s = sum(v for k, v in timer.items() if k.endswith("training"))
+    log(f"== 15 Stage 3 (exp_runner_texture on phase 14's run, "
+        f"{TEX_CONF.name}'s train section, ColorFieldConfig's defaults: 16 "
+        f"levels 16-2048, 2^19 rows, hidden 256; {runner.pixels_per_step} "
+        f"pixels a step, --max_niters {S3_ITERS}, --texture_res "
+        f"{S3_TEX_RES}) in {wall:.1f} s: {n_obj} meshes (faces "
+        f"{[len(m.faces) for m in runner.meshes]}), {len(steps)} image steps "
+        f"({100 * train_s / wall:.1f}% of the phase in training), peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}; on {card}")
+    log("   wall s by part: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in timer.items()))
+
+    # every step: finite loss, H2 and H1-bwd once, H1-fwd never; each
+    # object's MSE falls; H2 once a bake chunk
+    if len(steps) != want_steps or any(
+            runner.steps[i] != {"image": S3_ITERS if i == 0
+                                else S3_ITERS // 10, "invisible": 0}
+            for i in range(n_obj)):
+        raise RuntimeError(f"Stage 3: {len(steps)} steps, expected "
+                           f"{want_steps}; by object {runner.steps}")
+    bad = [c for c in steps if (c["H2"], c["H1-bwd"], c["H1-fwd"])
+           != (1, 1, 0)]
+    losses = torch.stack([c["loss"] for c in steps]).cpu()
+    if bad or not torch.isfinite(losses).all():
+        raise RuntimeError(f"Stage 3 steps: {len(bad)} with launches other "
+                           f"than H2 1 / H1-bwd 1 / H1-fwd 0 ({bad[:3]}), "
+                           f"finite losses {bool(torch.isfinite(losses).all())}")
+    # an object whose mesh covers no pixel of its instance mask in any
+    # frame has nothing to fit: every step's loss is 0 by the step's
+    # definition (JAX's where(n_valid > 0, mse, 0)); every other object's
+    # MSE falls, and the background and at least one object train
+    spans, pos = {}, 0
+    for i in range(n_obj):
+        spans[i] = steps[pos:pos + runner.steps[i]["image"]]
+        pos += len(spans[i])
+    covered = {i: sum(c["covered"] for c in span) / len(span)
+               for i, span in spans.items()}
+    falls = {i: (l[0], l[-1]) for i, l in runner.losses.items()}
+    idle = [i for i in range(n_obj) if not covered[i]]
+    if any(not (np.isfinite(a) and b < a) for i, (a, b) in falls.items()
+           if covered[i]) \
+            or any(float(c["loss"]) for i in idle for c in spans[i]) \
+            or not covered[0] or len(idle) > n_obj - 2:
+        raise RuntimeError(f"Stage 3 MSE did not fall: {falls}; share of "
+                           f"steps with a pixel to fit by object {covered}")
+    if not chunks or any(n != h2 for n, h2 in chunks):
+        raise RuntimeError(f"Stage 3 bake (chunks, H2 launches): {chunks}")
+    ms = [c["ms"] for c in steps[1:]]
+    log(f"   an image step, the first excluded (between synchronizations): "
+        f"{np.mean(ms):.3f} ms (median {np.median(ms):.3f}, first "
+        f"{steps[0]['ms']:.1f}), H2 / H1-bwd / H1-fwd 1 / 1 / 0 each; MSE "
+        f"first -> last by object: "
+        + ", ".join(f"{i}: {a:.5f} -> {b:.5f}" for i, (a, b) in falls.items())
+        + "; share of steps with a pixel to fit by object: "
+        + ", ".join(f"{i}: {c:.3f}" for i, c in covered.items())
+        + (f" (object(s) {idle}: the Stage-2 mesh covers no pixel of the "
+           f"instance mask in any frame, every loss 0)" if idle else "")
+        + f"; bake: {sum(n for n, _ in chunks)} chunks of <= {S3_CHUNK} "
+        f"points, H2 once a chunk")
+
+    # the artifacts: every object's surface_{i}.obj/.mtl/.png, one UV a
+    # vertex, a non-constant texture
+    report = []
+    for i in range(n_obj):
+        text = (plots / f"surface_{i}.obj").read_text()
+        n_v, n_vt = text.count("\nv "), text.count("\nvt ")
+        tex = np.asarray(Image.open(plots / f"surface_{i}.png"))
+        if not (plots / f"surface_{i}.mtl").exists() or n_v != n_vt \
+                or n_v != 3 * len(runner.meshes[i].faces) \
+                or not np.ptp(tex):
+            raise RuntimeError(f"Stage 3 surface_{i}: {n_v} vertices, {n_vt} "
+                               f"UVs, texture {tex.shape} range "
+                               f"{np.ptp(tex.reshape(-1, 3), 0)}")
+        report.append(f"{i}: {tex.shape[0]}^2, {n_v} vertices, mean rgb "
+                      f"{np.round(tex.reshape(-1, 3).mean(0), 1).tolist()}")
+    log("   surfaces: " + "; ".join(report))
+
+    # the invisible-view step on the card: one object, its Stage-2 packs
+    with_packs = [i for i in range(1, n_obj)
+                  if (plots / f"vis_info_{i}.pkl").exists()]
+    obj = next((i for i in with_packs if covered[i]), with_packs[0])
+    packs = load_vis_info(str(plots / f"vis_info_{obj}.pkl"))
+    counts0 = dict(runner.steps[obj])
+    reset_counts()
+    t0 = time.perf_counter()
+    _, rec = record_hash(lambda: runner.train_object(
+        obj, n_iters=S3_INVIS_ITERS, vis_info=packs),
+        ("sampler_fwd", "fused_bwd"))
+    invis_s = time.perf_counter() - t0
+    inv_launches = read_hash_counts()
+    got = {k: runner.steps[obj][k] - counts0[k] for k in counts0}
+    n_calls = 2 * S3_INVIS_ITERS
+    if got != {"image": S3_INVIS_ITERS, "invisible": S3_INVIS_ITERS} \
+            or inv_launches != {"H1-fwd": 0, "H1-bwd": n_calls,
+                                "H2": n_calls} \
+            or not all(np.isfinite(runner.losses[obj])):
+        raise RuntimeError(f"Stage 3 invisible-view run: steps {got}, "
+                           f"launches {inv_launches}, losses "
+                           f"{runner.losses[obj]}")
+    log(f"   invisible-view run: object {obj}, {len(packs)} packs of "
+        f"{packs[0]['rgb'].shape[0]}^2, {S3_INVIS_ITERS} iterations (image "
+        f"step + invisible-view step) in {invis_s:.2f} s, launches "
+        f"{inv_launches}, MSE {runner.losses[obj][0]:.5f} -> "
+        f"{runner.losses[obj][-1]:.5f}")
+
+    # the export CLI on the run, read back
+    if gauss_ply.exists():
+        shutil.copy(gauss_ply, plots / "gauss_scene.ply")
+    argv = ["--conf", str(conf), "--exps_folder", str(work / "exps_s1b")]
+    export_s = {}
+    for what in ("glb", "usd", "gs"):
+        if what == "gs" and not gauss_ply.exists():
+            continue
+        t0 = time.perf_counter()
+        export_cli.main([what, *argv])
+        export_s[f"export {what}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = load_scene(str(plots))
+    export_s["load_scene"] = time.perf_counter() - t0
+    with open(plots / "translation_dict.pkl", "rb") as f:
+        trans = {int(k): np.asarray(v) for k, v in pickle.load(f).items()}
+    prims = scene["usd"]["prims"] if scene["usd"] else {}
+    moved = {i: prims.get(f"object_{i}", {}).get("translate")
+             for i in range(n_obj)}
+    if scene["glb"] is None or len(scene["glb"]["meshes"]) != n_obj \
+            or len(prims) != n_obj or any(
+                t is None or not np.allclose(t, trans.get(i, np.zeros(3)),
+                                             atol=1e-5)
+                for i, t in moved.items()):
+        raise RuntimeError(f"export: glb meshes "
+                           f"{None if scene['glb'] is None else len(scene['glb']['meshes'])}"
+                           f", usd prims {sorted(prims)}, translations "
+                           f"{moved} (run: {trans})")
+    if "export gs" in export_s and not (plots / "scene_gs.usdz").exists():
+        raise RuntimeError("export gs: scene_gs.usdz missing")
+    log("   export wall s: " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in export_s.items())
+        + f"; scene.glb {len(scene['glb']['meshes'])} meshes "
+        f"({len(scene['glb'].get('images', []))} textured), usd/ "
+        f"{len(prims)} prims, translations as translation_dict.pkl "
+        f"({ {i: np.round(t, 4).tolist() for i, t in trans.items()} })")
+
+    # H2 (packed) and H1-bwd (no jacobian) against plain at the colour
+    # step's captured inputs and at a bake chunk
+    x01, emb, lt, packed = rec["sampler_fwd"][0]
+    bx01, n_rows, ct = rec["fused_bwd"][0][:3]
+    if not packed or bx01.data_ptr() != x01.data_ptr() \
+            or lt.n_levels != 16 or rec["fused_bwd"][0][3] is not None:
+        raise RuntimeError("Stage 3 capture: not the packed encode of the "
+                           "colour step")
+    emb = emb.detach()
+    pts = torch.as_tensor(bake_pts[0], device=dev)
+    bake_x01 = ((pts / runner.cfg.divide_factor + 1.0) * 0.5).contiguous()
+    out = {k: {"launches": launches[k]} for k in HASH_KERNELS}
+    for tag, x in (("stage3_color_step", x01), ("stage3_bake_chunk",
+                                                 bake_x01)):
+        out["H2"][tag] = compare_h2(x, emb, lt, timed=True, packed=True)
+        out["H1-bwd"][tag] = compare_h1_bwd_no_j(x, n_rows, lt, 50)
+        log(f"   {tag} ({x.shape[0]} points x {lt.n_levels} levels, "
+            f"{n_rows} rows): " + "; ".join(
+                f"{k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                f"({100 * r['bound_ms'] / r['ms']:.1f}%), max abs err "
+                f"{r['max_abs_err']:.3g}"
+                for k, r in (("H2 packed", out["H2"][tag]),
+                             ("H1-bwd no jacobian", out["H1-bwd"][tag])))
+            + f"; on {card}")
+    return out
+
+
 def stage1_phases(work: Path, dev, card: str) -> dict:
     """Phases 9-11. Returns {H kernel: its row of the kernel table}."""
     import torch
@@ -2024,10 +2334,12 @@ def main() -> int:
         hash_rows = stage1_phases(work, dev, card)
         gate = gate_phase(work, card)
         stage2 = stage2_phase(work, dev, card)
+        stage3 = stage3_phase(work, dev, card, plots / "gauss_scene.ply")
         for k, row in hash_rows.items():
             row["launches_by_path"]["quality_gate"] = gate[k]
             row["launches_by_path"]["stage2"] = stage2[k].pop("launches")
-            for tag, r in stage2[k].items():
+            row["launches_by_path"]["stage3"] = stage3[k].pop("launches")
+            for tag, r in [*stage2[k].items(), *stage3[k].items()]:
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          r["max_abs_err"])
                 row[tag] = {key: r[key] for key in (

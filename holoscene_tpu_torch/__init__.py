@@ -24,12 +24,15 @@ slice):
               (holoscene); Gaussian-on-Mesh seeding, reparameterisations,
               render, loss (gom)
   losses/     the Stage-1 loss stack
-  training/   Stage1Runner and its exp_runner CLI; Stage4Runner, the
-              exp_runner_gaussian CLI, the gs_render CLI; checkpoints
+  training/   Stage1Runner and its exp_runner CLI; Stage3Runner (colour
+              field, UV bake) and its exp_runner_texture CLI;
+              Stage4Runner, the exp_runner_gaussian CLI, the gs_render
+              CLI; checkpoints
   datasets/   the synthetic scene with analytic meshes and packs, loaders
-  utils/      mesh I/O, marching tetrahedra, PSNR/SSIM (host, numpy), the
-              JSONL metrics log
-  export/     gaussian USDZ
+  utils/      mesh I/O, marching tetrahedra, the chart UV atlas, PSNR/SSIM
+              (host, numpy), the JSONL metrics log
+  export/     gaussian USDZ, GLB, USD with PhysX schemas, the export CLI
+              and its read-back (load_scene)
   config.py   HOCON-subset config parser
   convert.py  JAX params/static (as numpy) <-> torch tensors (Stage 4's,
               Stage 1's)

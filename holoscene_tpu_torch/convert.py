@@ -1,5 +1,5 @@
 """Converters between the JAX package's state (Gaussian-on-Mesh params and
-static dict, Stage-1 params) and the port's tensors. Inputs are numpy
+static dict, Stage-1 and colour-field params) and the port's tensors. Inputs are numpy
 arrays (np.asarray of the JAX leaves), so this module never imports jax;
 the tests use it to start both sides from identical state."""
 
@@ -67,3 +67,15 @@ def stage1_params_to_jax(state: dict) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = v.detach().cpu().numpy()
     return tree
+
+
+def color_field_params_from_jax(tree: dict,
+                                device: str | torch.device = "cpu") -> dict:
+    """JAX colour-field params ({grid, mlp: {lin{i}: {w, b}}}) ->
+    ColorField's state dict ("grid", "mlp.lin0.w", ...)."""
+    return stage1_params_from_jax(tree, device)
+
+
+def color_field_params_to_jax(state: dict) -> dict:
+    """ColorField's state dict -> JAX's nested numpy tree."""
+    return stage1_params_to_jax(state)

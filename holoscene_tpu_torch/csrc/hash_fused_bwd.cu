@@ -21,6 +21,9 @@
 //                value ca_c,k S / s_k (0 when s_k = 0).
 // The uniforms come from the caller: the kernel has no RNG. Points outside
 // [0, 1] add nothing. The points' own cotangent is not computed.
+// ct_J == nullptr: no jacobian term, ca_c,k = cw_k ct_fa[n, 2l+c] (the
+// transpose of the packed encode, JAX hashgrid.py _gather_pairs_transpose:
+// the colour field's table gradient, one table, exact mode).
 //
 // Bounds on the card: the least traffic is the zero-fill of both tables
 // (2 x 48.8 MB at the flagship width, done by the wrapper), which writes
@@ -169,7 +172,7 @@ __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
     const float cfb0 = sfb[lane * stride + 2 * l];
     const float cfb1 = sfb[lane * stride + 2 * l + 1];
     float cj0[3] = {0.f, 0.f, 0.f}, cj1[3] = {0.f, 0.f, 0.f};
-    if (lane < np) {
+    if (lane < np && ct_J != nullptr) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         cj0[d] = ct_J[(static_cast<int64_t>(2 * l) * 3 + d) * N + n];
@@ -182,12 +185,16 @@ __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
     for (int k = 0; k < 8; ++k) {
       float dcw[3];
       cw[k] = corner_weight(w, dw, lv.scale, k, dcw);
-      float s0 = dcw[0] * cj0[0] + dcw[1] * cj0[1];
-      s0 = s0 + dcw[2] * cj0[2];
-      float s1 = dcw[0] * cj1[0] + dcw[1] * cj1[1];
-      s1 = s1 + dcw[2] * cj1[2];
-      ca0[k] = cw[k] * cfa0 + s0;
-      ca1[k] = cw[k] * cfa1 + s1;
+      ca0[k] = cw[k] * cfa0;
+      ca1[k] = cw[k] * cfa1;
+      if (ct_J != nullptr) {
+        float s0 = dcw[0] * cj0[0] + dcw[1] * cj0[1];
+        s0 = s0 + dcw[2] * cj0[2];
+        float s1 = dcw[0] * cj1[0] + dcw[1] * cj1[1];
+        s1 = s1 + dcw[2] * cj1[2];
+        ca0[k] = ca0[k] + s0;
+        ca1[k] = ca1[k] + s1;
+      }
     }
 
     // every corner of both tables: one grouping a corner serves a and b

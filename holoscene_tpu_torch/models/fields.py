@@ -13,7 +13,9 @@ is the same construction in H1-bwd's exact mode. The eikonal jacobians of
 `implicit_all_gradients` push three tangents through the trunk by hand
 (forward mode), from the single-table H1 call. `implicit_forward` /
 `implicit_sdf_raw` are the plain forward through H1. The sampler's probes
-go through `implicit_sdf_raw_sampler` (H2, no gradient)."""
+go through `implicit_sdf_raw_sampler` (H2, no gradient). Stage 3's colour
+field (`ColorField`, `color_field_forward`) encodes through the packed
+encode with its table gradient (H2 forward, H1-bwd backward)."""
 
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from holoscene_tpu_torch.ops.embedder import (
 from holoscene_tpu_torch.ops.hashgrid import (
     HashGridMeta,
     hash_encode_fused_dual,
+    hash_encode_packed,
     hash_encode_sampler,
     init_hash_embeddings,
 )
@@ -477,3 +480,65 @@ class RenderingNetwork(nn.Module):
             if i < n_layers - 1:
                 h = torch.relu(h)
         return torch.sigmoid(h[:, :3])
+
+
+# ---------------------------------------------------------------------------
+# ColorImplicitNetworkSingle (Stage-3 texture field)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ColorFieldConfig:
+    base_size: int = 16
+    end_size: int = 2048
+    logmap: int = 19
+    num_levels: int = 16
+    level_dim: int = 2
+    divide_factor: float = 1.5
+    hidden: int = 256
+
+    @property
+    def grid_meta(self) -> HashGridMeta:
+        return HashGridMeta(
+            input_dim=3, num_levels=self.num_levels, level_dim=self.level_dim,
+            base_resolution=self.base_size,
+            log2_hashmap_size=self.logmap,
+            desired_resolution=self.end_size)
+
+
+class ColorField(nn.Module):
+    """The colour field of one object (JAX init_color_field): a hash grid
+    `grid` [rows, 2] (uniform +-1e-4) and four PlainLinear `mlp.lin{0..3}`
+    (torch.nn.Linear's default init), drawn from `generator`."""
+
+    def __init__(self, cfg: ColorFieldConfig = ColorFieldConfig(),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.grid = nn.Parameter(init_hash_embeddings(cfg.grid_meta,
+                                                      generator))
+        dims = (cfg.num_levels * cfg.level_dim, cfg.hidden, cfg.hidden,
+                cfg.hidden, 3)
+        layers = {}
+        for i in range(4):
+            bw = math.sqrt(1.0 / dims[i]) * math.sqrt(3.0)
+            bb = math.sqrt(1.0 / dims[i])
+            w = torch.rand(dims[i + 1], dims[i], generator=generator)
+            b = torch.rand(dims[i + 1], generator=generator)
+            layers[f"lin{i}"] = PlainLinear((w * 2 - 1).numpy() * bw,
+                                            (b * 2 - 1).numpy() * bb)
+        self.mlp = nn.ModuleDict(layers)
+
+
+def color_field_forward(field: ColorField, x: torch.Tensor) -> torch.Tensor:
+    """x [N, 3] world points -> rgb [N, 3] (JAX color_field_forward):
+    x / divide_factor -> [0, 1] -> the packed encode (H2, table gradient
+    through H1-bwd) -> 3 x (linear, ReLU) -> linear -> sigmoid."""
+    cfg = field.cfg
+    xn = x / cfg.divide_factor
+    h = hash_encode_packed((xn + 1.0) * 0.5, field.grid, cfg.grid_meta)
+    for i in range(4):
+        h = field.mlp[f"lin{i}"](h)
+        if i < 3:
+            h = torch.relu(h)
+    return torch.sigmoid(h)

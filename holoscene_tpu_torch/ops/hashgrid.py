@@ -13,7 +13,10 @@ Three semantics live side by side, as in the JAX package (they differ only
 at x01 == 1 and in rounding):
   * `hash_encode` (packed): every level's values rounded to bf16, the dense
     index mod-wrapped, no clamp. Plain PyTorch only (tests, H2's hashed
-    levels).
+    levels). `hash_encode_packed` is the same encode with its table
+    gradient (Stage 3's colour field): H2 packed forward, H1-bwd without
+    the jacobian term backward, the dense cell clamped (a zero-weight
+    corner apart at x01 == 1).
   * `hash_encode_fused_dual` (fused, packed fetch): both tables' values
     rounded to bf16 at every level, the dense cell clamped to [0, r-2];
     features of tables a and b and J_a = d feats_a / d x01. Forward H1-fwd
@@ -334,7 +337,8 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
                     need_x=False):
     """H1-bwd's plain version: (grad_a [n_rows, 2], grad_b [n_rows, 2] or
     None, ct_x01 [N, 3] or None). The fused per-corner cotangent of table a
-    is cw ct_f + sum_d dcw_d ct_J[d]; table b's is cw ct_f. Dense levels
+    is cw ct_f + sum_d dcw_d ct_J[d] (cw ct_f with ct_J None: no jacobian
+    term); table b's is cw ct_f. Dense levels
     scatter every corner in every mode; hashed levels follow `mode`
     (JAX hashgrid.py _hash_fused_bwd). need_x also returns the cotangent of
     x01 from the gathered values (emb_a / emb_b needed)."""
@@ -345,9 +349,12 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
     valid = (~_oob(x01)).float()
     has_b = ct_fb is not None
     cfa = ct_fa.T.reshape(L, 2, n) * valid
-    cJa = ct_J.reshape(L, 2, 3, n) * valid
-    ca = [cw * cfa[:, c, None] + sum(dcw[d] * cJa[:, c, d, None]
-                                     for d in range(3)) for c in (0, 1)]
+    if ct_J is None:
+        ca = [cw * cfa[:, c, None] for c in (0, 1)]
+    else:
+        cJa = ct_J.reshape(L, 2, 3, n) * valid
+        ca = [cw * cfa[:, c, None] + sum(dcw[d] * cJa[:, c, d, None]
+                                         for d in range(3)) for c in (0, 1)]
     ga = torch.zeros(n_rows * 2, device=x01.device)
     gb = torch.zeros(n_rows * 2, device=x01.device) if has_b else None
     if has_b:
@@ -492,8 +499,9 @@ def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
     """H1-bwd. CUDA tensors: launches `hash_fused_bwd` of
     csrc/hash_fused_bwd.cu (point tiles, warp-aggregated atomics into
     zero-initialised [n_rows, 2] grads) and counts it in
-    `fused_bwd.launches`; CPU tensors: fused_bwd_plain. Returns (grad_a,
-    grad_b or None)."""
+    `fused_bwd.launches`; CPU tensors: fused_bwd_plain. ct_J None: no
+    jacobian term (the packed encode's transpose). Returns (grad_a, grad_b
+    or None)."""
     if not x01.is_cuda:
         return fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt, mode,
                                u_b, u_a)[:2]
@@ -503,7 +511,8 @@ def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
     lh = lt.n_hashed
     _check("x01", x01, (n, 3))
     _check("ct_fa", ct_fa, (n, L * 2), device=dev)
-    _check("ct_J", ct_J, (L * 2, 3, n), device=dev)
+    if ct_J is not None:
+        _check("ct_J", ct_J, (L * 2, 3, n), device=dev)
     if ct_fb is not None:
         _check("ct_fb", ct_fb, (n, L * 2), device=dev)
     if mode not in MODES:
@@ -519,7 +528,7 @@ def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
     if n:
         scales, ints = lt.device_arrays(dev)
         st = kernels.library().hash_fused_bwd(
-            x01.data_ptr(), ct_fa.data_ptr(), ct_J.data_ptr(), _ptr(ct_fb),
+            x01.data_ptr(), ct_fa.data_ptr(), _ptr(ct_J), _ptr(ct_fb),
             _ptr(u_b) if mode != "exact" else 0,
             _ptr(u_a) if mode == "sampled_all" else 0,
             scales.data_ptr(), ints.data_ptr(), ga.data_ptr(), _ptr(gb), n, L,
@@ -666,6 +675,42 @@ def sampler_fwd(x01, emb, lt: LevelTables,
 
 
 sampler_fwd.launches = 0
+
+
+class _PackedEncode(torch.autograd.Function):
+    """The packed encode with its table gradient: forward H2 in its packed
+    mode over every level, backward H1-bwd exact with one table and no
+    jacobian cotangent. The points carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x01, emb, lt):
+        ctx.lt = lt
+        ctx.save_for_backward(x01)
+        ctx.n_rows = emb.shape[0]
+        return sampler_fwd(x01, emb.detach(), lt, True)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        (x01,) = ctx.saved_tensors
+        if ctx.needs_input_grad[0]:
+            raise NotImplementedError(
+                "hash_encode_packed: the points carry no gradient")
+        ga, _ = fused_bwd(x01, ctx.n_rows, ct.contiguous(), None, None,
+                          ctx.lt, "exact")
+        return None, ga, None
+
+
+def hash_encode_packed(x01, emb, meta: HashGridMeta) -> torch.Tensor:
+    """JAX hash_encode(packed=True) (holoscene_tpu/ops/hashgrid.py:407)
+    with the table gradient of its packed-pair gather (`gather_pairs`'
+    transpose: straight through the bf16 rounding): x01 [N, 3], emb
+    [rows, 2] -> [N, L*2]. The packed encode wraps a dense level's row
+    where H2 and H1-bwd clamp the cell; they name different rows only at
+    x01 = 1 on a level of integer scale, where that corner's weight is 0,
+    so the features are equal and the gradient adds 0 to another row."""
+    return _PackedEncode.apply(x01.contiguous(), emb,
+                               level_tables(meta))
 
 
 def hash_encode_sampler(inputs, embeddings, meta: HashGridMeta,

@@ -178,3 +178,87 @@ def test_usdz_bytes_match(tmp_path):
     for k, v in ref.items():
         np.testing.assert_array_equal(np.asarray(back[k]), np.asarray(v),
                                       err_msg=k)
+
+
+def test_uv_atlas_matches(tmp_path):
+    """The chart atlas (the port grows charts with array operations) on a
+    few-thousand-face mesh with degenerate faces: the same adjacency, the
+    same charts at three caps, the same atlas."""
+    import holoscene_tpu.utils.uv_atlas as juv
+    import holoscene_tpu_torch.utils.uv_atlas as tuv
+
+    axis = np.linspace(-1.0, 1.0, 24)
+    x, y, z = np.meshgrid(axis, axis, axis, indexing="ij")
+    sdf = np.sqrt(x * x + y * y + z * z) - 0.5 \
+        + 0.05 * np.sin(9 * x) * np.cos(7 * y)
+    v, f = jmc.marching_tetrahedra(sdf, use_native=False, origin=(-1,) * 3,
+                                   spacing=(2 / 23,) * 3)
+    f = np.concatenate([f, f[:3, [0, 0, 1]]])
+    assert len(f) > 3000
+    adj = juv.face_adjacency(f)
+    ptr, nbr = tuv.face_adjacency(f)
+    assert [nbr[ptr[i]:ptr[i + 1]].tolist() for i in range(len(f))] \
+        == [[int(j) for j in a] for a in adj]
+    for cap in (4096, 50, 7):
+        ref, got = juv.grow_charts(v, f, 0.8, cap), tuv.grow_charts(v, f, 0.8,
+                                                                   cap)
+        assert len(got) == len(ref) > 10
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+    ref, got = juv.build_chart_atlas(v, f, 256), tuv.build_chart_atlas(v, f,
+                                                                      256)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_export_modules_write_the_same_files(tmp_path):
+    """export/{glb,usd,load_scene,cli}: the export CLI's three targets on
+    tests/test_export_cli.py's fake run dir give the same bytes (the USDA
+    text up to the run dir's own path), and load_scene reads them back
+    alike; a textured OBJ is written alike."""
+    import holoscene_tpu.export.cli as jcli
+    import holoscene_tpu.export.load_scene as jload
+    import holoscene_tpu_torch.export.cli as tcli
+    import holoscene_tpu_torch.export.load_scene as tload
+    from test_export_cli import _conf, _fake_rundir
+
+    plots = {}
+    for name, cli in (("j", jcli), ("t", tcli)):
+        root = tmp_path / name
+        root.mkdir()
+        plots[name] = _fake_rundir(root) / "plots"
+        for what in ("glb", "usd", "gs"):
+            cli.main([what, "--conf", _conf(root), "--exps_folder",
+                      str(root / "exps")])
+    j, t = plots["j"], plots["t"]
+    assert filecmp.cmp(j / "scene.glb", t / "scene.glb", shallow=False)
+    with zipfile.ZipFile(j / "scene_gs.usdz") as zj, \
+            zipfile.ZipFile(t / "scene_gs.usdz") as zt:
+        assert zt.namelist() == zj.namelist()
+        assert all(zt.read(n) == zj.read(n) for n in zj.namelist())
+    usda = [(p / "usd" / "scene.usda").read_text().replace(str(p), "RUN")
+            for p in (j, t)]
+    assert usda[0] == usda[1] and "def Mesh" in usda[0]
+    ref, got = jload.load_scene(str(j)), tload.load_scene(str(t))
+    assert got["glb"] == ref["glb"]
+    assert got["usd"]["gravity"] == ref["usd"]["gravity"]
+    assert set(got["usd"]["prims"]) == set(ref["usd"]["prims"]) \
+        == {"object_0", "object_1"}
+    for name, prim in ref["usd"]["prims"].items():
+        for k, v in prim.items():
+            g = got["usd"]["prims"][name][k]
+            assert type(g) is type(v), (name, k)
+            if isinstance(v, np.ndarray):
+                assert g.dtype == v.dtype and g.shape == v.shape, (name, k)
+            np.testing.assert_array_equal(g, v, err_msg=f"{name} {k}")
+
+    rng = np.random.default_rng(3)
+    m = jmesh.read_obj(str(j / "surface_1.obj"))
+    uvs = rng.uniform(0, 1, (len(m.vertices), 2))
+    jmesh.write_obj(str(tmp_path / "j.obj"), jmesh.Mesh(m.vertices, m.faces,
+                                                        uvs=uvs),
+                    mtl_name="j.mtl", texture_png="x.png")
+    tmesh.write_obj(str(tmp_path / "t.obj"), tmesh.Mesh(m.vertices, m.faces,
+                                                        uvs=uvs),
+                    mtl_name="j.mtl", texture_png="x.png")
+    assert filecmp.cmp(tmp_path / "j.obj", tmp_path / "t.obj", shallow=False)

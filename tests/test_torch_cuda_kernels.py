@@ -814,3 +814,77 @@ def test_stage2_finetune_step_on_card_matches_cpu(cuda):
         err = float((got_g[k] - r).abs().max())
         assert torch.isfinite(got_g[k]).all(), k
         assert err <= 1e-4 * float(r.abs().max()) + 1e-7, (k, err)
+
+
+@pytest.mark.parametrize("dmr", [0, 64])
+def test_hash_fused_bwd_without_jacobian_matches_plain(cuda, dmr):
+    """H1-bwd with ct_J None (the packed encode's table gradient: one
+    table, exact mode, no jacobian term) against plain, at the small metas
+    and at 16 levels on clustered points."""
+    meta, ea, _, x = _hash_case(dmr)
+    big = thash.HashGridMeta(num_levels=16, level_dim=2, base_resolution=16,
+                             log2_hashmap_size=14, desired_resolution=512)
+    for m, pts in ((meta, x), (big, _clustered_points())):
+        lt = thash.level_tables(m)
+        ct = torch.randn(pts.shape[0], 2 * lt.n_levels,
+                         generator=torch.Generator().manual_seed(2))
+        ref = thash.fused_bwd_plain(pts, m.table_rows, ct, None, None, lt,
+                                    "exact")[0]
+        n0 = thash.fused_bwd.launches
+        first, second = (thash.fused_bwd(pts.to(cuda), m.table_rows,
+                                         ct.to(cuda), None, None, lt,
+                                         "exact")[0] for _ in range(2))
+        torch.cuda.synchronize()
+        assert thash.fused_bwd.launches == n0 + 2
+        _close(first, ref)
+        _close(second, first.cpu())
+
+
+def test_color_step_on_card_matches_cpu(cuda):
+    """One Stage-3 colour step (training/stage3.py::color_step, with SGD;
+    the gradients it leaves are compared) on the card against the CPU
+    (the plain versions) at a 16-level field, the same points and draws:
+    the loss within 1e-4 relative, every gradient within 1e-4 of its
+    largest value (atomics and float32 sums in another order); H2 and
+    H1-bwd launched once, H1-fwd never. The hidden layers' weights are
+    scaled by 0.1 and their biases set to 1, so every ReLU input stays
+    near 1: one that rounds across 0 on one device only flips its
+    derivative there, which no tolerance covers (seen at the default
+    init: 6% of the table's largest gradient on one row)."""
+    from holoscene_tpu_torch.models.fields import ColorField, ColorFieldConfig
+    from holoscene_tpu_torch.training.stage3 import color_step
+
+    cfg = ColorFieldConfig(logmap=14, end_size=512, hidden=64)
+    rng = np.random.default_rng(4)
+    wp = torch.as_tensor(rng.uniform(-1.5, 1.5, (5000, 3)), dtype=torch.float32)
+    gt = torch.as_tensor(rng.uniform(0, 1, (5000, 3)), dtype=torch.float32)
+    idx = torch.as_tensor(rng.integers(0, 5000, 4096))
+    results = []
+    for dev in ("cpu", cuda):
+        field = ColorField(cfg, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            field.grid.uniform_(-0.5, 0.5,
+                                generator=torch.Generator().manual_seed(1))
+            for i in range(3):
+                field.mlp[f"lin{i}"].w.mul_(0.1)
+                field.mlp[f"lin{i}"].b.fill_(1.0)
+        field = field.to(dev)
+        opt = torch.optim.SGD(field.parameters(), lr=1.0)
+        counts = (thash.fused_fwd.launches, thash.fused_bwd.launches,
+                  thash.sampler_fwd.launches)
+        loss = color_step(field, opt,
+                          torch.optim.lr_scheduler.ExponentialLR(opt, 1.0),
+                          wp.to(dev), torch.tensor(True, device=dev),
+                          gt.to(dev), idx.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (thash.fused_fwd.launches - counts[0],
+                    thash.fused_bwd.launches - counts[1],
+                    thash.sampler_fwd.launches - counts[2]) == (0, 1, 1)
+        results.append((float(loss), {k: p.grad.cpu() for k, p
+                                      in field.named_parameters()}))
+    (ref_l, ref_g), (got_l, got_g) = results
+    assert abs(got_l - ref_l) <= 1e-4 * ref_l
+    for k, r in ref_g.items():
+        err = float((got_g[k] - r).abs().max())
+        assert err <= 1e-4 * float(r.abs().max()) + 1e-7, (k, err)

@@ -40,7 +40,10 @@ def test_port_lists_its_slice_modules():
                  "stage2", "stage2.scene_graph", "stage2.views",
                  "stage2.inpaint_views", "stage2.providers",
                  "stage2.refine", "stage2.remesh", "stage2.runner",
-                 "training.exp_runner_post"):
+                 "training.exp_runner_post", "training.stage3",
+                 "training.exp_runner_texture", "utils.uv_atlas",
+                 "export.glb", "export.usd", "export.load_scene",
+                 "export.cli"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 

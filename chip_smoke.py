@@ -4,10 +4,12 @@ NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, then drives the Stage-4 Gaussian-on-Mesh paths through their
 entry points at full width (512^2 frames, >= 100k gaussians, SH degree 3),
 the Stage-1 neural-SDF trainer through its CLI at the flagship width, the
-mesh extraction of its run, the synthetic quality gate's path, and Stage 2
-(per-object refinement checked by physics) through its CLI on a Stage-1
-run's checkpoint, Stage 3 (per-object texture baking) through its CLI on
-Stage 2's output, and the scene export CLI on the result.
+mesh extraction of its run, the synthetic quality gate's path, the
+multiview prediction (mv_predict) and Stage 2 (per-object refinement
+checked by physics) through their CLIs on a Stage-1 run's checkpoint,
+Stage 3 (per-object texture baking) through its CLI on Stage 2's output,
+the scene export CLI on the result, and the rest of the chain: Stage 0's
+priors and Stage 4 on Stage 3's textured meshes, with the chain record.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -102,6 +104,20 @@ Phases, one '== ' line each:
                  (16 images at 128^2, the gate's widths and stack): eval
                  PSNR finite and above iteration 0's training PSNR, the
                  background chamfer finite, H1-fwd / H1-bwd / H2 launched
+ 14a mv_predict  stage2/mv_predict.main on phase 10b's checkpoint with the
+                 post conf's sections (as phase 14), --mesh_resolution
+                 256, --seeds 42 3 7, the model-render novel-view provider:
+                 a cache written for every object with a mesh, each
+                 loading six views with pose, rgb, normal and mask; H2 and
+                 H1-fwd launched, H1-bwd never; wall time and launches.
+                 H1-fwd / H1-bwd (exact) at the renders' first H1 call and
+                 H2 at their first unpacked sampler call, recorded in the
+                 run, against plain: kernel ms, plain ms, bound.
+                 Then DiffusersNovelViewProvider (the TorchScript joint
+                 denoiser route) with a scripted stand-in denoiser on the
+                 card against the CPU from a cache's front view: rgb and
+                 normals within 1e-5, masks apart on at most 0.1% of the
+                 pixels. Phase 14 does not replay these caches
  14 Stage 2      training/exp_runner_post.main on phase 10b's checkpoint
                  (its model section is the post conf's: vjp, no probe
                  grid, 5 sampler rounds) with the loss, invis_loss and
@@ -143,15 +159,38 @@ Phases, one '== ' line each:
                  jacobian) against plain at a colour step's captured points
                  (4096 x 16) and at the background's first bake chunk
                  (65,536 x 16): kernel ms, plain ms, bound
-Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14 and
-15) it is
+ 16 the chain    (a) stage0/priors.main with scripted toy depth and normal
+                 models on a copy of phase 10b's scene, on the card and on
+                 the CPU: the files equal (depth within 1e-6). (b)
+                 training/exp_runner_gaussian.main on phase 15's run (its
+                 surface_{i}.obj: the room and both spheres, never cut)
+                 with the dataset's test split, the CLI's default 200
+                 iterations a mesh: every loss
+                 finite, K1 and K2 launched on every step, gauss_scene.ply
+                 and .usdz written, the test PSNR and SSIM finite; the
+                 gaussians by object, steps/s, splats/s, the l1 in thirds
+                 (whether it falls is printed, not checked) and the
+                 export's wall time; K1 / K2 against plain on the run's
+                 training frame 0 (its flat bins, tiles far longer than
+                 phase 8's): kernel ms, plain ms, bound. (c) the chain record as one JSON line
+                 (CHAIN_r05.json's shape: each stage's wall s, Stage 1's
+                 eval PSNR at the end of phase 10b, Stage 2's meshes and
+                 failed objects, Stage 3's textured count, Stage 4's PSNR,
+                 SSIM, gaussians, iterations and loss quartile medians)
+                 with a geometry column: calc_3d_metric (accuracy,
+                 completion, completion ratio; no alignment) of each
+                 object's mesh against the synthetic scene's analytic mesh
+                 for Stage 1 (phase 14's input extraction at 256), Stage 2
+                 (the accepted meshes) and Stage 3 (surface_{i}.obj)
+Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
+15 and 16) it is
 launched twice on the same inputs and the two results must be the same bits
 (K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
 launch to launch, so its two launches must agree within its tolerance to
 plain (1e-5 of the largest gradient), not bitwise.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
-10b, 12, 13, 14 and 15 (its CLI run and its invisible-view run) and read
-just after. Then the kernel table as one JSON line
+10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run) and 16
+(its Stage-4 run) and read just after. Then the kernel table as one JSON line
 and last the device line {"ok": true, "device": {...}}. Any failure exits
 non-zero before it.
 
@@ -194,7 +233,7 @@ import time
 from pathlib import Path
 
 FWD_ATOL = 2e-4               # K1/K3 vs plain (all 8 output channels)
-BWD_ATOL, BWD_RTOL = 5e-4, 5e-3   # K2/K4 vs plain
+BWD_ATOL, BWD_RTOL = 5e-4, 5e-3   # K2/K4 vs plain's float64 sums
 RES = 512
 N_IMAGES = 8
 MESH_RES = 32                 # marching-tetrahedra grid of the analytic meshes
@@ -309,6 +348,14 @@ def walk_work(chunks, real, cs, used, px, py, in_img):
     return int(used.sum()), pairs, live
 
 
+def exact_note(r):
+    """A backward's errors against plain's float64 sums, for a log line."""
+    if "max_abs_err_exact" not in r:
+        return ""
+    return (f" (vs exact sums {r['max_abs_err_exact']:.3g}; float32 plain "
+            f"{r['plain_max_abs_err_exact']:.3g})")
+
+
 def bound_ms(n_bytes: int, n_ops: int):
     by_bytes = n_bytes / MEM_BYTES_S * 1e3
     by_ops = n_ops / FP32_OPS_S * 1e3
@@ -316,11 +363,15 @@ def bound_ms(n_bytes: int, n_ops: int):
 
 
 def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
-                  bwd_plain, extra_in_bytes, seed, timed):
+                  bwd_plain, bwd_exact, extra_in_bytes, seed, timed):
     """One forward/backward kernel pair vs plain on the card; raises on
     disagreement. pixels = (px, py, in_img) of the tiles; fwd() -> (out
-    [T,P,8], used [T]); bwd(out, used, v) -> d cand. Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} (the times None unless timed)."""
+    [T,P,8], used [T]); bwd(out, used, v) -> d cand; bwd_exact the same
+    plain backward with float64 sums. The forward is held against plain
+    within FWD_ATOL, the backward against bwd_exact within BWD_ATOL +
+    BWD_RTOL |exact|. Returns {name: dict(max_abs_err (vs float32 plain),
+    ms, plain_ms, bound_ms, bound_by)} (the times None unless timed), the
+    backward's also max_abs_err_exact and plain_max_abs_err_exact."""
     import torch
 
     kf, kb = names
@@ -351,14 +402,23 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     if not torch.equal(dker, again):
         raise RuntimeError(f"{kb}: two launches on the same inputs differ "
                            f"(max abs {float((dker - again).abs().max())})")
+    # the reference: plain's closed form with float64 sums over the same
+    # float32 alphas and masks; both float32 walks round their long sums
+    # (thousands of candidates a pixel on the chain's tiles) their own way
+    exact = bwd_exact(ref, ref_used, v)
+    err_x = (dker.double() - exact).abs()
+    over = int((err_x > BWD_ATOL + BWD_RTOL * exact.abs()).sum())
     err_b = float((dker - dref).abs().max())
-    over = ((dker - dref).abs() > BWD_ATOL + BWD_RTOL * dref.abs()).sum()
-    if not torch.isfinite(dker).all() or int(over):
-        raise RuntimeError(f"{kb} disagrees with plain: {int(over)} values "
-                           f"outside atol {BWD_ATOL} rtol {BWD_RTOL}; max abs "
-                           f"err {err_b}")
+    plain_x = float((dref.double() - exact).abs().max())
+    if not torch.isfinite(dker).all() or over:
+        raise RuntimeError(f"{kb} disagrees with plain's exact sums: {over} "
+                           f"values outside atol {BWD_ATOL} rtol {BWD_RTOL}; "
+                           f"max abs err {float(err_x.max())} (float32 plain "
+                           f"{plain_x}, kernel vs float32 plain {err_b})")
     res = {kf: dict(max_abs_err=err_f, ms=None, plain_ms=None),
-           kb: dict(max_abs_err=err_b, ms=None, plain_ms=None)}
+           kb: dict(max_abs_err=err_b, max_abs_err_exact=float(err_x.max()),
+                    plain_max_abs_err_exact=plain_x, ms=None,
+                    plain_ms=None)}
     walked, pairs, live = walk_work(chunks, real, cs, ref_used, *pixels)
     vals, tiles = torch.unique(ref_used.long(), return_counts=True)
     read = walked * chunks[0].numel() * 4 + extra_in_bytes
@@ -384,6 +444,8 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
 
 
 def compare_flat(cand, cs, cc, tiles_x, width, height, seed, timed):
+    import torch
+
     from holoscene_tpu_torch.ops import splat_flat as sf
 
     geom = (tiles_x, 16, width, height)
@@ -400,6 +462,8 @@ def compare_flat(cand, cs, cc, tiles_x, width, height, seed, timed):
         lambda: with_used(sf.flat_fwd_plain(cand, cs, cc, *geom)),
         lambda o, _u, v: sf.flat_bwd(cand, cs, o, v, *geom),
         lambda o, _u, v: sf.flat_bwd_plain(cand, cs, o, v, *geom),
+        lambda o, _u, v: sf.flat_bwd_plain(cand, cs, o, v, *geom,
+                                           acc=torch.float64),
         2 * cs.numel() * 4, seed, timed)
 
 
@@ -421,6 +485,8 @@ def compare_topk(cand, origins, counts, width, height, seed, timed):
         lambda: st.composite_fwd_plain(cand, origins, counts, *geom),
         lambda o, u, v: st.composite_bwd(cand, origins, u, o, v, *geom),
         lambda o, u, v: st.composite_bwd_plain(cand, origins, u, o, v, *geom),
+        lambda o, u, v: st.composite_bwd_plain(cand, origins, u, o, v, *geom,
+                                               acc=torch.float64),
         origins.numel() * 4 + counts.numel() * 4, seed, timed)
 
 
@@ -1347,7 +1413,7 @@ def stage2_conf(work: Path) -> Path:
     return conf
 
 
-def stage2_phase(work: Path, dev, card: str) -> dict:
+def stage2_phase(work: Path, dev, card: str, chain: dict) -> dict:
     """Phase 14: exp_runner_post on phase 10b's checkpoint (the conf
     defaults' model, which the post conf's model section shares). Returns
     {H kernel: {launches, and at the invisible render's / the collision
@@ -1369,9 +1435,14 @@ def stage2_phase(work: Path, dev, card: str) -> dict:
     sim._PROVIDER = None
     # each finetune step's launches, and each grid evaluation's chunks
     # beside its H2 launches (host-side counters: no device work)
-    steps, grids = [], []
+    steps, grids, extracted = [], [], []
     step_fn, grid_fns = s2runner.finetune_step, (mc.evaluate_grid,
                                                  plots.evaluate_grid)
+    extract_fn = s2runner.Stage2Runner.extract_meshes
+
+    def recorded_extract(self):
+        extracted.append(extract_fn(self))   # the chain record's Stage 1
+        return extracted[-1]
 
     def counted_step(model, *args, **kw):
         before = read_hash_counts()          # each reading synchronizes
@@ -1395,6 +1466,7 @@ def stage2_phase(work: Path, dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     s2runner.finetune_step = counted_step
+    s2runner.Stage2Runner.extract_meshes = recorded_extract
     mc.evaluate_grid, plots.evaluate_grid = (counted_grid(f)
                                              for f in grid_fns)
     t0 = time.perf_counter()
@@ -1405,8 +1477,14 @@ def stage2_phase(work: Path, dev, card: str) -> dict:
             str(S2_ITERS), "--quiet", "--device", "cuda"])
     finally:
         s2runner.finetune_step = step_fn
+        s2runner.Stage2Runner.extract_meshes = extract_fn
         mc.evaluate_grid, plots.evaluate_grid = grid_fns
     wall = time.perf_counter() - t0
+    chain["stage1_meshes"] = extracted[0]
+    chain["stage2"] = {"wall_s": wall, "meshes": sum(
+        m is not None for m in runner.result["meshes"]),
+        "failed": list(runner.result["failed_objects"]),
+        "accepted": runner.result["meshes"]}
     launches = read_hash_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     res = runner.result
@@ -1566,20 +1644,22 @@ S3_CHUNK = 1 << 16    # Stage3Runner.export_mesh_texture's bake chunk
 TEX_CONF = Path(__file__).resolve().parent / "confs" / "replica_room0_tex.conf"
 
 
-def stage3_conf(work: Path) -> Path:
+def stage3_conf(work: Path, test_split: bool = False) -> Path:
     """confs/replica_room0_tex.conf with its dataset pointed at the
     generated 512^2 scene and its expname at phase 14's run (phase 10b's,
-    whose plots dir holds Stage 2's meshes), as stage2_conf does."""
+    whose plots dir holds Stage 2's meshes), as stage2_conf does;
+    test_split holds frames out of training (phase 16's Stage 4)."""
     import re
 
     text = TEX_CONF.read_text()
     text = re.sub(r"expname = \S+", "expname = smoke_s1_vjp", text)
+    split = " test_split = True\n" if test_split else ""
     text = re.sub(r"dataset\s*\{[^}]*\}", f"""dataset{{
  data_root_dir = {work / 'data_s1'}
  data_dir = scene_0
  img_res = [{S1_RES}, {S1_RES}]
-}}""", text)
-    conf = work / "smoke_s3_tex.conf"
+{split}}}""", text)
+    conf = work / f"smoke_s3_tex{'_split' if test_split else ''}.conf"
     conf.write_text(text)
     return conf
 
@@ -1607,7 +1687,8 @@ def compare_h1_bwd_no_j(x01, n_rows, lt, seed: int) -> dict:
     return res
 
 
-def stage3_phase(work: Path, dev, card: str, gauss_ply: Path) -> dict:
+def stage3_phase(work: Path, dev, card: str, gauss_ply: Path,
+                 chain: dict) -> dict:
     """Phase 15: exp_runner_texture on phase 14's run, an invisible-view
     run of one object, and the export CLI on the result. Returns {H
     kernel: {launches, and at the colour step's / a bake chunk's inputs:
@@ -1669,6 +1750,9 @@ def stage3_phase(work: Path, dev, card: str, gauss_ply: Path) -> dict:
     want_steps = S3_ITERS + (n_obj - 1) * (S3_ITERS // 10)
     timer = runner.timer.seconds
     train_s = sum(v for k, v in timer.items() if k.endswith("training"))
+    chain["stage3"] = {
+        "wall_s": wall, "textured": len(list(plots.glob("surface_*.obj"))),
+        "px_per_s": runner.pixels_per_step * len(steps) / train_s}
     log(f"== 15 Stage 3 (exp_runner_texture on phase 14's run, "
         f"{TEX_CONF.name}'s train section, ColorFieldConfig's defaults: 16 "
         f"levels 16-2048, 2^19 rows, hidden 256; {runner.pixels_per_step} "
@@ -1838,8 +1922,363 @@ def stage3_phase(work: Path, dev, card: str, gauss_ply: Path) -> dict:
     return out
 
 
-def stage1_phases(work: Path, dev, card: str) -> dict:
-    """Phases 9-11. Returns {H kernel: its row of the kernel table}."""
+MV_SEEDS = (42, 3, 7)  # phase 14a: mv_predict's --seeds
+W3D_ATOL = 1e-5       # the Wonder3D+ provider on the card vs the CPU
+# phase 16: the chamfers' samples a mesh and the analytic meshes' grid
+CHAMFER_SAMPLES, GT_MESH_RES = 30000, 64
+
+
+def w3d_stand_in(path: Path) -> str:
+    """A scripted stand-in of the Wonder3D+ joint denoiser contract (no
+    weights): model(imgs_in [2Nv,3,H,W], cam [2Nv,7], noise) -> [2Nv,3,H,W]
+    in [0,1], the first Nv normal-domain (+z in the conditioning frame),
+    the last Nv colours darkened by the azimuth plus a little noise."""
+    import torch
+
+    class StandInW3D(torch.nn.Module):
+        def forward(self, imgs, cam, noise):
+            az = cam[:, 2].view(-1, 1, 1, 1)
+            is_normal = cam[:, 5].view(-1, 1, 1, 1)
+            colors = 1.0 - (1.0 - imgs) * (0.5 + 0.4 * torch.cos(az))
+            colors = colors + 0.01 * noise
+            normal01 = torch.zeros_like(imgs)
+            normal01[:, 0] = 0.5
+            normal01[:, 1] = 0.5
+            normal01[:, 2] = 1.0
+            return torch.clamp(is_normal * normal01
+                               + (1.0 - is_normal) * colors, 0.0, 1.0)
+
+    torch.jit.script(StandInW3D()).save(str(path))
+    return str(path)
+
+
+def prior_stand_ins(work: Path) -> tuple[str, str]:
+    """Scripted toy depth / normal models of the Stage-0 contract
+    (model(image [1,3,H,W] in [0,1]) -> depth [1,1,H,W] / normals
+    [1,3,H,W]): (depth path, normal path)."""
+    import torch
+
+    class ToyDepth(torch.nn.Module):
+        def forward(self, image):
+            h = image.shape[2]
+            ramp = torch.arange(h, dtype=image.dtype,
+                                device=image.device).view(1, 1, h, 1) / h
+            return image.mean(dim=1, keepdim=True) * 2.0 + 0.5 + ramp
+
+    class ToyNormal(torch.nn.Module):
+        def forward(self, image):
+            n = image * 2.0 - 1.0
+            return torch.cat([n[:, :2], -(1.0 + image[:, 2:3])], dim=1)
+
+    paths = (str(work / "toy_depth.pt"), str(work / "toy_normal.pt"))
+    for module, path in zip((ToyDepth(), ToyNormal()), paths):
+        torch.jit.script(module).save(path)
+    return paths
+
+
+def mv_predict_phase(work: Path, dev, card: str, chain: dict) -> dict:
+    """Phase 14a: stage2/mv_predict.py on phase 10b's checkpoint, then the
+    live Wonder3D+ provider with a scripted stand-in denoiser on the card
+    against the CPU. Returns {H kernel: {launches of the CLI run, and at
+    the renders' first H1-fwd / unpacked H2 call: max_abs_err, ms,
+    plain_ms, bound_ms, bound_by}}."""
+    import numpy as np
+
+    from holoscene_tpu_torch.stage2 import mv_predict
+    from holoscene_tpu_torch.stage2 import providers as prov
+    from holoscene_tpu_torch.stage2 import runner as s2runner
+
+    conf = stage2_conf(work)
+    meshes = []
+    extract_fn = s2runner.Stage2Runner.extract_meshes
+
+    def recorded_extract(self):
+        meshes.append(extract_fn(self))
+        return meshes[-1]
+
+    # the first H1-fwd call and the first unpacked H2 call (the extraction's
+    # grid chunks are packed): the novel-view renders' first chunk
+    first = {}
+
+    def keep_first(name, args):
+        if name == "fused_fwd" or not args[3]:
+            first.setdefault(name, args)
+
+    out_dir = work / "mv_cache"
+    reset_counts()
+    s2runner.Stage2Runner.extract_meshes = recorded_extract
+    t0 = time.perf_counter()
+    try:
+        written, _ = record_hash(lambda: mv_predict.main([
+            "--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
+            "--mesh_resolution", str(S2_MESH_RES), "--seeds",
+            *map(str, MV_SEEDS), "--out", str(out_dir), "--quiet",
+            "--device", "cuda"]), ("fused_fwd", "sampler_fwd"), keep_first)
+    finally:
+        s2runner.Stage2Runner.extract_meshes = extract_fn
+    launches = read_hash_counts()
+    wall = time.perf_counter() - t0
+    chain["mv_predict"] = {"wall_s": wall, "caches": len(written)}
+    with_mesh = [i for i, m in enumerate(meshes[0]) if i and m is not None]
+    log(f"== 14a mv_predict (stage2/mv_predict.py on phase 10b's checkpoint, "
+        f"--mesh_resolution {S2_MESH_RES}, --seeds {list(MV_SEEDS)}, the "
+        f"model-render provider) in {wall:.1f} s: objects with a mesh "
+        f"{with_mesh} (faces {[None if m is None else len(m.faces) for m in meshes[0]]})"
+        f", caches {[Path(p).name for p in written]}; launches {launches}; "
+        f"on {card}")
+    if written != [str(out_dir / f"vis_info_{i}.pkl") for i in with_mesh] \
+            or not written:
+        raise RuntimeError(f"mv_predict wrote {written}; objects with a "
+                           f"mesh {with_mesh}")
+    for path in written:
+        views = prov.load_vis_info(path)
+        if len(views) != 6 or any(
+                not {"pose", "rgb", "normal", "mask"} <= set(v)
+                or not np.isfinite(v["rgb"]).all()
+                or not np.isfinite(v["normal"]).all() for v in views):
+            raise RuntimeError(f"mv_predict cache {path}: {len(views)} views "
+                               f"with keys {[sorted(v) for v in views]}")
+    # H2 in the extraction's grid chunks and the renders' samplers, H1-fwd
+    # in the renders' field (no backward: H1-bwd never)
+    if launches["H1-fwd"] < 1 or launches["H2"] < 1 or launches["H1-bwd"]:
+        raise RuntimeError(f"mv_predict launches {launches}")
+    if set(first) != {"fused_fwd", "sampler_fwd"}:
+        raise RuntimeError(f"mv_predict's renders made no H1-fwd or unpacked "
+                           f"H2 call: {sorted(first)}")
+
+    # H1 / H2 against plain at the renders' first chunk (after the counts)
+    out = {k: {"launches": launches[k]} for k in HASH_KERNELS}
+    x01, emb_a, emb_b, lt = first["fused_fwd"]
+    got = compare_h1(x01, emb_a.detach(),
+                     None if emb_b is None else emb_b.detach(), lt, 41,
+                     timed=True, modes=("exact",))
+    x2, emb2, lt2, packed = first["sampler_fwd"]
+    got["H2"] = compare_h2(x2, emb2.detach(), lt2, timed=True, packed=packed)
+    shapes = {"H1-fwd": (x01, lt), "H1-bwd": (x01, lt), "H2": (x2, lt2)}
+    for k in HASH_KERNELS:
+        out[k]["mv_predict_render"] = got[k]
+    log("   the renders' first chunk vs plain: " + "; ".join(
+        f"{k} ({shapes[k][0].shape[0]} points x {shapes[k][1].n_levels} "
+        f"levels) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({100 * r['bound_ms'] / r['ms']:.1f}%), max abs err "
+        f"{r['max_abs_err']:.3g}" for k, r in got.items()) + f"; on {card}")
+
+    # the live Wonder3D+ provider (TorchScript joint denoiser) on the card
+    # against the same provider on the CPU, from a cache's front view
+    ckpt = w3d_stand_in(work / "w3d_stand_in.pt")
+    front = prov.load_vis_info(written[0])[0]
+    poses = [v["pose"] for v in prov.load_vis_info(written[0])]
+    views = {}
+    t0 = time.perf_counter()
+    for d in (dev, "cpu"):
+        provider = prov.DiffusersNovelViewProvider(
+            ckpt, d, fg_extractor=prov.ThresholdForegroundExtractor())
+        views[str(d)] = provider.generate_views(front["rgb"], front["mask"],
+                                                poses, seed=MV_SEEDS[0])
+    got, ref = views[str(dev)], views["cpu"]
+    err = max(float(np.abs(g[k] - r[k]).max()) for g, r in zip(got, ref)
+              for k in ("rgb", "normal"))
+    mask_share = max(float((g["mask"] != r["mask"]).mean())
+                     for g, r in zip(got, ref))
+    log(f"   DiffusersNovelViewProvider (scripted stand-in, img_size "
+        f"{provider.img_size}) on {dev} vs the CPU, {len(got)} views of "
+        f"{got[0]['rgb'].shape}: max abs err {err:.3g} (within {W3D_ATOL}), "
+        f"mask pixels apart {mask_share:.3g}, {time.perf_counter() - t0:.1f}"
+        f" s for both")
+    if len(got) != 6 or not err <= W3D_ATOL or mask_share > 1e-3:
+        raise RuntimeError(f"Wonder3D+ provider on the card: max abs err "
+                           f"{err}, mask share apart {mask_share}")
+    return out
+
+
+def _quartile_medians(values):
+    import numpy as np
+
+    return [float(np.median(q)) for q in np.array_split(np.asarray(values),
+                                                        4)]
+
+
+def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
+    """Phase 16: Stage 0 with scripted toy models on a copy of the scene
+    (card vs CPU), Stage 4 (exp_runner_gaussian) on phase 15's textured
+    meshes, and the chain record with the geometry of stages 1-3 against
+    the analytic scene. Returns (K1-K4's launches of the Stage-4 run, K1/K2
+    against plain on its training frame 0: compare_flat's result)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from holoscene_tpu_torch.datasets.synthetic import scene_meshes
+    from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.stage0 import priors
+    from holoscene_tpu_torch.training import exp_runner_gaussian
+    from holoscene_tpu_torch.training import stage4 as s4
+    from holoscene_tpu_torch.utils.eval_geometry import calc_3d_metric
+
+    # 16a Stage 0 on copies of the generated scene (data_s1 stays as is)
+    depth_ckpt, normal_ckpt = prior_stand_ins(work)
+    written, secs = {}, {}
+    for d in ("cuda", "cpu"):
+        root = work / ("data_s0" if d == "cuda" else "data_s0_cpu")
+        shutil.copytree(work / "data_s1" / "scene_0", root / "scene_0")
+        t0 = time.perf_counter()
+        written[d] = priors.main([
+            "--scene_dir", str(root / "scene_0"), "--depth_checkpoint",
+            depth_ckpt, "--normal_checkpoint", normal_ckpt, "--overwrite",
+            "--device", d])
+        secs[d] = time.perf_counter() - t0
+    (d_gpu, n_gpu), (d_cpu, n_cpu) = written["cuda"], written["cpu"]
+    depth_err = max(float(np.abs(np.load(a) - np.load(b)).max())
+                    for a, b in zip(d_gpu, d_cpu))
+    normals_equal = all(np.array_equal(np.asarray(Image.open(a)),
+                                       np.asarray(Image.open(b)))
+                        for a, b in zip(n_gpu, n_cpu))
+    log(f"== 16 the chain: (a) Stage 0 (stage0/priors.py, scripted toy depth "
+        f"and normal models) on a copy of the {S1_IMAGES} x {S1_RES}^2 scene "
+        f"in {secs['cuda']:.2f} s on {dev} ({secs['cpu']:.2f} s on the CPU): "
+        f"{len(d_gpu)} depth + {len(n_gpu)} normal files; depth max abs err "
+        f"vs the CPU run {depth_err:.3g} (within 1e-6), normal PNGs equal "
+        f"{normals_equal}")
+    if len(d_gpu) != S1_IMAGES or not depth_err <= 1e-6 \
+            or not normals_equal:
+        raise RuntimeError(f"Stage 0: {len(d_gpu)} files, depth err "
+                           f"{depth_err}, normals equal {normals_equal}")
+
+    # 16b Stage 4 on phase 15's textured meshes (surface_{i}.obj)
+    conf = stage3_conf(work, test_split=True)
+    step_launches, export_s = [], []
+    step_fn, export_fn = s4.Stage4Runner._step, s4.Stage4Runner.export
+
+    def counted_step(self, *args):
+        k1, k2 = sf.flat_fwd.launches, sf.flat_bwd.launches
+        out = step_fn(self, *args)
+        step_launches.append((sf.flat_fwd.launches - k1,
+                              sf.flat_bwd.launches - k2))
+        return out
+
+    def timed_export(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = export_fn(self)
+        export_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    s4.Stage4Runner._step, s4.Stage4Runner.export = counted_step, timed_export
+    t0 = time.perf_counter()
+    try:
+        runner = exp_runner_gaussian.main(
+            ["--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
+             "--log_every", "1", "--quiet", "--device", "cuda"])
+    finally:
+        s4.Stage4Runner._step, s4.Stage4Runner.export = step_fn, export_fn
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist, iters = runner.history, runner.max_total_iters
+    n_gauss = runner.static["num_gaussians"]
+    per_obj = [hi - lo for lo, hi in runner.instance_ranges]
+    plots = Path(runner.out_dir)
+    test = runner.test_metrics
+    trend = thirds(hist, ("loss", "l1", "psnr"))
+    steps_s = iters / runner.run_seconds
+    steady_s = (iters - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
+    log(f"   (b) Stage 4 (exp_runner_gaussian on phase 15's run: "
+        f"{len(runner.meshes)} meshes, faces "
+        f"{[len(m.faces) for m in runner.meshes]}) in {wall:.1f} s: "
+        f"{n_gauss} gaussians (by object {per_obj}), SH "
+        f"{runner.cfg.sh_degree}, {iters} steps in {runner.run_seconds:.3f} s:"
+        f" {steps_s:.3f} steps/s, {n_gauss * steps_s:.6g} splats/s (first "
+        f"step included); steps 2..{iters}: {steady_s:.3f} steps/s, "
+        f"{1e3 / steady_s:.2f} ms/step, {n_gauss * steady_s:.6g} splats/s; "
+        f"rebins {runner.rebin_count}, stale steps {runner.stale_steps}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}; "
+        f"on {card}")
+    log("   first/last third means: " + ", ".join(
+        f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items())
+        + f" (l1 {'fell' if trend['l1'][1] < trend['l1'][0] else 'did not fall'}"
+        f", reported, not checked); test {test}; export (gauss_obj_{{i}}.ply"
+        f"/.npz, gauss_scene.ply, gauss_scene.usdz) "
+        f"{export_s[0] if export_s else float('nan'):.3f} s")
+    if len(hist) != iters or not all(finite(h["loss"]) and finite(h["l1"])
+                                     for h in hist):
+        raise RuntimeError(f"Stage 4 on the chain: {len(hist)} logged steps "
+                           f"for {iters}, or a non-finite loss")
+    if len(step_launches) != iters or any(k1 < 1 or k2 < 1
+                                          for k1, k2 in step_launches):
+        raise RuntimeError(f"Stage 4 on the chain: K1/K2 not launched every "
+                           f"step ({len(step_launches)} steps counted)")
+    missing = [n for n in ("gauss_scene.ply", "gauss_scene.usdz")
+               if not (plots / n).exists()]
+    if missing or not (finite(test["psnr"]) and finite(test["ssim"])):
+        raise RuntimeError(f"Stage 4 on the chain: missing {missing}, test "
+                           f"{test}")
+    # K1/K2 against plain on the chain run's training frame 0 (after the
+    # counts), at the tile lengths of its gaussians
+    h, w = runner.dataset.img_res
+    pose, intr = runner._pose_intr(0)
+    xy, depth, conic, _, _, opac, rgb = gom_projection(runner, pose, intr,
+                                                       w, h)
+    bins = runner._get_bins(0, pose, intr)
+    cand = sf.gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
+    walks = compare_flat(cand, bins["tile_chunk_start"],
+                         bins["tile_chunk_cnt"], -(-w // 16), w, h, 7,
+                         timed=True)
+    longest = max(walks["K1"]["tiles_by_walked_chunks"])
+    log(f"   K1/K2 vs plain, the chain's training frame 0 "
+        f"({cand.shape[0] // sf.CHUNK} flat chunks, "
+        f"{walks['K1']['walked_chunks']} walked, at most {longest} a tile; "
+        f"{walks['K1']['live_candidate_pixels']} of "
+        f"{walks['K1']['candidate_pixels']} candidate-pixels live): "
+        + "; ".join(f"{k} max abs err {r['max_abs_err']:.3g}"
+                    f"{exact_note(r)}, kernel "
+                    f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
+                    for k, r in walks.items()) + f"; on {card}")
+    chain["stage4"] = {
+        "wall_s": wall, "psnr": test["psnr"], "ssim": test["ssim"],
+        "lpips": test["lpips"] if finite(test["lpips"]) else None,
+        "gaussians": n_gauss, "iters": iters,
+        "stale_steps": runner.stale_steps,
+        "loss_quartile_medians": _quartile_medians([h["loss"]
+                                                    for h in hist]),
+        "l1_quartile_medians": _quartile_medians([h["l1"] for h in hist])}
+
+    # 16c the chain record: each stage's meshes against the analytic scene
+    t0 = time.perf_counter()
+    truth = scene_meshes(GT_MESH_RES)
+    stages = {"stage1": chain.pop("stage1_meshes"),
+              "stage2": chain["stage2"].pop("accepted"),
+              "stage3": runner.meshes}
+    geometry = {
+        stage: {str(i): {k: float(v) for k, v in calc_3d_metric(
+            m, truth[i], n_samples=CHAMFER_SAMPLES, align=False).items()}
+            for i, m in enumerate(meshes)
+            if m is not None and i < len(truth) and len(m.faces)}
+        for stage, meshes in stages.items()}
+    record = dict(chain)
+    record["geometry"] = geometry
+    record["total"] = {"wall_s": sum(v["wall_s"] for v in chain.values())}
+    bad = [f"{st}/{i}" for st, g in geometry.items() for i, m in g.items()
+           if not all(finite(v) for v in m.values())]
+    if bad or not geometry["stage3"]:
+        raise RuntimeError(f"chain geometry: non-finite chamfers {bad} or "
+                           f"none for Stage 3: {geometry}")
+    log(f"   (c) chain record (geometry: calc_3d_metric of each object's "
+        f"mesh against the analytic scene at {GT_MESH_RES}^3, "
+        f"{CHAMFER_SAMPLES} samples, no alignment; "
+        f"{time.perf_counter() - t0:.1f} s):")
+    log(json.dumps(record))
+    return launches, walks
+
+
+def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
+    """Phases 9-11; phase 10b's run opens the chain record `chain`.
+    Returns {H kernel: its row of the kernel table}."""
     import torch
 
     from holoscene_tpu_torch.models import holoscene as hs
@@ -1924,6 +2363,7 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
     # 10b the conf defaults: the vjp gradient mode, untiered
     conf = stage1_conf(work, "smoke_s1_vjp", S1_MODEL_DEFAULT)
     reset_counts()
+    t0 = time.perf_counter()
     # H1-bwd's modes and H2's calls recorded
     runner, rec = record_hash(lambda: exp_runner.main(
         ["--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
@@ -1946,6 +2386,10 @@ def stage1_phases(work: Path, dev, card: str) -> dict:
                      cfg10b.render_bg_iter, 2, card)
     if launches_b["H2"] < S1B_STEPS:
         raise RuntimeError(f"10b: H2 launches {launches_b}")
+    # the chain record's Stage 1 (phases 14-16 continue this run): its
+    # wall time, and an eval frame after the phase's counts were read
+    chain["stage1"] = {"iters": S1B_STEPS, "wall_s": time.perf_counter() - t0,
+                       "eval_psnr": runner.plot(S1B_STEPS - 1)["psnr"]}
     del runner
     # H2 at the run's first sampler call (the first step's rays)
     x01, emb, lt, packed = rec["sampler_fwd"][0]
@@ -2284,8 +2728,8 @@ def main() -> int:
             f"{tuple(lists[0].shape)}) on {card}:")
         for k in KERNELS:
             b = big[k]
-            log(f"   {k}: max abs err {b['max_abs_err']:.3g}, kernel "
-                f"{b['ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, bound "
+            log(f"   {k}: max abs err {b['max_abs_err']:.3g}{exact_note(b)}, "
+                f"kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, bound "
                 f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
                 f"({b['walked_chunks']} chunks walked, "
                 f"{b['live_candidate_pixels']} of {b['candidate_pixels']} "
@@ -2331,15 +2775,23 @@ def main() -> int:
                         f"{r['K4']['max_abs_err']:.3g}"
                         for path, r in other.items()))
 
-        hash_rows = stage1_phases(work, dev, card)
+        # the chain record of phases 10b, 14a, 14, 15 and 16
+        chain = {}
+        hash_rows = stage1_phases(work, dev, card, chain)
         gate = gate_phase(work, card)
-        stage2 = stage2_phase(work, dev, card)
-        stage3 = stage3_phase(work, dev, card, plots / "gauss_scene.ply")
+        mv = mv_predict_phase(work, dev, card, chain)
+        stage2 = stage2_phase(work, dev, card, chain)
+        stage3 = stage3_phase(work, dev, card, plots / "gauss_scene.ply",
+                              chain)
+        paths["chain_stage4"], other["chain_stage4"] = chain_phase(
+            work, dev, card, chain)
         for k, row in hash_rows.items():
             row["launches_by_path"]["quality_gate"] = gate[k]
+            row["launches_by_path"]["mv_predict"] = mv[k].pop("launches")
             row["launches_by_path"]["stage2"] = stage2[k].pop("launches")
             row["launches_by_path"]["stage3"] = stage3[k].pop("launches")
-            for tag, r in [*stage2[k].items(), *stage3[k].items()]:
+            for tag, r in [*mv[k].items(), *stage2[k].items(),
+                           *stage3[k].items()]:
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          r["max_abs_err"])
                 row[tag] = {key: r[key] for key in (
@@ -2352,6 +2804,12 @@ def main() -> int:
         b["max_abs_err"] = max(
             [b["max_abs_err"], small[k]["max_abs_err"]]
             + [r[k]["max_abs_err"] for r in other.values() if k in r])
+        if k in other["chain_stage4"]:
+            b["chain_stage4"] = {
+                key: val for key, val in other["chain_stage4"][k].items()
+                if key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "max_abs_err", "max_abs_err_exact",
+                           "plain_max_abs_err_exact")}
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
     table.extend(hash_rows.values())

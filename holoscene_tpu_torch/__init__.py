@@ -24,6 +24,10 @@ slice):
               (holoscene); Gaussian-on-Mesh seeding, reparameterisations,
               render, loss (gom)
   losses/     the Stage-1 loss stack
+  stage0/     monocular depth / normal priors (TorchScript providers, CLI)
+  stage2/     per-object refinement (Stage2Runner and its parts), the
+              generative-model providers, the mv_predict CLI
+  physics/    the stability and settle providers of Stage 2
   training/   Stage1Runner and its exp_runner CLI; Stage3Runner (colour
               field, UV bake) and its exp_runner_texture CLI;
               Stage4Runner, the exp_runner_gaussian CLI, the gs_render

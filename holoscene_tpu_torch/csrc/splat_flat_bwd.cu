@@ -31,7 +31,7 @@
 // with a ballot so that only candidates live in the warp reach the serial
 // part, the next chunk fetched by cp.async meanwhile) is shared with K4.
 // One block per tile, one thread per pixel; a 256-thread block takes 52 KB
-// of dynamic shared memory and 71 registers a thread: three blocks an SM.
+// of dynamic shared memory and 75 registers a thread: three blocks an SM.
 // Sums are taken in a fixed order, so the result is the same bits from
 // launch to launch.
 
@@ -42,9 +42,10 @@ namespace {
 using namespace splat_walk;
 
 // The launch bounds are the register budget only: a 1024-thread block can
-// be given 64 registers a thread and no more; for the 256-thread blocks of
-// 16 x 16 tiles ptxas takes 71 at three blocks an SM, which is 4-6% faster
-// here than 64 at four.
+// be given 64 registers a thread and no more (ptxas spills 16 bytes there);
+// for the 256-thread blocks of 16 x 16 tiles it takes 75 at three blocks an
+// SM (71 before the chunk partials of splat_walk.cuh::backprop_chunk, and
+// then 4-6% faster here than 64 at four).
 template <int kMaxThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     splat_flat_bwd_kernel(const float* __restrict__ cand,

@@ -45,9 +45,9 @@ namespace {
 using namespace splat_walk;
 
 // The launch bounds are the register budget only: a 1024-thread block can
-// be given 64 registers a thread and no more; for the 256-thread blocks of
-// 16 x 16 tiles ptxas takes 71 at three blocks an SM, which is 4-6% faster
-// here than 64 at four.
+// be given 64 registers a thread and no more (ptxas spills 16 bytes there);
+// for the 256-thread blocks of 16 x 16 tiles it takes 71 at three blocks an
+// SM, which is 4-6% faster here than 64 at four.
 template <int kMaxThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     splat_topk_bwd_kernel(const float* __restrict__ cand,

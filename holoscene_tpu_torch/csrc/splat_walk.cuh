@@ -391,6 +391,13 @@ __device__ __forceinline__ int grad_row(int lane) {
 // gradient masked to power < 0. For every candidate that some lane keeps the
 // warp's ten sums go to slab [kChunk][kGradRows] and the candidate's bit is
 // set in mask [4]; the other entries of the slab are left as they were.
+// Both sums are kept as the plain version keeps them: a partial over the
+// chunk's later candidates beside the sum over the later chunks, which takes
+// the chunk's partial once, at its end. A single running sum over a tile's
+// thousands of live candidates rounds far from plain's: on an H100, at
+// chip_smoke.py phase 16's frame (tiles of up to 70 chunks), it put K2 up
+// to 1.2e-2 off plain; kept this way K2 is 7.0e-4 off plain, and 1.2e-3 off
+// float64 sums where float32 plain is 9.8e-4 off them.
 __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
                                                unsigned* mask, float px,
                                                float py, bool in_img,
@@ -398,6 +405,9 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
                                                const float (&v)[5],
                                                float& suffix, float& s_after,
                                                int lane, int row) {
+  const float head = total - suffix;  // log T before this chunk's candidates
+  float part = 0.f;                   // sum log(1 - a), later in the chunk
+  float s_part = 0.f;                 // sum w s, later in the chunk
   for (int word = kChunk / 32 - 1; word >= 0; --word) {
     unsigned reached = 0;  // bit k % 32: some lane keeps candidate k
     for (int grp = 32 / kGroup - 1; grp >= 0; --grp) {
@@ -440,13 +450,14 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
 #pragma unroll
         for (int r = 0; r < kGradRows; ++r) g[r] = 0.f;
         if (a >= kAlphaEps) {
-          const float log1m = log1pf(-a);
-          const float tr = in_img ? expf(total - suffix - log1m) : 0.0f;
+          const float incl = part + log1pf(-a);
+          const float tr = in_img ? expf(head - incl) : 0.0f;
           const float w = a * tr;
           const float s = v[0] * c1.z + v[1] * c1.w + v[2] * c2.x +
                           v[3] * c2.y + v[4] * c2.z;
-          const float da =
-              a_pre < 0.999f ? tr * s - s_after / (1.0f - a) : 0.0f;
+          const float da = a_pre < 0.999f
+                               ? tr * s - (s_part + s_after) / (1.0f - a)
+                               : 0.0f;
           const float dpow = (negative >> i) & 1u ? da * a : 0.0f;
           g[0] = dpow * (ca * dx + cb * dy);
           g[1] = dpow * (cb * dx + cc * dy);
@@ -458,8 +469,8 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
           g[7] = v[1] * w;
           g[8] = v[2] * w;
           g[9] = v[3] * w;
-          suffix += log1m;
-          s_after += w * s;
+          part = incl;
+          s_part += w * s;
         }
         const float sum = reduce_rows(g, lane);
         if (row >= 0) slab[k * kGradRows + row] = sum;
@@ -467,6 +478,8 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
     }
     if (lane == 0) mask[word] = reached;
   }
+  suffix += part;
+  s_after += s_part;
 }
 
 // Add the warps' slabs of one chunk in warp order, a slab only where its

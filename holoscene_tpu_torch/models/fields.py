@@ -381,6 +381,25 @@ def implicit_sdf_raw(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
     return implicit_forward(net, x, with_features=False)[0]
 
 
+def implicit_scene_sdf(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
+    """Scene SDF [N] = the min over the object SDFs (JAX
+    implicit_scene_sdf; reference model/network.py:287)."""
+    return torch.amin(implicit_sdf_raw(net, x), -1)
+
+
+def implicit_object_sdf(net: ImplicitNetwork, x: torch.Tensor,
+                        idx: int) -> torch.Tensor:
+    """Object idx's SDF [N] (JAX implicit_object_sdf)."""
+    return implicit_sdf_raw(net, x)[:, idx]
+
+
+def implicit_multi_object_sdf(net: ImplicitNetwork, x: torch.Tensor,
+                              idxs) -> torch.Tensor:
+    """The min over the objects idxs' SDFs [N] (JAX
+    implicit_multi_object_sdf)."""
+    return torch.amin(implicit_sdf_raw(net, x)[:, list(idxs)], -1)
+
+
 def implicit_sdf_raw_grid(net: ImplicitNetwork,
                           x: torch.Tensor) -> torch.Tensor:
     """The object SDFs [N, K] for mesh extraction's grid evaluation: JAX

@@ -1,7 +1,7 @@
 """HoloScene Stage-1 renderer: object-compositional neural-SDF volume
 rendering (port of holoscene_tpu/models/holoscene.py: HoloSceneConfig,
 init_holoscene, get_beta, scene_sdf_nograd, make_probe_bake, render_rays,
-render_bg_patch).
+render_bg_patch, the object-subset renders and query_point_colors).
 
 render_rays keeps the shipped fast path of the JAX package: sample
 placement from the error-bound sampler (probe grid or H2 probes), top-M
@@ -12,9 +12,9 @@ one single-table H1 call. The vjp gradient mode (the JAX default) renders
 untiered through `implicit_get_outputs` (H1, exact backward). Every random
 number is an argument (`RenderDraws`). Stage 2 renders objects in isolation
 with render_rays_only_multi_obj (H2 sampler over the subset's SDF, H1
-exact). Not ported yet (ROADMAP.md queue A): render_rays_multi_obj,
-query_point_colors, the occupancy grid, and the jvp gradient mode
-(A.17)."""
+exact); render_rays_multi_obj renders a subset inside the scene. Not
+ported (ROADMAP.md A.17): the occupancy grid and the jvp gradient
+mode."""
 
 from __future__ import annotations
 
@@ -404,6 +404,29 @@ def render_bg_patch(model: HoloSceneModel, rays_o, rays_d, depth_scale,
     }
 
 
+def _subset_samples(model: HoloSceneModel, rays_o, rays_d, obj_idxs, draws,
+                    training: bool, near=None, far=None):
+    """The object-subset renders' samples: error-bound sampling of the
+    subset's min-SDF (H2 probes), then the field through
+    implicit_get_outputs (H1, exact backward) and the rendering MLP at
+    them. Returns (z_vals [R, S], implicit_get_outputs' five outputs,
+    rgb [R*S, 3])."""
+    cfg = model.cfg
+    R = rays_o.shape[0]
+    z_vals, _ = error_bound_sample(
+        rays_o, rays_d, scene_sdf_nograd(model, cfg, obj_idxs=obj_idxs),
+        get_beta(model).detach(), cfg.sampler, draws, training=training,
+        near=near, far=far)
+    S = z_vals.shape[-1]
+    points_flat = (rays_o[:, None, :] + z_vals[..., None]
+                   * rays_d[:, None, :]).reshape(-1, 3)
+    dirs_flat = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    outs = implicit_get_outputs(model.implicit, points_flat,
+                                create_graph=training)
+    rgb_flat = model.rendering(points_flat, outs[2], dirs_flat, outs[1])
+    return z_vals, outs, rgb_flat
+
+
 def render_rays_only_multi_obj(model: HoloSceneModel, rays_o, rays_d,
                                depth_scale, w2c_rot, obj_idxs,
                                draws: SamplerDraws | None = None,
@@ -419,19 +442,10 @@ def render_rays_only_multi_obj(model: HoloSceneModel, rays_o, rays_d,
     weights into the colour composite only (depth, normals and acc keep
     it). Returns rgb_values, depth_values, normal_map (rotated by w2c_rot),
     acc, weights, z_vals and the subset SDF."""
-    cfg = model.cfg
     R = rays_o.shape[0]
-    z_vals, _ = error_bound_sample(
-        rays_o, rays_d, scene_sdf_nograd(model, cfg, obj_idxs=obj_idxs),
-        get_beta(model).detach(), cfg.sampler, draws, training=training)
+    z_vals, (_, _, gradients, _, sdf_raw), rgb_flat = _subset_samples(
+        model, rays_o, rays_d, obj_idxs, draws, training)
     S = z_vals.shape[-1]
-    points_flat = (rays_o[:, None, :] + z_vals[..., None]
-                   * rays_d[:, None, :]).reshape(-1, 3)
-    dirs_flat = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    _, feature_vectors, gradients, _, sdf_raw = implicit_get_outputs(
-        model.implicit, points_flat, create_graph=training)
-    rgb_flat = model.rendering(points_flat, gradients, dirs_flat,
-                               feature_vectors)
     subset_sdf = torch.amin(sdf_raw[:, list(obj_idxs)], -1).reshape(R, S)
     weights, _, _ = volume_render_weights(
         z_vals, laplace_density(subset_sdf, get_beta(model)))
@@ -446,3 +460,57 @@ def render_rays_only_multi_obj(model: HoloSceneModel, rays_o, rays_d,
         "z_vals": z_vals,
         "sdf": subset_sdf,
     }
+
+
+def render_rays_multi_obj(model: HoloSceneModel, rays_o, rays_d, depth_scale,
+                          w2c_rot, obj_idxs, draws: SamplerDraws | None = None,
+                          training: bool = False, near=None, far=None) -> dict:
+    """Object-subset render inside the scene (JAX render_rays_multi_obj;
+    reference forward_multi_obj_rays / _subset_all_sdf,
+    model/network.py:1092-1235): sampling and the semantic weights use the
+    subset's min-SDF, while rgb, depth and normals composite under the
+    whole scene's weights (`bg_weights`), so other objects still occlude;
+    object_opacity comes from every object's density. The field through
+    implicit_get_outputs (H1, exact backward), the sampler's probes through
+    H2. training=True needs the sampler's `draws`; near / far [R, 1] bound
+    the sampler (default cfg.near and the scene cube)."""
+    cfg = model.cfg
+    R = rays_o.shape[0]
+    z_vals, (sdf_scene, _, gradients, semantic, sdf_raw), rgb_flat = (
+        _subset_samples(model, rays_o, rays_d, obj_idxs, draws, training,
+                        near, far))
+    S = z_vals.shape[-1]
+    beta = get_beta(model)
+    subset_sdf = torch.amin(sdf_raw[:, list(obj_idxs)], -1).reshape(R, S)
+    weights, transmittance, dists = volume_render_weights(
+        z_vals, laplace_density(subset_sdf, beta))
+    bg_weights, _, _ = volume_render_weights(
+        z_vals, laplace_density(sdf_scene.reshape(R, S), beta))
+    object_opacity = occlusion_opacity(
+        transmittance, dists, laplace_density(sdf_raw.reshape(R, S, -1), beta))
+    normals = _normalize(gradients).reshape(R, S, 3)
+    return {
+        "rgb_values": composite(bg_weights, rgb_flat.reshape(R, S, 3)),
+        "semantic_values": composite(
+            weights, semantic.reshape(R, S, cfg.num_semantic)),
+        "object_opacity": object_opacity,
+        "depth_values": depth_scale * composite_depth(bg_weights, z_vals),
+        "normal_map": composite(bg_weights, normals) @ w2c_rot.T,
+        "weights": weights,
+        "bg_weights": bg_weights,
+        "subset_weight_sum": weights.sum(-1),
+        "z_vals": z_vals,
+        "sdf": subset_sdf,
+    }
+
+
+def query_point_colors(model: HoloSceneModel, points, view_dirs):
+    """Colours and unit normals of the field at surface points seen along
+    view_dirs (JAX query_point_colors; reference
+    get_colors_normals_from_point_rays*, model/network.py:1532-1802): the
+    field through implicit_get_outputs (H1) and the rendering MLP. Returns
+    (rgb [N, 3], normals [N, 3]), differentiable in the parameters."""
+    _, feature_vectors, gradients, _, _ = implicit_get_outputs(
+        model.implicit, points)
+    rgb = model.rendering(points, gradients, view_dirs, feature_vectors)
+    return rgb, _normalize(gradients)

@@ -28,6 +28,10 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / SH_C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * SH_C0 + 0.5
+
+
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product, (w,x,y,z)."""
     w1, x1, y1, z1 = q1.unbind(-1)

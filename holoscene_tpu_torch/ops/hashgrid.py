@@ -713,6 +713,15 @@ def hash_encode_packed(x01, emb, meta: HashGridMeta) -> torch.Tensor:
                                level_tables(meta))
 
 
+def hash_encode_world(x, embeddings, meta: HashGridMeta,
+                      size: float = 1.0) -> torch.Tensor:
+    """JAX hash_encode_world (reference HashEncoder.forward,
+    hashgrid.py:154-158): world points x [N, 3] in [-size, size] mapped to
+    [0, 1], then the packed encode with its table gradient
+    (hash_encode_packed: H2 forward, H1-bwd backward)."""
+    return hash_encode_packed((x + size) / (2.0 * size), embeddings, meta)
+
+
 def hash_encode_sampler(inputs, embeddings, meta: HashGridMeta,
                         grid_levels: int | None = None,
                         packed: bool = False) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Mesh rasterization (port of holoscene_tpu/ops/rasterizer.py:
-rasterize_mesh and rasterize_mesh_list, perspective and orthographic).
+rasterize_mesh and rasterize_mesh_list, perspective and orthographic; the
+depth-peeled rasterizer, multiview face visibility and its pruning, and the
+host midpoint subdivision).
 
 Stage 4 rasterizes each training frame's mesh mask and depth once; mesh
 extraction's visibility pruning rasterizes every instance mesh into the
@@ -59,13 +61,39 @@ def _fragment_grid(n_side: int) -> np.ndarray:
 FACE_CHUNK = 1 << 20
 
 
+def _face_fragments(xy, z, faces, bary, start: int, count: int,
+                    height: int, width: int, cull_backfaces: bool):
+    """(pixel, depth, face id) of the fragments of faces[start:start +
+    count] that land on the screen: each face's GxG barycentric grid of
+    samples (bary [G, 3]); faces with a vertex behind the camera are
+    dropped, and with cull_backfaces those facing away (screen-space signed
+    area >= 0: y points down, so faces counter-clockwise in the world that
+    face the camera have a negative cross product here)."""
+    f = faces[start:start + count]
+    f_xy = xy[f]                      # [C, 3, 2]
+    f_z = z[f]                        # [C, 3]
+    valid = torch.all(f_z > 1e-6, dim=-1)
+    if cull_backfaces:
+        e1 = f_xy[:, 1] - f_xy[:, 0]
+        e2 = f_xy[:, 2] - f_xy[:, 0]
+        valid = valid & (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0] < 0)
+    frag_xy = torch.einsum("gk,fkd->fgd", bary, f_xy)
+    frag_z = torch.einsum("gk,fk->fg", bary, f_z)
+    px = torch.floor(frag_xy[..., 0]).long()
+    py = torch.floor(frag_xy[..., 1]).long()
+    inside = (px >= 0) & (px < width) & (py >= 0) & (py < height)
+    inside = (inside & valid[:, None]).reshape(-1)
+    pix = (py * width + px).reshape(-1)[inside]
+    fz = frag_z.reshape(-1)[inside]
+    fid = torch.arange(start, start + len(f), device=xy.device
+                       ).repeat_interleave(frag_z.shape[1])[inside]
+    return pix, fz, fid
+
+
 def _rasterize_core(xy, z, faces, height: int, width: int, grid_size: int,
                     cull_backfaces: bool = False):
     """xy [V,2], z [V], faces [F,3] -> (depth [H,W], face_id [H,W] int64,
-    -1 = empty). Faces with a vertex behind the camera are dropped, and
-    with cull_backfaces those facing away (screen-space signed area >= 0:
-    y points down, so faces counter-clockwise in the world that face the
-    camera have a negative cross product here).
+    -1 = empty), from the fragments of _face_fragments.
 
     The fragments are made and scattered FACE_CHUNK faces at a time, in
     two passes (the depth buffer, then the winners against the finished
@@ -74,27 +102,8 @@ def _rasterize_core(xy, z, faces, height: int, width: int, grid_size: int,
     bary = torch.as_tensor(_fragment_grid(grid_size), device=xy.device)
 
     def fragments(start):
-        """(pixel, depth, face id) of the fragments of one face chunk that
-        land on the screen."""
-        f = faces[start:start + FACE_CHUNK]
-        f_xy = xy[f]                      # [C, 3, 2]
-        f_z = z[f]                        # [C, 3]
-        valid = torch.all(f_z > 1e-6, dim=-1)
-        if cull_backfaces:
-            e1 = f_xy[:, 1] - f_xy[:, 0]
-            e2 = f_xy[:, 2] - f_xy[:, 0]
-            valid = valid & (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0] < 0)
-        frag_xy = torch.einsum("gk,fkd->fgd", bary, f_xy)
-        frag_z = torch.einsum("gk,fk->fg", bary, f_z)
-        px = torch.floor(frag_xy[..., 0]).long()
-        py = torch.floor(frag_xy[..., 1]).long()
-        inside = (px >= 0) & (px < width) & (py >= 0) & (py < height)
-        inside = (inside & valid[:, None]).reshape(-1)
-        pix = (py * width + px).reshape(-1)[inside]
-        fz = frag_z.reshape(-1)[inside]
-        fid = torch.arange(start, start + len(f), device=xy.device
-                           ).repeat_interleave(frag_z.shape[1])[inside]
-        return pix, fz, fid
+        return _face_fragments(xy, z, faces, bary, start, FACE_CHUNK, height,
+                               width, cull_backfaces)
 
     starts = range(0, faces.shape[0], FACE_CHUNK)
     depth = torch.full((height * width,), BIG_DEPTH, dtype=torch.float32,
@@ -109,6 +118,42 @@ def _rasterize_core(xy, z, faces, height: int, width: int, grid_size: int,
         winner = fz <= depth[pix] * (1.0 + 1e-6)
         face_id.scatter_reduce_(0, pix[winner], fid[winner], reduce="amax")
     return depth.reshape(height, width), face_id.reshape(height, width)
+
+
+def _rasterize_core_peeled(xy, z, faces, peel_eps: float, height: int,
+                           width: int, grid_size: int, cull_backfaces: bool,
+                           n_layers: int):
+    """Depth-peeled rasterization (JAX _rasterize_core_peeled; reference
+    rasterize_mesh_depth_peeler, utils/general.py:765, nvdiffrast's
+    DepthPeeler): (depth [n_layers, H, W], face_id [n_layers, H, W]),
+    nearest surface first. Each layer re-runs the depth and winner passes
+    over the fragments deeper than the previous layer's depth + peel_eps
+    whose face has not won that pixel yet (the fragment grid emits several
+    depths of one face a pixel, so a depth floor alone would bring the same
+    triangle back as a second layer). Ties in a winner pass go to the
+    largest face id, as in _rasterize_core. All fragments at once (no face
+    chunks: the peeled path rasterizes object meshes, not extractions)."""
+    bary = torch.as_tensor(_fragment_grid(grid_size), device=xy.device)
+    pix, fz, fid = _face_fragments(xy, z, faces, bary, 0, faces.shape[0],
+                                   height, width, cull_backfaces)
+    n_pix = height * width
+    floor = torch.full((n_pix,), -BIG_DEPTH, dtype=torch.float32,
+                       device=xy.device)
+    peeled = torch.zeros_like(fz, dtype=torch.bool)
+    depths, face_ids = [], []
+    for _ in range(n_layers):
+        live = ~peeled & (fz > floor[pix] + peel_eps)
+        depth = torch.full((n_pix,), BIG_DEPTH, dtype=torch.float32,
+                           device=xy.device)
+        depth.scatter_reduce_(0, pix[live], fz[live], reduce="amin")
+        winner = live & (fz <= depth[pix] * (1.0 + 1e-6))
+        face_id = torch.full((n_pix,), -1, dtype=torch.long, device=xy.device)
+        face_id.scatter_reduce_(0, pix[winner], fid[winner], reduce="amax")
+        depths.append(depth.reshape(height, width))
+        face_ids.append(face_id.reshape(height, width))
+        floor = depth
+        peeled = peeled | (fid == face_id[pix])
+    return torch.stack(depths), torch.stack(face_ids)
 
 
 def _pixel_barycentrics(xy, faces, face_id, height: int, width: int):
@@ -315,6 +360,27 @@ def rasterize_mesh(vertices, faces, pose_c2w, intrinsics,
     }
 
 
+def _concat_meshes(meshes):
+    """(vertices, faces, face owner) of a list of (vertices, faces): one
+    vertex array, faces offset into it, and each face's index in the
+    list."""
+    verts_list, faces_list, owner = [], [], []
+    off = 0
+    for i, (v, f) in enumerate(meshes):
+        verts_list.append(np.asarray(v, dtype=np.float32))
+        faces_list.append(np.asarray(f, dtype=np.int64) + off)
+        owner.append(np.full(len(f), i, dtype=np.int64))
+        off += len(v)
+    return (np.concatenate(verts_list), np.concatenate(faces_list),
+            np.concatenate(owner))
+
+
+def _instance_ids(face_id, owner):
+    face_owner = torch.as_tensor(owner, device=face_id.device)
+    return torch.where(face_id >= 0, face_owner[torch.clamp(face_id, min=0)],
+                       torch.full_like(face_id, -1))
+
+
 def rasterize_mesh_list(meshes, pose_c2w, intrinsics,
                         img_res: tuple[int, int], grid_size: int = 6,
                         cull_backfaces: bool = False,
@@ -328,20 +394,166 @@ def rasterize_mesh_list(meshes, pose_c2w, intrinsics,
     Returns rasterize_mesh's outputs, face_id indexing the concatenated
     meshes, plus instance_id [H,W] (the mesh's index in the list, -1
     empty)."""
-    verts_list, faces_list, owner = [], [], []
-    off = 0
-    for i, (v, f) in enumerate(meshes):
-        verts_list.append(np.asarray(v, dtype=np.float32))
-        faces_list.append(np.asarray(f, dtype=np.int64) + off)
-        owner.append(np.full(len(f), i, dtype=np.int64))
-        off += len(v)
-    out = rasterize_mesh(
-        np.concatenate(verts_list), np.concatenate(faces_list), pose_c2w,
-        intrinsics, img_res, grid_size, cull_backfaces, ortho_half_extent,
-        device)
-    fid = out["face_id"]
-    face_owner = torch.as_tensor(np.concatenate(owner), device=fid.device)
-    out["instance_id"] = torch.where(fid >= 0,
-                                     face_owner[torch.clamp(fid, min=0)],
-                                     torch.full_like(fid, -1))
+    verts, faces, owner = _concat_meshes(meshes)
+    out = rasterize_mesh(verts, faces, pose_c2w, intrinsics, img_res,
+                         grid_size, cull_backfaces, ortho_half_extent, device)
+    out["instance_id"] = _instance_ids(out["face_id"], owner)
     return out
+
+
+def rasterize_mesh_peeled(vertices, faces, pose_c2w, intrinsics,
+                          img_res: tuple[int, int], n_layers: int = 3,
+                          grid_size: int = 6, cull_backfaces: bool = False,
+                          ortho_half_extent: float | None = None,
+                          auto_subdivide: bool = True,
+                          peel_eps: float = 1e-3,
+                          device: str | torch.device = "cpu"):
+    """Depth-peeled rasterization of one mesh (JAX rasterize_mesh_peeled;
+    reference rasterize_mesh_depth_peeler, utils/general.py:765): a list of
+    n_layers dicts {depth, face_id, mask} of tensors on `device`, nearest
+    surface first. Layer 0 is rasterize_mesh's front surface; layer k > 0
+    the k-th surface behind it (empty pixels: mask False, depth BIG_DEPTH,
+    face_id -1). face_id is in the caller's faces after the screen-size
+    split. peel_eps is JAX's absolute 1e-3 (ROADMAP.md C: too small for
+    tessellated surfaces; copied, not fixed)."""
+    height, width = img_res
+    dev = torch.device(device)
+    _, faces_t, xy, z, parents, _ = _prepare_screen(
+        vertices, faces, pose_c2w, intrinsics, img_res, grid_size,
+        ortho_half_extent, dev, auto_subdivide)
+    depths, face_ids = _rasterize_core_peeled(
+        xy, z, faces_t, peel_eps, height, width, grid_size, cull_backfaces,
+        n_layers)
+    if parents is not None:
+        face_ids = torch.where(face_ids >= 0,
+                               parents[torch.clamp(face_ids, min=0)],
+                               torch.full_like(face_ids, -1))
+    return [{"depth": depths[k], "face_id": face_ids[k],
+             "mask": face_ids[k] >= 0} for k in range(n_layers)]
+
+
+def rasterize_mesh_list_peeled(meshes, pose_c2w, intrinsics,
+                               img_res: tuple[int, int], n_layers: int = 3,
+                               **kwargs):
+    """Depth-peeled rasterization of several meshes (JAX
+    rasterize_mesh_list_peeled): rasterize_mesh_peeled's layers of the
+    concatenated meshes, each with instance_id [H,W] (the mesh's index in
+    the list, -1 empty), for occlusion tests against the scene's second
+    surfaces."""
+    verts, faces, owner = _concat_meshes(meshes)
+    layers = rasterize_mesh_peeled(verts, faces, pose_c2w, intrinsics,
+                                   img_res, n_layers=n_layers, **kwargs)
+    for lay in layers:
+        lay["instance_id"] = _instance_ids(lay["face_id"], owner)
+    return layers
+
+
+def _orbit_pose_c2w(theta_deg: float, radius: float) -> np.ndarray:
+    """Equatorial orbit camera (z-up world) looking at the origin, in this
+    module's OpenCV convention (x right, y down, z forward)."""
+    t = np.deg2rad(theta_deg)
+    pos = np.array([radius * np.cos(t), radius * np.sin(t), 0.0])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(fwd, np.array([0.0, 0.0, 1.0]))
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, down, fwd, pos
+    return c2w
+
+
+def visible_faces_multiview(vertices, faces, face_visible=None,
+                            n_thetas: int = 30, n_layers: int = 3,
+                            img_res: tuple[int, int] = (256, 256),
+                            radius: float = 1.0,
+                            ortho_half_extent: float = 1.0,
+                            peel_eps: float = 1e-3,
+                            device: str | torch.device = "cpu") -> np.ndarray:
+    """Multiview visibility over faces (JAX visible_faces_multiview;
+    reference vis_prune, utils/general.py:1549-1613): orthographic cameras
+    orbit the equator (n_thetas azimuths), each view is depth-peeled
+    n_layers deep on `device`, and a face survives if it appears in ANY
+    peel layer at a pixel whose front surface is confirmed visible.
+    face_visible seeds the confirmation (the reference's vis_colors > 0
+    face paint); None confirms every front surface. Returns keep [F] bool.
+    The keep set is JAX's, stricter than the reference's vis_prune tail
+    (ROADMAP.md C: copied, not fixed)."""
+    keep = np.zeros(len(faces), dtype=bool)
+    if face_visible is not None:
+        face_visible = np.asarray(face_visible, dtype=bool)
+        keep |= face_visible
+        vis_t = torch.as_tensor(face_visible, device=torch.device(device))
+    for theta in np.linspace(0.0, 360.0, num=n_thetas, endpoint=False):
+        layers = rasterize_mesh_peeled(
+            vertices, faces, _orbit_pose_c2w(theta, radius), None, img_res,
+            n_layers=n_layers, ortho_half_extent=ortho_half_extent,
+            peel_eps=peel_eps, device=device)
+        fid0 = layers[0]["face_id"]
+        alpha = fid0 >= 0
+        if face_visible is not None:
+            alpha &= vis_t[torch.clamp(fid0, min=0)]
+        for lay in layers:
+            fid = lay["face_id"]
+            keep[fid[alpha & (fid >= 0)].cpu().numpy()] = True
+    return keep
+
+
+def prune_invisible_faces(vertices, faces, keep_faces):
+    """Compact a mesh to the faces keep_faces marks (JAX
+    prune_invisible_faces; reference vis_prune tail,
+    utils/general.py:1614-1648), on the host. Returns (vertices_new,
+    faces_new, vert_map, keep_faces): vert_map indexes the surviving
+    vertices in the ORIGINAL array (reindex vertex attributes with it; face
+    attributes with keep_faces)."""
+    vertices = np.asarray(vertices)
+    faces = np.asarray(faces)
+    keep_faces = np.asarray(keep_faces, dtype=bool)
+    vert_map = np.unique(faces[keep_faces].reshape(-1))
+    remap = -np.ones(len(vertices), dtype=np.int64)
+    remap[vert_map] = np.arange(len(vert_map))
+    return vertices[vert_map], remap[faces[keep_faces]], vert_map, keep_faces
+
+
+def subdivide_mesh(vertices, faces, max_edge: float):
+    """Host midpoint subdivision until every edge <= max_edge (JAX
+    subdivide_mesh): each face with an edge over max_edge splits 4-way at
+    its edge midpoints, shared by neighbours, up to 16 rounds. The same
+    vertices and faces in the same order as JAX's loop over faces: a round
+    keeps the unsplit faces first, then each split face's four children in
+    face order, and appends the midpoints in the order its faces first
+    name their edges (0-1, 1-2, 2-0). Returns (vertices float64 [V', 3],
+    faces int64 [F', 3])."""
+    vertices = np.asarray(vertices, dtype=np.float64)
+    faces = np.asarray(faces, dtype=np.int64)
+    for _ in range(16):
+        v0, v1, v2 = (vertices[faces[:, k]] for k in range(3))
+        longest = np.maximum(
+            np.linalg.norm(v0 - v1, axis=1),
+            np.maximum(np.linalg.norm(v1 - v2, axis=1),
+                       np.linalg.norm(v2 - v0, axis=1)))
+        split = longest > max_edge
+        if not split.any():
+            break
+        fs = faces[split]
+        n_s = len(fs)
+        # edges in the order the loop meets them: face by face, 01 12 20
+        edges = np.stack([fs[:, [0, 1]], fs[:, [1, 2]], fs[:, [2, 0]]],
+                         axis=1).reshape(-1, 2)
+        key = np.sort(edges, axis=1)
+        uniq, first, inv = np.unique(key, axis=0, return_index=True,
+                                     return_inverse=True)
+        order = np.argsort(first, kind="stable")   # first-use order
+        rank = np.empty(len(uniq), dtype=np.int64)
+        rank[order] = np.arange(len(uniq))
+        mid_ids = (len(vertices) + rank[inv.reshape(-1)]).reshape(n_s, 3)
+        a, b = edges[first[order], 0], edges[first[order], 1]
+        vertices = np.vstack([vertices, (vertices[a] + vertices[b]) / 2])
+        m01, m12, m20 = mid_ids[:, 0], mid_ids[:, 1], mid_ids[:, 2]
+        children = np.stack([
+            np.stack([fs[:, 0], m01, m20], 1),
+            np.stack([m01, fs[:, 1], m12], 1),
+            np.stack([m20, m12, fs[:, 2]], 1),
+            np.stack([m01, m12, m20], 1),
+        ], axis=1).reshape(-1, 3)
+        faces = np.vstack([faces[~split], children])
+    return vertices, faces

@@ -1,6 +1,6 @@
-"""VolSDF error-bound ray sampling (port of holoscene_tpu/ops/sampler.py,
-error_bound_sample and estimate_weights_from_buffer; uniform_sample and
-ray_marching_surface come with Stage 2).
+"""VolSDF error-bound ray sampling (port of holoscene_tpu/ops/sampler.py:
+error_bound_sample, estimate_weights_from_buffer, the sign-change surface
+search ray_marching_surface and the stratified uniform_sample).
 
 The JAX version's fixed unroll is kept: a constant-width buffer of T*E
 samples padded with the far sample, T-1 upsampling rounds, a final draw
@@ -156,20 +156,31 @@ def _error_bound(beta, sdf, z_vals, dists, d_star):
     return bound.amax(-1)
 
 
+def _near_far(rays_o, rays_d, cfg: SamplerConfig, near, far):
+    """The caller's (near, far) [R, 1], or cfg.near and the scene cube's
+    far when either is None."""
+    if near is not None and far is not None:
+        return near, far
+    _, far = near_far_from_cube(rays_o, rays_d, bound=cfg.scene_bounding_sphere,
+                                min_near=cfg.near, max_far=cfg.far)
+    return torch.full((rays_o.shape[0], 1), cfg.near,
+                      device=rays_o.device), far
+
+
 def error_bound_sample(rays_o, rays_d, sdf_fn: Callable, beta0, cfg:
                        SamplerConfig, draws: SamplerDraws | None = None,
-                       training: bool = True, return_aux: bool = False):
+                       training: bool = True, return_aux: bool = False,
+                       near=None, far=None):
     """z_vals [R, n_final] sorted and z_eik [R, 1] (+ (z_buf, sdf_buf,
     beta) with return_aux). training=True needs `draws`; eval uses
     linspace placements and no draws. sdf_fn: [M, 3] -> [M] scene SDF
-    evaluated without gradient."""
+    evaluated without gradient. near / far [R, 1] bound the initial
+    samples (default cfg.near and the scene cube's far)."""
     R = rays_o.shape[0]
     E, T = cfg.N_samples_eval, cfg.max_total_iters
     dev = rays_o.device
     beta0 = torch.as_tensor(beta0, dtype=torch.float32, device=dev)
-    _, far = near_far_from_cube(rays_o, rays_d, bound=cfg.scene_bounding_sphere,
-                                min_near=cfg.near, max_far=cfg.far)
-    near = torch.full((R, 1), cfg.near, device=dev)
+    near, far = _near_far(rays_o, rays_d, cfg, near, far)
     t_vals = linspace(0.0, 1.0, E, dev)[None]
     z_vals = near * (1.0 - t_vals) + far * t_vals
     if training:
@@ -295,3 +306,54 @@ def estimate_weights_from_buffer(z_query, z_buf, sdf_buf, beta):
                          free_energy[:, :-1]], -1)
     alpha = 1.0 - torch.exp(-free_energy)
     return alpha * torch.exp(-torch.cumsum(shifted, -1))
+
+
+def ray_marching_surface(rays_o, rays_d, sdf_fn: Callable, cfg: SamplerConfig,
+                         n_steps: int = 128, n_secant_steps: int = 8,
+                         near=None, far=None):
+    """Surface depth by sign-change search and secant refinement (JAX
+    ray_marching_surface; reference ray_marching_surface + secant,
+    ray_sampler.py:474-608): n_steps uniform samples in [near, far], the
+    first + -> - transition of a ray that starts outside, then
+    n_secant_steps secant steps. Returns (depth [R, 1], hit_mask [R]);
+    rays without a transition get depth = far."""
+    R = rays_o.shape[0]
+    near, far = _near_far(rays_o, rays_d, cfg, near, far)
+    t_vals = linspace(0.0, 1.0, n_steps, rays_o.device)[None]
+    z = near * (1.0 - t_vals) + far * t_vals                   # [R, S]
+    pts = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
+    val = sdf_fn(pts.reshape(-1, 3)).reshape(R, n_steps)
+
+    sign_change = (val[:, :-1] > 0) & (val[:, 1:] < 0)
+    any_hit = sign_change.any(-1) & (val[:, 0] > 0)
+    first = torch.argmax(sign_change.to(torch.int8), -1)[:, None]
+    hi = torch.clamp(first + 1, max=n_steps - 1)
+    d_low, f_low = z.gather(1, first)[:, 0], val.gather(1, first)[:, 0]
+    d_high, f_high = z.gather(1, hi)[:, 0], val.gather(1, hi)[:, 0]
+    for _ in range(n_secant_steps):
+        d_pred = -f_low * (d_high - d_low) / (f_high - f_low + 1e-12) + d_low
+        f_mid = sdf_fn(rays_o + d_pred[:, None] * rays_d)
+        same_side = f_mid * f_low > 0
+        d_low = torch.where(same_side, d_pred, d_low)
+        f_low = torch.where(same_side, f_mid, f_low)
+        d_high = torch.where(same_side, d_high, d_pred)
+        f_high = torch.where(same_side, f_high, f_mid)
+    d_pred = -f_low * (d_high - d_low) / (f_high - f_low + 1e-12) + d_low
+    depth = torch.where(any_hit, d_pred, far[:, 0])
+    return depth[:, None], any_hit
+
+
+def uniform_sample(near, far, n_samples: int, t_rand=None):
+    """Stratified uniform sampling (JAX uniform_sample; UniformSampler,
+    ray_sampler.py:63-83): n_samples evenly in [near, far] ([R, 1] each),
+    each moved within its stratum by t_rand [R, n_samples] uniforms in [0,
+    1) when given (training), left at the bin edges when None (eval).
+    JAX's rays arguments only gave the batch; near / far give it here."""
+    t_vals = linspace(0.0, 1.0, n_samples, near.device)[None]
+    z_vals = near * (1.0 - t_vals) + far * t_vals
+    if t_rand is not None:
+        mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+        upper = torch.cat([mids, z_vals[:, -1:]], -1)
+        lower = torch.cat([z_vals[:, :1], mids], -1)
+        z_vals = lower + (upper - lower) * t_rand
+    return z_vals

@@ -402,7 +402,7 @@ def walk_fwd_plain(chunks, cs, cc, px, py, in_img) -> torch.Tensor:
     ], dim=-1)
 
 
-def walk_bwd_plain(chunks, cs, used, total, v, px, py, in_img):
+def walk_bwd_plain(chunks, cs, used, total, v, px, py, in_img, acc=None):
     """The reverse tile walk in closed form (not autograd), shared by K2's
     and K4's plain versions: tile t walks its `used[t]` chunks from the last
     back to cs[t] with
@@ -410,10 +410,17 @@ def walk_bwd_plain(chunks, cs, used, total, v, px, py, in_img):
       dL/da_k = T_k s_k - (sum_{r > k} w_r s_r) / (1 - a_k),
     s_k = v . payload_k; total [T, P] is the forward's log-transmittance
     over the walked chunks, v [T, P, 8] the cotangent. Returns d chunks
-    [n_chunks, 128, 16]; chunks never walked and columns 10-15 are zero."""
+    [n_chunks, 128, 16] in dtype `acc` (default the chunks'); chunks never
+    walked and columns 10-15 are zero.
+
+    The alphas and their masks are always taken in the chunks' own dtype;
+    `acc` is the dtype of everything after them, so acc=torch.float64 walks
+    the very candidates and pixels a float32 walk keeps, with exact sums."""
     n_tiles = cs.shape[0]
-    dchunks = torch.zeros_like(chunks)
+    acc = acc or chunks.dtype
+    dchunks = torch.zeros(chunks.shape, dtype=acc, device=chunks.device)
     cs, used = cs.long(), used.long()
+    total, v = total.to(acc), v.to(acc)
     suffix = torch.zeros_like(total)      # sum log(1-a) of later chunks
     s_after = torch.zeros_like(total)     # sum w s of later chunks
     max_used = int(used.max()) if n_tiles else 0
@@ -422,6 +429,8 @@ def walk_bwd_plain(chunks, cs, used, total, v, px, py, in_img):
         idx = torch.clamp(cs + used - 1 - j, 0, chunks.shape[0] - 1)
         c = chunks[idx]
         dx, dy, power, e, a_pre, a, keep = _chunk_alpha(px, py, c)
+        dx, dy, power, e, a_pre, a, c = (
+            x.to(acc) for x in (dx, dy, power, e, a_pre, a, c))
         log1m = torch.log1p(-a)
         rev_incl = torch.flip(torch.cumsum(torch.flip(log1m, [-1]), -1), [-1])
         log_t = (total - suffix)[..., None] - rev_incl
@@ -466,15 +475,16 @@ def flat_fwd_plain(cand, cs, cc, tiles_x: int, tile_size: int,
 
 
 def flat_bwd_plain(cand, cs, fwd_out, v, tiles_x: int, tile_size: int,
-                   img_w: int, img_h: int) -> torch.Tensor:
+                   img_w: int, img_h: int, acc=None) -> torch.Tensor:
     """Plain PyTorch K2: walk_bwd_plain over the `used` chunks of each tile
-    (fwd_out[:, 0, 5]) from K1's stored total (fwd_out[..., 6]). Returns
-    dcand [c_max, 16]; rows never walked and columns 10-15 are zero."""
+    (fwd_out[:, 0, 5]) from K1's stored total (fwd_out[..., 6]), its sums
+    in dtype `acc` (default cand's). Returns dcand [c_max, 16]; rows never
+    walked and columns 10-15 are zero."""
     px, py, in_img = _tile_pixels(cs.shape[0], tiles_x, tile_size, img_w,
                                   img_h, cand.device)
     dchunks = walk_bwd_plain(
         cand.reshape(-1, CHUNK, CAND_ROWS), cs, fwd_out[:, 0, 5],
-        fwd_out[..., 6], v, px, py, in_img)
+        fwd_out[..., 6], v, px, py, in_img, acc)
     return dchunks.reshape(cand.shape)
 
 

@@ -74,11 +74,11 @@ def composite_fwd_plain(cand, origins, counts, tile_size: int, img_w: int,
 
 
 def composite_bwd_plain(cand, origins, used, fwd_out, v, tile_size: int,
-                        img_w: int, img_h: int) -> torch.Tensor:
+                        img_w: int, img_h: int, acc=None) -> torch.Tensor:
     """Plain PyTorch K4 in closed form: walk_bwd_plain over the `used`
-    chunks of each tile's list from K3's stored total (fwd_out[..., 6]).
-    Returns dcand [T, K, 16]; slots never walked and columns 10-15 are
-    zero."""
+    chunks of each tile's list from K3's stored total (fwd_out[..., 6]),
+    its sums in dtype `acc` (default cand's). Returns dcand [T, K, 16];
+    slots never walked and columns 10-15 are zero."""
     n_tiles, k = cand.shape[0], cand.shape[1]
     per = k // CHUNK
     px, py, in_img = tile_pixels_at(origins, tile_size, img_w, img_h)
@@ -89,9 +89,9 @@ def composite_bwd_plain(cand, origins, used, fwd_out, v, tile_size: int,
         cs = torch.arange(nb, device=cand.device) * per
         outs.append(walk_bwd_plain(
             cand[sl].reshape(-1, CHUNK, CAND_ROWS), cs, used[sl],
-            fwd_out[sl, :, 6], v[sl], px[sl], py[sl], in_img[sl],
+            fwd_out[sl, :, 6], v[sl], px[sl], py[sl], in_img[sl], acc,
         ).reshape(nb, k, CAND_ROWS))
-    return torch.cat(outs) if outs else torch.zeros_like(cand)
+    return torch.cat(outs) if outs else torch.zeros_like(cand, dtype=acc)
 
 
 def _check_args(cand, origins, tile_size, ints, blocks):

@@ -1,12 +1,11 @@
 """Provider interfaces for the Stage-2 frozen generative models (port of
 holoscene_tpu/stage2/providers.py). The checkpoint-free providers are the
 reference's, line for line; the TorchScript-from-path providers (LaMa,
-SAM, Omnidata, Real-ESRGAN) run on the caller's `device` (the runner's).
-Not ported yet (ROADMAP.md A.12): the live Wonder3D+ provider
-(DiffusersNovelViewProvider, which needs `diffusers` and weights the repo
-does not hold; HOLOSCENE_W3D_CKPT raises here), the rembg foreground
-extractor (the `rembg` package) and default_foreground_extractor, whose
-only caller is that provider.
+SAM, Omnidata, Real-ESRGAN, the Wonder3D+ joint denoiser) run on the
+caller's `device` (the runner's). The live Wonder3D+ provider
+(DiffusersNovelViewProvider) runs a TorchScript joint denoiser file; its
+directory form needs the `diffusers` and `mv_diffusion_30` packages and
+raises without them, as the rembg extractor raises without `rembg`.
 
 The reference loads five large pretrained networks (SURVEY.md §2 #13-#17):
 Wonder3D+ multiview diffusion (run_mv_prediction.py:316-808), LaMa
@@ -39,6 +38,9 @@ import pickle
 
 import numpy as np
 import torch
+
+from holoscene_tpu_torch import resolve_device
+from holoscene_tpu_torch.stage2.remesh import resize_bilinear
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +255,29 @@ class ThresholdForegroundExtractor(ForegroundExtractor):
         return fg
 
 
+class RembgForegroundExtractor(ForegroundExtractor):
+    """The reference's rembg matting on generated views
+    (run_mv_prediction.py:441-455 `rembg.remove(..., alpha_matting=True)`).
+    Imports rembg on construction; raises ImportError without it."""
+
+    def __init__(self, alpha_threshold: float = 0.5):
+        try:
+            import rembg
+        except ImportError as e:
+            raise ImportError(
+                "RembgForegroundExtractor needs the rembg package; use "
+                "ThresholdForegroundExtractor without it") from e
+        self._rembg = rembg
+        self._session = rembg.new_session()
+        self.alpha_threshold = alpha_threshold
+
+    def extract(self, image: np.ndarray) -> np.ndarray:
+        img8 = (np.clip(np.asarray(image), 0, 1) * 255).astype(np.uint8)
+        out = self._rembg.remove(img8, alpha_matting=True,
+                                 session=self._session)
+        return np.asarray(out)[..., 3] > self.alpha_threshold * 255
+
+
 class PromptableForegroundExtractor(ForegroundExtractor):
     """SAM-class promptable segmentation: extraction guided by a box prompt
     (the reference prompts SAM with a padded central box on every generated
@@ -346,6 +371,199 @@ class TorchScriptPromptableExtractor(PromptableForegroundExtractor):
         with torch.no_grad():
             logits = self.model(t_img, t_box)
         return np.asarray(logits.cpu())[0, 0] > 0.0
+
+
+def default_foreground_extractor(device="cuda") -> ForegroundExtractor:
+    """The generated views' foreground extractor: SAM behind
+    HOLOSCENE_SAM_TS when set (on `device`; a set-but-broken path raises,
+    as every checkpoint variable of default_providers does, where JAX's
+    falls through silently), else rembg, else the dependency-free
+    BoxGuidedThresholdExtractor when rembg is not installed."""
+    ckpt = os.environ.get("HOLOSCENE_SAM_TS", "")
+    if ckpt:
+        if not os.path.isfile(ckpt):
+            raise FileNotFoundError(
+                f"HOLOSCENE_SAM_TS={ckpt!r}: no TorchScript SAM there")
+        return TorchScriptPromptableExtractor(ckpt, device)
+    try:
+        return RembgForegroundExtractor()
+    except ImportError:
+        return BoxGuidedThresholdExtractor()
+
+
+class DiffusersNovelViewProvider(NovelViewProvider):
+    """LIVE Wonder3D+ multiview hallucination (reference
+    run_mv_prediction.py:316-455 `load_wonder3d_pipeline` /
+    `pred_multiview_joint`): a single front view conditions a joint
+    normal+color diffusion over the 6-view rig (front, front_right, right,
+    back, left, front_left at zero elevation: the rig
+    stage2/views.py wonder3d_camera_rig builds).
+
+    Two backends, resolved from `checkpoint`:
+
+      * a FILE -> TorchScript joint denoiser, loaded on `device`, called as
+            model(imgs_in [2*Nv,3,H,W], cam_embeds [2*Nv,7], noise [2*Nv,3,H,W])
+        returning [2*Nv,3,H,W] in [0,1]: the first Nv images are
+        normal-domain predictions (conditioning-camera frame, wonder3d
+        convention), the last Nv colors. Export the reference pipeline to
+        this contract with torch.jit.trace over a fixed step count.
+      * a DIRECTORY -> the reference's diffusers pipeline:
+        `MVDiffusionImagePipeline.from_pretrained(dir)` with
+        `UNetMV2DConditionModel` (needs the `diffusers` package and the
+        reference's `mv_diffusion_30` package importable; checkpoint layout
+        = the published flamehaze1115/wonder3d-v1.0 HF tree). A missing
+        package raises with instructions instead of degrading silently.
+
+    The conditioning batch mirrors MVDiffusionDataset
+    (mv_diffusion_30/data/single_image_dataset.py:240-300): the front view
+    composited on WHITE, resized to `img_size` (bilinear, as
+    jax.image.resize); per-view camera embedding [elevation_cond=0,
+    d_elevation=0, d_azimuth, cam_type(2)=ortho], task embedding [1,0]
+    (normal) / [0,1] (color) appended. The noise is drawn by a CPU
+    torch.Generator seeded by `seed` (the draws of JAX's provider, which
+    is torch too). Outputs get a foreground mask (default_foreground_extractor:
+    rembg when available, the box-guided threshold otherwise; reference
+    :441), an optional SR pass on colors (reference SR before recon,
+    holoscene_train_post.py:1591), and normals rotated from the wonder3d
+    conditioning frame into each view's camera frame (the azimuth rotation
+    + y/z flip of run_mv_prediction.py:473-490)."""
+
+    # canonical rig azimuths, radians (run_mv_prediction.py:260 VIEWS order;
+    # matches stage2/views.py wonder3d_camera_rig offsets)
+    VIEW_AZIMUTHS = (0.0, np.pi / 4, np.pi / 2, np.pi, -np.pi / 2, -np.pi / 4)
+
+    def __init__(self, checkpoint: str, device="cuda",
+                 img_size: int = 256, guidance_scale: float = 3.0,
+                 num_inference_steps: int = 50,
+                 fg_extractor: ForegroundExtractor | None = None,
+                 upsampler: Upsampler | None = None,
+                 sr_scale: int = 0):
+        self.device = resolve_device(device)
+        self.img_size = img_size
+        self.guidance_scale = guidance_scale
+        self.num_inference_steps = num_inference_steps
+        self.fg_extractor = fg_extractor or default_foreground_extractor(
+            self.device)
+        self.upsampler = upsampler
+        self.sr_scale = sr_scale
+        if os.path.isfile(checkpoint):
+            self.model = torch.jit.load(checkpoint, map_location=self.device)
+            self.model.eval()
+            self._kind = "jit"
+        elif os.path.isdir(checkpoint):
+            self.model = self._load_diffusers_pipeline(checkpoint,
+                                                       self.device)
+            self._kind = "diffusers"
+        else:
+            raise FileNotFoundError(f"no Wonder3D+ checkpoint at {checkpoint}")
+
+    @staticmethod
+    def _load_diffusers_pipeline(ckpt_dir: str, device):
+        """Reference load_wonder3d_pipeline (run_mv_prediction.py:316-334);
+        needs `diffusers` + the reference's `mv_diffusion_30` package."""
+        try:
+            from mv_diffusion_30.models.unet_mv2d_condition import (
+                UNetMV2DConditionModel,
+            )
+            from mv_diffusion_30.pipelines.pipeline_mvdiffusion_image import (
+                MVDiffusionImagePipeline,
+            )
+        except ImportError as e:
+            raise RuntimeError(
+                "directory-style Wonder3D+ checkpoints need the `diffusers` "
+                "and `mv_diffusion_30` packages; export the pipeline to "
+                "TorchScript (single-call joint denoiser) instead") from e
+        unet_dir = os.path.join(ckpt_dir, "unet")
+        unet = UNetMV2DConditionModel.from_pretrained(
+            unet_dir if os.path.isdir(unet_dir) else ckpt_dir)
+        return MVDiffusionImagePipeline.from_pretrained(
+            ckpt_dir, unet=unet, safety_checker=None,
+            torch_dtype=torch.float32).to(device)
+
+    # -- conditioning ------------------------------------------------------
+
+    def _resize(self, img: np.ndarray) -> np.ndarray:
+        s = self.img_size
+        if img.shape[0] == s and img.shape[1] == s:
+            return np.asarray(img, np.float32)
+        return resize_bilinear(img, s)
+
+    def _conditioning(self, front_rgb, front_mask):
+        """White-composited front view + the (2*Nv, 7) camera+task embeds."""
+        rgb = np.asarray(front_rgb, np.float32)
+        m = np.asarray(front_mask, np.float32)
+        white = rgb * m[..., None] + (1.0 - m[..., None])
+        white = np.clip(self._resize(white), 0.0, 1.0)
+        nv = len(self.VIEW_AZIMUTHS)
+        az = np.asarray(self.VIEW_AZIMUTHS, np.float32) % (2 * np.pi)
+        cam = np.stack(
+            [np.zeros(nv, np.float32), np.zeros(nv, np.float32), az], axis=-1)
+        cam_type = np.tile(np.array([0.0, 1.0], np.float32), (nv, 1))  # ortho
+        cam = np.concatenate([cam, cam_type], axis=-1)  # (Nv, 5)
+        normal_task = np.tile(np.array([1.0, 0.0], np.float32), (nv, 1))
+        color_task = np.tile(np.array([0.0, 1.0], np.float32), (nv, 1))
+        embeds = np.concatenate(
+            [np.concatenate([cam, normal_task], -1),
+             np.concatenate([cam, color_task], -1)], axis=0)  # (2*Nv, 7)
+        return white, embeds
+
+    @staticmethod
+    def _normal_to_camera_frame(normal01, azimuth):
+        """Wonder3D normals are predicted in the CONDITIONING camera's frame;
+        rotate by the view azimuth about the vertical axis and flip y/z into
+        the CV camera convention (run_mv_prediction.py:473-490)."""
+        n = np.asarray(normal01, np.float32) * 2.0 - 1.0
+        c, s = np.cos(azimuth), np.sin(azimuth)
+        rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        n = n @ rot.T
+        n[..., 1:3] *= -1.0
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        return n / np.maximum(norm, 1e-8)
+
+    # -- generation --------------------------------------------------------
+
+    def generate_views(self, front_rgb, front_mask, poses, seed: int = 42,
+                       obj_i: int | None = None):
+        nv = len(self.VIEW_AZIMUTHS)
+        white, embeds = self._conditioning(front_rgb, front_mask)
+        chw = torch.from_numpy(np.ascontiguousarray(white.transpose(2, 0, 1)))
+        imgs_in = chw[None].repeat(2 * nv, 1, 1, 1).to(self.device)
+        cam = torch.from_numpy(embeds).to(self.device)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+
+        with torch.no_grad():
+            if self._kind == "jit":
+                noise = torch.randn(imgs_in.shape, generator=gen,
+                                    dtype=imgs_in.dtype).to(self.device)
+                out = self.model(imgs_in, cam, noise)
+            else:
+                out = self.model(
+                    imgs_in, cam, generator=gen, output_type="pt",
+                    guidance_scale=self.guidance_scale,
+                    num_images_per_prompt=1,
+                    num_inference_steps=self.num_inference_steps,
+                ).images
+        out = np.clip(out.cpu().numpy().transpose(0, 2, 3, 1), 0.0, 1.0)
+        normals01, colors = out[:nv], out[nv:]    # [Nv, H, W, 3] each
+
+        views = []
+        for vi in range(nv):
+            rgb = colors[vi]
+            mask = self.fg_extractor.extract(rgb)
+            if self.upsampler is not None and self.sr_scale > 1:
+                rgb = np.clip(
+                    self.upsampler.upsample(rgb, scale=self.sr_scale), 0, 1)
+                reps = self.sr_scale
+                mask = np.repeat(np.repeat(mask, reps, 0), reps, 1)
+            normal = self._normal_to_camera_frame(normals01[vi],
+                                                  self.VIEW_AZIMUTHS[vi])
+            if normal.shape[:2] != rgb.shape[:2]:
+                normal = resize_bilinear(normal, rgb.shape[:2])
+                nn_ = np.linalg.norm(normal, axis=-1, keepdims=True)
+                normal = normal / np.maximum(nn_, 1e-8)
+            views.append({"rgb": rgb, "normal": normal, "mask": mask,
+                          "front": vi == 0})
+        return views
 
 
 # ---------------------------------------------------------------------------
@@ -546,16 +764,11 @@ def default_providers(render_fn=None, device="cuda") -> dict:
       HOLOSCENE_VIEW_CACHE   recorded vis_info_{i}.pkl directory   -> novel_view
       HOLOSCENE_W3D_CKPT     Wonder3D+ TorchScript joint denoiser  -> novel_view
                              (or diffusers checkpoint dir); wins over
-                             the cache — live hallucination when present;
-                             not ported yet: set, it raises
+                             the cache — live hallucination when present
+                             (its views upsampled x4 when SR is set)
+      HOLOSCENE_SAM_TS       TorchScript SAM, the Wonder3D+ views'
+                             foreground extractor (default_foreground_extractor)
     """
-    w3d = os.environ.get("HOLOSCENE_W3D_CKPT")
-    if w3d:
-        raise NotImplementedError(
-            f"HOLOSCENE_W3D_CKPT={w3d!r}: the live Wonder3D+ provider "
-            "(DiffusersNovelViewProvider) is not ported yet (ROADMAP.md "
-            "A.12); unset it, or record its views and point "
-            "HOLOSCENE_VIEW_CACHE at them")
     providers: dict = {
         "inpaint": NullInpaintProvider(),
         "novel_view": (
@@ -576,4 +789,10 @@ def default_providers(render_fn=None, device="cuda") -> dict:
     cache = os.environ.get("HOLOSCENE_VIEW_CACHE")
     if cache:
         providers["novel_view"] = CachedArtifactNovelViewProvider(cache)
+    w3d = os.environ.get("HOLOSCENE_W3D_CKPT")
+    if w3d:
+        providers["novel_view"] = DiffusersNovelViewProvider(
+            w3d, device,
+            upsampler=providers["upsample"] if sr else None,
+            sr_scale=4 if sr else 0)
     return providers

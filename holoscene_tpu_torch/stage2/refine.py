@@ -44,6 +44,7 @@ from holoscene_tpu_torch.models.holoscene import (
     render_rays,
     render_rays_only_multi_obj,
 )
+from holoscene_tpu_torch.ops.rays import get_orthographic_rays
 from holoscene_tpu_torch.ops.sampler import SamplerDraws
 from holoscene_tpu_torch.training.stage1 import make_optimizer, rays_from_batch
 
@@ -88,16 +89,6 @@ def sdf_constraint_loss(model: HoloSceneModel, obj_i: int, pts, target_sdf,
     return w * loss_sdf + 0.1 * loss_eik
 
 
-def ortho_rays(pose_c2w, half_extent, uv_unit):
-    """Orthographic rays of a camera pose [4, 4] (c2w, OpenCV): origins on
-    the image plane at uv_unit [M, 2] in [-1, 1] times half_extent along
-    the camera's x / y axes, directions its z axis."""
-    rays_o = pose_c2w[:3, 3][None, :] + (
-        uv_unit[:, 0:1] * half_extent * pose_c2w[:3, 0][None, :]
-        + uv_unit[:, 1:2] * half_extent * pose_c2w[:3, 1][None, :])
-    return rays_o, pose_c2w[:3, 2][None, :].expand(rays_o.shape)
-
-
 def invisible_view_loss(
     model: HoloSceneModel,
     draws: SamplerDraws,
@@ -130,7 +121,7 @@ def invisible_view_loss(
     lama_* weights when set. Shapes: gen_rgb / gen_normal / uv_unit [M, 3]
     / [M, 3] / [M, 2], the masks and gen_depth [M]; `draws` the render's
     sampler draws for M rays."""
-    rays_o, rays_d = ortho_rays(pose_c2w, half_extent, uv_unit)
+    rays_o, rays_d = get_orthographic_rays(uv_unit, pose_c2w, half_extent)
     depth_scale = torch.ones(rays_o.shape[0], 1, device=rays_o.device)
     out = render_rays_only_multi_obj(
         model, rays_o, rays_d, depth_scale, pose_c2w[:3, :3].T, obj_idxs,

@@ -248,13 +248,15 @@ class CoarseReconConfig:
     img_res: int = 96
 
 
-def resize_bilinear(img: np.ndarray, res: int) -> np.ndarray:
-    """[H, W] or [H, W, C] float32 -> [res, res(, C)]: jax.image.resize's
-    "bilinear" (half-pixel centres, a triangle kernel widened by the scale
-    when it downsamples, i.e. antialiased)."""
+def resize_bilinear(img: np.ndarray, res) -> np.ndarray:
+    """[H, W] or [H, W, C] float32 -> [res, res(, C)] (res an int) or
+    [h, w(, C)] (res = (h, w)): jax.image.resize's "bilinear" (half-pixel
+    centres, a triangle kernel widened by the scale when it downsamples,
+    i.e. antialiased)."""
+    size = (res, res) if isinstance(res, int) else tuple(res)
     t = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
     t = t[None, None] if t.ndim == 2 else t.permute(2, 0, 1)[None]
-    out = F.interpolate(t, size=(res, res), mode="bilinear",
+    out = F.interpolate(t, size=size, mode="bilinear",
                         align_corners=False, antialias=True)[0]
     return (out[0] if img.ndim == 2 else out.permute(1, 2, 0)).numpy()
 

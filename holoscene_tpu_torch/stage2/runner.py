@@ -56,6 +56,7 @@ from holoscene_tpu_torch.models.holoscene import (
     HoloSceneModel,
     render_rays_only_multi_obj,
 )
+from holoscene_tpu_torch.ops.rays import get_orthographic_rays
 from holoscene_tpu_torch.physics import (
     provider_report,
     settle_drop,
@@ -72,7 +73,6 @@ from holoscene_tpu_torch.stage2.refine import (
     FinetuneDraws,
     finetune_step,
     make_finetune_optimizer,
-    ortho_rays,
     sample_collision_points,
 )
 from holoscene_tpu_torch.stage2.remesh import CoarseReconConfig, coarse_recon
@@ -186,7 +186,8 @@ class Stage2Runner:
         rgb / normal [res, res, 3], depth [res, res], mask (acc > 0.5)."""
         res = res or self.view_render_res
         pose_t = as_tensor(pose, self.device)
-        rays_o, rays_d = ortho_rays(pose_t, half_extent, self._ortho_uv(res))
+        rays_o, rays_d = get_orthographic_rays(self._ortho_uv(res), pose_t,
+                                               half_extent)
         keys = ("rgb_values", "normal_map", "depth_values", "acc")
         outs = {k: [] for k in keys}
         with torch.no_grad():

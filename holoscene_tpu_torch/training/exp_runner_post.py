@@ -36,25 +36,29 @@ from holoscene_tpu_torch.stage2.runner import Stage2Runner
 from holoscene_tpu_torch.training import checkpoints as ckpt_lib
 
 
-def main(argv=None) -> Stage2Runner:
-    """Runs Stage 2; returns the runner, its run's result in
-    `runner.result` and the wall table by part in `runner.timer`."""
-    parser = argparse.ArgumentParser()
+def add_run_args(parser: argparse.ArgumentParser,
+                 mesh_resolution: int) -> None:
+    """The flags that pick a Stage-1 run and build a Stage2Runner on it
+    (shared with stage2/mv_predict.py)."""
     parser.add_argument("--conf", type=str, required=True)
     parser.add_argument("--exps_folder", type=str, default="exps")
     parser.add_argument("--timestamp", type=str, default="latest")
     parser.add_argument("--checkpoint", type=str, default="latest")
     parser.add_argument("--data_root", type=str, default=None)
-    parser.add_argument("--finetune_iters", type=int, default=None)
-    parser.add_argument("--mesh_resolution", type=int, default=256)
+    parser.add_argument("--mesh_resolution", type=int,
+                        default=mesh_resolution)
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument(
         "--device", type=str, default="cuda",
         help="torch device; 'cuda' launches the hand-written kernels and "
              "fails without a card, 'cpu' runs their plain versions")
-    args = parser.parse_args(argv)
-    device = resolve_device(args.device)
 
+
+def build_stage2_runner(args, tag: str = "stage2"
+                        ) -> tuple[Stage2Runner, str]:
+    """(Stage2Runner on the port's Stage-1 checkpoint that `args` of
+    add_run_args picks, that run's directory)."""
+    device = resolve_device(args.device)
     conf = ConfigFactory.parse_file(args.conf)
     dataset_conf = conf.get_config("dataset").as_plain_dict()
     if args.data_root:
@@ -76,7 +80,7 @@ def main(argv=None) -> Stage2Runner:
     meta, _ = ckpt_lib.load_checkpoint(
         os.path.join(rundir, "checkpoints"), model, checkpoint=args.checkpoint)
     if not args.quiet:
-        print(f"[stage2] loaded Stage-1 checkpoint step="
+        print(f"[{tag}] loaded Stage-1 checkpoint step="
               f"{meta.get('step', '?')} on {device}", flush=True)
 
     runner = Stage2Runner(
@@ -88,6 +92,17 @@ def main(argv=None) -> Stage2Runner:
         quiet=args.quiet,
         device=device,
     )
+    return runner, rundir
+
+
+def main(argv=None) -> Stage2Runner:
+    """Runs Stage 2; returns the runner, its run's result in
+    `runner.result` and the wall table by part in `runner.timer`."""
+    parser = argparse.ArgumentParser()
+    add_run_args(parser, mesh_resolution=256)
+    parser.add_argument("--finetune_iters", type=int, default=None)
+    args = parser.parse_args(argv)
+    runner, _ = build_stage2_runner(args)
     runner.result = runner.run(finetune_iters=args.finetune_iters)
     if not args.quiet:
         print(f"[stage2] physics {runner.result['physics']}; wall s by "

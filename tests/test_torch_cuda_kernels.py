@@ -888,3 +888,150 @@ def test_color_step_on_card_matches_cpu(cuda):
     for k, r in ref_g.items():
         err = float((got_g[k] - r).abs().max())
         assert err <= 1e-4 * float(r.abs().max()) + 1e-7, (k, err)
+
+
+def _render_multi_case(dev, training):
+    """render_rays_multi_obj of objects (1, 2) and query_point_colors of
+    _stage2_case's model on `dev`: outputs, and with training the
+    parameter gradients of a random functional of the render and the
+    colours."""
+    from holoscene_tpu_torch.models import holoscene as ths
+    from holoscene_tpu_torch.ops.rays import get_orthographic_rays
+    from holoscene_tpu_torch.ops.sampler import SamplerDraws
+
+    model = _stage2_case(dev)[0]
+    r = 256
+    gen = torch.Generator().manual_seed(7)
+    uv = torch.rand(r, 2, generator=gen) * 2 - 1
+    pose = torch.eye(4)
+    pose[:3, 3] = torch.tensor([0.05, 0.0, -0.6])
+    ro, rd = get_orthographic_rays(uv, pose, 0.6)
+    draws = SamplerDraws.make(model.cfg.sampler, r, gen, "cpu") \
+        if training else None
+    if draws is not None:
+        draws = SamplerDraws(*(getattr(draws, f).to(dev)
+                               for f in draws.__dataclass_fields__))
+    out = ths.render_rays_multi_obj(
+        model, ro.to(dev), rd.to(dev), torch.ones(r, 1, device=dev),
+        pose[:3, :3].T.to(dev), (1, 2), draws, training=training)
+    pts = torch.rand(300, 3, generator=gen) * 1.6 - 0.8
+    dirs = torch.nn.functional.normalize(torch.randn(300, 3, generator=gen),
+                                         dim=-1)
+    rgb, normals = ths.query_point_colors(model, pts.to(dev), dirs.to(dev))
+    outs = {k: v for k, v in out.items()}
+    outs.update(point_rgb=rgb, point_normals=normals)
+    grads = None
+    if training:
+        cg = torch.Generator().manual_seed(8)
+        sum((v * torch.randn(v.shape, generator=cg).to(dev)).sum()
+            for k, v in outs.items() if v.dtype == torch.float32
+            and k not in ("z_vals", "sdf")).backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+    return {k: v.detach().cpu() for k, v in outs.items()}, grads
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_render_multi_obj_and_point_colors_on_card_match_cpu(cuda, training):
+    """render_rays_multi_obj (H2 in the sampler, H1-fwd / H1-bwd exact in
+    the field) and query_point_colors on the card against the CPU (the
+    plain versions): every output within 1e-4 absolute, and in training
+    (the sampler's draws made on the CPU) every parameter gradient within
+    1e-4 of its largest value (atomics and float32 sums in another
+    order). The sample depths and the SDF at them are held to the
+    sampler's stated margin instead (tests/test_torch_sampler.py: 90%
+    within 1e-4, all within 5e-3): H2's last bit can move a sample within
+    its section of the refined buffer (4.4e-4 seen on the card in
+    training), where the composited outputs barely move."""
+    counts = (thash.fused_fwd.launches, thash.sampler_fwd.launches)
+    ref_o, ref_g = _render_multi_case("cpu", training)
+    got_o, got_g = _render_multi_case(cuda, training)
+    torch.cuda.synchronize()
+    assert thash.fused_fwd.launches - counts[0] == 2      # render, points
+    assert thash.sampler_fwd.launches > counts[1]
+    for k, r in ref_o.items():
+        assert torch.isfinite(got_o[k]).all(), k
+        err = (got_o[k] - r).abs()
+        if k in ("z_vals", "sdf"):
+            assert float((err > 1e-4).float().mean()) <= 0.1, k
+            assert float(err.max()) <= 5e-3, (k, float(err.max()))
+        else:
+            assert float(err.max()) <= 1e-4, (k, float(err.max()))
+    if training:
+        assert set(got_g) == set(ref_g)
+        for k, r in ref_g.items():
+            err = float((got_g[k] - r).abs().max())
+            assert err <= 1e-4 * float(r.abs().max()) + 1e-7, (k, err)
+
+
+def test_hash_encode_world_on_card_matches_cpu(cuda):
+    """hash_encode_world (H2 packed forward, H1-bwd without the jacobian
+    backward) on the card against the CPU: features within 1e-4 of the
+    largest, the table gradient within 1e-4 of its largest (atomics). The
+    features' tolerance is not H2's (1e-5, held in the tests above): on a
+    CUDA tensor PyTorch divides by a scalar through its reciprocal, so
+    the world-to-[0, 1] map rounds a point differently in 2627 of these
+    15000 coordinates, and the finest level (scale 511) amplifies that
+    ulp to 8.7e-6 on features of 0.099 (8.8e-5 of the largest, measured
+    on the CPU by mapping with the reciprocal; 3.4e-5 on the gradient).
+    Run with -s, it prints both errors."""
+    meta = thash.HashGridMeta(num_levels=16, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=14, desired_resolution=512)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand(5000, 3, generator=gen) * 5.0 - 2.5
+    emb = torch.rand(meta.table_rows, 2, generator=gen) * 0.2 - 0.1
+    ct = torch.randn(5000, 32, generator=gen)
+    res = []
+    for dev in ("cpu", cuda):
+        e = emb.clone().to(dev).requires_grad_(True)
+        n0 = (thash.sampler_fwd.launches, thash.fused_bwd.launches)
+        f = thash.hash_encode_world(x.to(dev), e, meta, size=2.5)
+        (f * ct.to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (thash.sampler_fwd.launches - n0[0],
+                    thash.fused_bwd.launches - n0[1]) == (1, 1)
+        res.append((f.detach().cpu(), e.grad.cpu()))
+    (rf, rg), (gf, gg) = res
+    errs = [float((g - r).abs().max()) / float(r.abs().max())
+            for g, r in ((gf, rf), (gg, rg))]
+    print(f"hash_encode_world card vs CPU, max abs err over the largest "
+          f"value: features {errs[0]:.3g}, table gradient {errs[1]:.3g}")
+    _close(gf, rf, 1e-4)
+    assert errs[1] <= 1e-4
+
+
+@pytest.mark.parametrize("ortho", [False, True])
+def test_peeled_rasterizer_on_card_matches_cpu(cuda, ortho):
+    """rasterize_mesh_list_peeled of two nested spheres on the card against
+    the CPU: per layer the masks, face ids and instance ids on >= 99.9% of
+    the pixels (a fragment's depth rounds in another order on the card,
+    which can hand a tie to the other face), depths within 1e-5 where both
+    cover."""
+    from holoscene_tpu_torch.ops import rasterizer as tr
+    from holoscene_tpu_torch.utils.mc import marching_tetrahedra
+
+    axis = np.linspace(-1, 1, 40)
+    x, y, z = np.meshgrid(axis, axis, axis, indexing="ij")
+    meshes = []
+    for r in (0.6, 0.3):
+        v, f = marching_tetrahedra(np.sqrt(x * x + y * y + z * z) - r,
+                                   origin=(-1, -1, -1),
+                                   spacing=(2.0 / 39,) * 3)
+        meshes.append((v, f))
+    pose = np.eye(4)
+    pose[2, 3] = -2.0
+    intr = np.array([[90.0, 0, 48], [0, 90.0, 48], [0, 0, 1.0]])
+    kw = dict(n_layers=4, peel_eps=0.05,
+              ortho_half_extent=0.8 if ortho else None)
+    ref = tr.rasterize_mesh_list_peeled(meshes, pose, intr, (96, 96), **kw)
+    got = tr.rasterize_mesh_list_peeled(meshes, pose, intr, (96, 96),
+                                        device=cuda, **kw)
+    for k, (g, r) in enumerate(zip(got, ref)):
+        for key in ("mask", "face_id", "instance_id"):
+            same = (g[key].cpu() == r[key]).float().mean()
+            assert float(same) >= 0.999, (k, key, float(same))
+        both = g["mask"].cpu() & r["mask"]
+        err = (g["depth"].cpu()[both] - r["depth"][both]).abs()
+        assert both.any() and float(err.max()) <= 1e-5, k
+    assert bool(ref[3]["mask"].any())      # four surfaces at the centre

@@ -4,9 +4,11 @@ implicit_get_outputs_fused (sdf, feature vectors, scene-SDF gradients,
 semantic, raw SDFs; all levels and coarse_levels), the vjp mode
 implicit_get_outputs (also at x01 = 1, where JAX's packed encode wraps
 the dense index and H1 clamps the cell), implicit_forward /
-implicit_sdf_raw, implicit_all_gradients, the rendering network, and the
-backward of each with respect to every parameter, second order through
-the hash grid included.
+implicit_sdf_raw, the scene / object / multi-object SDF wrappers,
+implicit_all_gradients, the rendering network, and the backward of each
+with respect to every parameter, second order through the hash grid
+included; and hash_encode_world (the packed encode of world points, H2's
+plain version) with its table gradient.
 
 Tolerances: outputs atol 1e-5 + rtol 1e-5 (float32 sums in another order);
 parameter gradients per tensor max |port - JAX| <= 1e-4 max |JAX| (the
@@ -23,6 +25,7 @@ from test_torch_threads import few_torch_threads  # noqa: F401
 from torch_stage1_cases import cfgs, implicit_cfgs, jax_params
 
 from holoscene_tpu.models import fields as jf
+from holoscene_tpu.ops import hashgrid as jhash
 from holoscene_tpu.ops.hashgrid import build_dense_block_tables
 from holoscene_tpu_torch.convert import stage1_params_from_jax
 from holoscene_tpu_torch.models import fields as tf
@@ -164,6 +167,52 @@ def test_implicit_forward_and_sdf_raw_match_jax(with_features):
         err = float((g - ref[k]).abs().max())
         assert err <= GRAD_REL * float(ref[k].abs().max()), (k, err)
     assert dict(net.named_parameters())["grid"].grad.any()
+
+
+@pytest.mark.parametrize("which", ["scene", "object", "multi_object"])
+def test_scene_and_object_sdf_wrappers_match_jax(which):
+    """implicit_scene_sdf (the min over the objects), implicit_object_sdf
+    (object 1) and implicit_multi_object_sdf (objects 0 and 2) through H1
+    against JAX's, outputs and parameter gradients."""
+    args = {"scene": (), "object": (1,), "multi_object": ((0, 2),)}[which]
+    jfn = getattr(jf, f"implicit_{which}_sdf")
+    tfn = getattr(tf, f"implicit_{which}_sdf")
+    jgrads, net = _outputs_and_backward_vs_jax(
+        lambda p, c, x: (jfn(p, c, x, *args),),
+        lambda net, x: (tfn(net, x, *args),), _points(59, 3))
+    ref = stage1_params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    for k, p in net.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        err = float((g - ref[k]).abs().max())
+        assert err <= GRAD_REL * float(ref[k].abs().max()), (k, err)
+    assert dict(net.named_parameters())["grid"].grad.any()
+
+
+@pytest.mark.parametrize("size", [1.0, 2.5])
+def test_hash_encode_world_matches_jax(size):
+    """hash_encode_world of world points in [-size, size] (some on the
+    boundary, some outside) against JAX's: features atol 1e-6, the table
+    gradient of a random functional within 1e-5 of its largest entry."""
+    jic, params, _ = _implicit()
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-size, size, (300, 3)).astype(np.float32)
+    x[:20, 0] = size
+    x[20:40] *= 1.2
+    emb = np.asarray(params["grid"])
+    ref = jax.jit(lambda e: jhash.hash_encode_world(
+        jnp.asarray(x), e, jic.grid_meta, size))(jnp.asarray(emb))
+    ct = rng.normal(size=ref.shape).astype(np.float32)
+    jg = jax.grad(lambda e: jnp.sum(jhash.hash_encode_world(
+        jnp.asarray(x), e, jic.grid_meta, size) * ct))(jnp.asarray(emb))
+    t_emb = torch.tensor(emb, requires_grad=True)
+    got = thash.hash_encode_world(torch.tensor(x), t_emb,
+                                  implicit_cfgs()[1].grid_meta, size)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=1e-6)
+    (got * torch.tensor(ct)).sum().backward()
+    jg = np.asarray(jg)
+    assert np.abs(t_emb.grad.numpy() - jg).max() <= 1e-5 * np.abs(jg).max()
+    assert np.count_nonzero(jg) > 100
 
 
 def test_all_gradients_and_their_backward_match_jax():

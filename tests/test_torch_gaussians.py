@@ -1,5 +1,5 @@
 """Gaussian math and SSIM of the port against the JAX reference: quaternion
-helpers, the fused EWA projection (pinhole and ortho, values and
+helpers, the SH DC colour maps, the fused EWA projection (pinhole and ortho, values and
 gradients), spherical harmonics up to degree 3, and SSIM."""
 
 import jax
@@ -53,6 +53,20 @@ def test_quaternion_helpers_match_jax():
     for got, want in pairs:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     assert tg.num_sh_bases(3) == jg.num_sh_bases(3) == 16
+
+
+def test_sh_dc_colour_maps_match_jax():
+    """sh_to_rgb (and its inverse rgb_to_sh) against JAX's: atol 1e-6, and
+    the round trip returns the colours."""
+    rgb = np.random.default_rng(3).uniform(-0.2, 1.2, (64, 3)).astype(
+        np.float32)
+    sh = tg.rgb_to_sh(_t(rgb))
+    np.testing.assert_allclose(sh.numpy(), np.asarray(jg.rgb_to_sh(rgb)),
+                               atol=1e-6)
+    back = tg.sh_to_rgb(sh)
+    np.testing.assert_allclose(back.numpy(), np.asarray(jg.sh_to_rgb(
+        jg.rgb_to_sh(rgb))), atol=1e-6)
+    np.testing.assert_allclose(back.numpy(), rgb, atol=1e-6)
 
 
 @pytest.mark.parametrize("ortho", [False, True])

@@ -43,7 +43,8 @@ def test_port_lists_its_slice_modules():
                  "training.exp_runner_post", "training.stage3",
                  "training.exp_runner_texture", "utils.uv_atlas",
                  "export.glb", "export.usd", "export.load_scene",
-                 "export.cli"):
+                 "export.cli", "stage0", "stage0.priors",
+                 "stage2.mv_predict"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 

@@ -1,7 +1,8 @@
 """The port's error-bound sampler and probe grid
-(holoscene_tpu_torch/ops/{sampler,probe_grid}.py) against the JAX package's
-on the CPU, on an analytic SDF written in both frameworks, with the JAX
-draws handed to the port (tests/torch_stage1_cases.py::sampler_draws).
+(holoscene_tpu_torch/ops/{sampler,probe_grid}.py), its sign-change surface
+search and its stratified uniform sampler against the JAX package's on the
+CPU, on an analytic SDF written in both frameworks, with the JAX draws
+handed to the port (tests/torch_stage1_cases.py::sampler_draws).
 
 Tolerances. beta atol 1e-5. Samples and the probe buffer: 90% within atol
 1e-5 and every one within 5e-3 (a fifth of a buffer section). The
@@ -51,22 +52,48 @@ CFG = dict(N_samples=16, N_samples_eval=32, N_samples_extra=8,
            max_total_iters=4, beta_iters=6)
 
 
+def _near_far(o, bounded):
+    """None, or per-ray (near, far) [R, 1] inside the scene cube."""
+    if not bounded:
+        return None, None
+    rng = np.random.default_rng(7)
+    near = rng.uniform(0.05, 0.2, (o.shape[0], 1)).astype(np.float32)
+    return near, near + rng.uniform(0.9, 1.4, near.shape).astype(np.float32)
+
+
 @pytest.mark.parametrize("beta0", [0.01, 2.0])
 @pytest.mark.parametrize("training", [True, False])
 def test_error_bound_sample_matches_jax(training, beta0):
     """Placements, the refined probe buffer and per-ray beta, and
     estimate_weights_from_buffer on them. beta0 = 2.0: every ray has
     converged, so the upsampling rounds are skipped on both sides."""
+    _check_error_bound_sample(training, beta0, bounded=False)
+
+
+@pytest.mark.parametrize("beta0", [0.01, 2.0])
+@pytest.mark.parametrize("training", [True, False])
+def test_error_bound_sample_with_near_far_matches_jax(training, beta0):
+    """As above with the caller's per-ray near / far instead of the scene
+    cube's (render_rays_multi_obj passes them)."""
+    _check_error_bound_sample(training, beta0, bounded=True)
+
+
+def _check_error_bound_sample(training, beta0, bounded):
     jc, tc = js.SamplerConfig(**CFG), ts.SamplerConfig(**CFG)
     o, d = _rays()
+    near, far = _near_far(o, bounded)
     key = jax.random.PRNGKey(3)
     z, z_eik, (zb, sb, beta) = js.error_bound_sample(
         key, jnp.asarray(o), jnp.asarray(d), _sdf_j, jnp.float32(beta0), jc,
-        training=training, return_aux=True)
+        training=training, return_aux=True,
+        near=None if near is None else jnp.asarray(near),
+        far=None if far is None else jnp.asarray(far))
     draws = sampler_draws(key, jc, o.shape[0]) if training else None
     tz, tz_eik, (tzb, tsb, tbeta) = ts.error_bound_sample(
         torch.tensor(o), torch.tensor(d), _sdf_t, torch.tensor(beta0), tc,
-        draws, training=training, return_aux=True)
+        draws, training=training, return_aux=True,
+        near=None if near is None else torch.tensor(near),
+        far=None if far is None else torch.tensor(far))
     np.testing.assert_allclose(tbeta.numpy(), np.asarray(beta), atol=ATOL)
     pairs = [(z, tz), (zb, tzb), (sb, tsb)] + ([(z_eik, tz_eik)]
                                               if training else [])
@@ -110,3 +137,56 @@ def test_probe_grid_bake_and_lookup_match_jax():
     r = jpg.probe_sdf_fn(ref, res, bound)(jnp.asarray(pts))
     g = tpg.probe_sdf_fn(got, res, bound)(torch.tensor(pts))
     np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6)
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_ray_marching_surface_matches_jax(bounded):
+    """Depths and hits of the sign-change search with secant refinement on
+    the analytic sphere, rays that hit and rays that miss, with the cube's
+    bounds or the caller's near / far: hits equal, depths atol 1e-5 (the
+    secant divides by SDF differences the two norms round differently)."""
+    jc, tc = js.SamplerConfig(**CFG), ts.SamplerConfig(**CFG)
+    o, d = _rays(40, seed=3)
+    d[:8] = [0.0, 0.0, -1.0]                     # away from the sphere
+    near, far = _near_far(o, bounded)
+    jd, jh = js.ray_marching_surface(
+        jax.random.PRNGKey(0), jnp.asarray(o), jnp.asarray(d), _sdf_j, jc,
+        n_steps=64, near=None if near is None else jnp.asarray(near),
+        far=None if far is None else jnp.asarray(far))
+    td, th = ts.ray_marching_surface(
+        torch.tensor(o), torch.tensor(d), _sdf_t, tc, n_steps=64,
+        near=None if near is None else torch.tensor(near),
+        far=None if far is None else torch.tensor(far))
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=ATOL)
+    assert 0 < th.sum() < len(th)
+    hit = th.numpy()
+    pts = o[hit] + td.numpy()[hit] * d[hit]
+    np.testing.assert_allclose(np.linalg.norm(pts - CENTER, axis=-1),
+                               RADIUS, atol=1e-4)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_uniform_sample_matches_jax(training):
+    """Stratified samples from JAX's uniforms (training) or the bin edges
+    (eval), per-ray near / far: atol 1e-6; each training sample lies in
+    its stratum."""
+    o, d = _rays(30, seed=5)
+    near, far = _near_far(o, True)
+    key = jax.random.PRNGKey(11)
+    ref = np.asarray(js.uniform_sample(key, jnp.asarray(o), jnp.asarray(d),
+                                       16, jnp.asarray(near),
+                                       jnp.asarray(far), training=training))
+    t_rand = (torch.tensor(np.asarray(jax.random.uniform(key, (30, 16))))
+              if training else None)
+    got = ts.uniform_sample(torch.tensor(near), torch.tensor(far), 16,
+                            t_rand).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    edges = near + (far - near) * np.linspace(0, 1, 16, dtype=np.float32)
+    if training:
+        mids = 0.5 * (edges[:, 1:] + edges[:, :-1])
+        lo = np.concatenate([edges[:, :1], mids], -1)
+        hi = np.concatenate([mids, edges[:, -1:]], -1)
+        assert ((got >= lo - 1e-6) & (got <= hi + 1e-6)).all()
+    else:
+        np.testing.assert_allclose(got, edges, atol=1e-6)

@@ -333,6 +333,33 @@ def test_plain_walks_on_hard_tiles(layout):
             assert not rows_of[t][:len(rows)][dead].any()
 
 
+@pytest.mark.parametrize("layout", ["flat", "topk"])
+def test_plain_backward_with_float64_sums_keeps_the_float32_walk(layout):
+    """acc=float64 (the card check's exact reference for K2/K4): float64
+    rows, non-zero exactly where the float32 walk's are (the alphas and
+    their masks stay float32), and within the walks' tolerance of them."""
+    lists, origins, size = hard_tiles()
+    v = _t(cotangent(len(lists), origins, size))
+    if layout == "flat":
+        cand, cs, cc = map(_t, flat_layout(lists))
+        geom = (3, 16, *size)
+        out = tflat.flat_fwd_plain(cand, cs, cc, *geom)
+        f32, f64 = (tflat.flat_bwd_plain(cand, cs, out, v, *geom, acc=acc)
+                    for acc in (None, torch.float64))
+    else:
+        cand, counts = map(_t, topk_layout(lists))
+        out, used = ttopk.composite_fwd_plain(cand, _t(origins), counts, 16,
+                                              *size)
+        f32, f64 = (ttopk.composite_bwd_plain(cand, _t(origins), used, out,
+                                              v, 16, *size, acc=acc)
+                    for acc in (None, torch.float64))
+    assert f32.dtype == torch.float32 and f64.dtype == torch.float64
+    assert torch.equal(f32 != 0, f64 != 0)
+    assert f64[..., :10].abs().sum(-1).gt(0).any()
+    np.testing.assert_allclose(f32.numpy(), f64.numpy(), atol=BWD_ATOL,
+                               rtol=BWD_RTOL)
+
+
 FWD_USED = [1, 1, 1, 1, 1, 2, 2, 1]      # hard_fwd_tiles, walked chunks
 FWD_CHUNKS = [1, 1, 1, 1, 2, 3, 2, 1]    # and chunks available
 

@@ -9,7 +9,10 @@ multiview prediction (mv_predict) and Stage 2 (per-object refinement
 checked by physics) through their CLIs on a Stage-1 run's checkpoint,
 Stage 3 (per-object texture baking) through its CLI on Stage 2's output,
 the scene export CLI on the result, and the rest of the chain: Stage 0's
-priors and Stage 4 on Stage 3's textured meshes, with the chain record.
+priors and Stage 4 on Stage 3's textured meshes, with the chain record;
+then the free-Gaussian trainer (gs_train) at its CLI's defaults, the
+Gaussian ray tracer behind gs_render --renderer trace with its kernel T1,
+the unscented-transform camera and the viewer.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -164,8 +167,8 @@ Phases, one '== ' line each:
                  the CPU: the files equal (depth within 1e-6). (b)
                  training/exp_runner_gaussian.main on phase 15's run (its
                  surface_{i}.obj: the room and both spheres, never cut)
-                 with the dataset's test split, the CLI's default 200
-                 iterations a mesh: every loss
+                 with the dataset's test split, --max_niters 300 (half the
+                 CLI's default of 200 a mesh, cut for time): every loss
                  finite, K1 and K2 launched on every step, gauss_scene.ply
                  and .usdz written, the test PSNR and SSIM finite; the
                  gaussians by object, steps/s, splats/s, the l1 in thirds
@@ -182,15 +185,46 @@ Phases, one '== ' line each:
                  object's mesh against the synthetic scene's analytic mesh
                  for Stage 1 (phase 14's input extraction at 256), Stage 2
                  (the accepted meshes) and Stage 3 (surface_{i}.obj)
+ 17 free gaussians (a) training/gs_train.main --dataset ns on phase 10b's
+                 512^2 scene at the CLI's defaults (capacity 100,000, SH 3,
+                 splatfacto every 100 steps after 500), 700 steps with the
+                 export scene.ply: every loss finite, the PSNR rising from
+                 the first third to the last, K1 and K2 launched on every
+                 step, the alive count changing at both refines, eval PSNR /
+                 SSIM finite (the views through K3 at max_per_tile, as the
+                 JAX CLI renders them); steps/s, ms a step, splats/s; K1/K2
+                 against plain on the trainer's training frame 0 (its flat
+                 plan and bins over all 100,000 slots, the dead ones at
+                 opacity 0). (b) --resume for 10 more
+                 steps from the checkpoint's iteration (K2 ten times). (c)
+                 --strategy mcmc, 200 steps, relocations every 50 after
+                 50: the alive count kept at each. (d) an OPENCV_FISHEYE
+                 COLMAP reconstruction of the scene written here (its
+                 images and poses, 20,000 surface points), 60 steps
+                 through the UT projection, --export scene.ingp read back.
+                 (e) training/gs_render.main --renderer trace on phase 4's
+                 gauss_scene.ply, pinhole and fisheye: PNGs and metrics
+                 written, T1 launched once a 65,536-ray selection (4 a
+                 512^2 view; composites 4096 rays at a time); the trace of
+                 view 0 on white against the raster render above 20 dB
+                 PSNR; gs_render --camera opencv --dist (UT raster, K3),
+                 and K3 against plain on the top-K lists of its view 0
+                 (UT-projected, at its calibrated K).
+                 (f) T1 against plain on the middle 65,536-ray selection
+                 of view 0 (plain 4096 rays at a time): indices equal
+                 plain's, two launches the same bits, the
+                 composite of the hits within 1e-5; kernel ms, plain ms,
+                 bound. (g) one viewer orbit frame (K3) on the card
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
-15 and 16) it is
+15, 16 and 17) it is
 launched twice on the same inputs and the two results must be the same bits
-(K1-K4, H1-fwd, H2); H1-bwd adds with atomicAdd, whose order changes from
-launch to launch, so its two launches must agree within its tolerance to
-plain (1e-5 of the largest gradient), not bitwise.
+(K1-K4, H1-fwd, H2, T1); H1-bwd adds with atomicAdd, whose order changes
+from launch to launch, so its two launches must agree within its tolerance
+to plain (1e-5 of the largest gradient), not bitwise.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
-10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run) and 16
-(its Stage-4 run) and read just after. Then the kernel table as one JSON line
+10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run), 16
+(its Stage-4 run) and 17 (each gs_train run, each gs_render run, the
+viewer frame) and read just after. Then the kernel table as one JSON line
 and last the device line {"ok": true, "device": {...}}. Any failure exits
 non-zero before it.
 
@@ -221,11 +255,21 @@ Operations: per (in-range point, level) 18 for the smoothstep weights and their 
 jacobian term, whose [L*2, 3, N] cotangent is then not read either) or 6
 (H2), over 67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
 is null.
+
+The bound of T1, from phase 17 (f)'s selection. Operations: per (ray,
+gaussian) pair whose opacity can pass the 1/255 test (the others are
+decided without arithmetic) the 65 float32 operations up to the acceptance
+test (T1_OPS_PAIR, counted from the source; sqrt, divisions and the exp one
+each), over 67 TFLOP/s. Bytes: the rays (24 B each), the packed gaussians
+(52 B each) read once, the indices and counts written once, over 3.35
+TB/s. No PyTorch call selects the K nearest accepted hits of a ray against
+a gaussian mixture: library_ms is null.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -297,6 +341,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def reset_counts() -> None:
+    from holoscene_tpu_torch.ops import gs_trace
     from holoscene_tpu_torch.ops import hashgrid as hg
     from holoscene_tpu_torch.ops import splat_flat as sf
     from holoscene_tpu_torch.ops import splat_topk as st
@@ -305,6 +350,7 @@ def reset_counts() -> None:
     st.composite_fwd.launches = st.composite_bwd.launches = 0
     hg.fused_fwd.launches = hg.fused_bwd.launches = 0
     hg.sampler_fwd.launches = 0
+    gs_trace.select_hits.launches = 0
 
 
 def read_counts() -> dict:
@@ -369,8 +415,9 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     [T,P,8], used [T]); bwd(out, used, v) -> d cand; bwd_exact the same
     plain backward with float64 sums. The forward is held against plain
     within FWD_ATOL, the backward against bwd_exact within BWD_ATOL +
-    BWD_RTOL |exact|. Returns {name: dict(max_abs_err (vs float32 plain),
-    ms, plain_ms, bound_ms, bound_by)} (the times None unless timed), the
+    BWD_RTOL |exact|; bwd None holds the forward alone (a path that only
+    renders). Returns {name: dict(max_abs_err (vs float32 plain), ms,
+    plain_ms, bound_ms, bound_by)} (the times None unless timed), the
     backward's also max_abs_err_exact and plain_max_abs_err_exact."""
     import torch
 
@@ -392,6 +439,25 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
         raise RuntimeError(f"{kf} disagrees with plain: max abs err {err_f} "
                            f"> {FWD_ATOL}; worst channel errors "
                            f"{bad.amax(0).tolist()}")
+    walked, pairs, live = walk_work(chunks, real, cs, ref_used, *pixels)
+    vals, tiles = torch.unique(ref_used.long(), return_counts=True)
+    read = walked * chunks[0].numel() * 4 + extra_in_bytes
+    block = out.numel() * 4
+    res = {kf: dict(max_abs_err=err_f, ms=None, plain_ms=None)}
+    res[kf]["bound_ms"], res[kf]["bound_by"] = bound_ms(
+        read + block, pairs * OPS_TEST + live * OPS_LIVE_FWD)
+    work = dict(walked_chunks=walked, candidate_pixels=pairs,
+                live_candidate_pixels=live, library_ms=None,
+                tiles_by_walked_chunks=dict(zip(vals.tolist(),
+                                                tiles.tolist())))
+    res[kf].update(work)
+    if timed:
+        # the candidate rows (tens of MB) are left warm in the 50 MB L2, as
+        # the gather that precedes each walk in a training step leaves them
+        res[kf]["ms"] = cuda_ms(fwd, 20)
+        res[kf]["plain_ms"] = cuda_ms(fwd_plain, 3)
+    if bwd is None:
+        return res
     gen = torch.Generator(device=out.device).manual_seed(seed)
     v = torch.randn(ref.shape, generator=gen, device=out.device)
     v[..., 5:] = 0.0   # the diagnostics channels carry no cotangent
@@ -415,29 +481,13 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
                            f"values outside atol {BWD_ATOL} rtol {BWD_RTOL}; "
                            f"max abs err {float(err_x.max())} (float32 plain "
                            f"{plain_x}, kernel vs float32 plain {err_b})")
-    res = {kf: dict(max_abs_err=err_f, ms=None, plain_ms=None),
-           kb: dict(max_abs_err=err_b, max_abs_err_exact=float(err_x.max()),
-                    plain_max_abs_err_exact=plain_x, ms=None,
-                    plain_ms=None)}
-    walked, pairs, live = walk_work(chunks, real, cs, ref_used, *pixels)
-    vals, tiles = torch.unique(ref_used.long(), return_counts=True)
-    read = walked * chunks[0].numel() * 4 + extra_in_bytes
-    block = out.numel() * 4
-    res[kf]["bound_ms"], res[kf]["bound_by"] = bound_ms(
-        read + block, pairs * OPS_TEST + live * OPS_LIVE_FWD)
+    res[kb] = dict(max_abs_err=err_b, max_abs_err_exact=float(err_x.max()),
+                   plain_max_abs_err_exact=plain_x, ms=None, plain_ms=None,
+                   **work)
     res[kb]["bound_ms"], res[kb]["bound_by"] = bound_ms(
         read + 2 * block + dker.numel() * 4,
         pairs * OPS_TEST + live * OPS_LIVE_BWD)
-    for k in names:
-        res[k].update(walked_chunks=walked, candidate_pixels=pairs,
-                      live_candidate_pixels=live, library_ms=None,
-                      tiles_by_walked_chunks=dict(zip(vals.tolist(),
-                                                      tiles.tolist())))
     if timed:
-        # the candidate rows (tens of MB) are left warm in the 50 MB L2, as
-        # the gather that precedes each walk in a training step leaves them
-        res[kf]["ms"] = cuda_ms(fwd, 20)
-        res[kf]["plain_ms"] = cuda_ms(fwd_plain, 3)
         res[kb]["ms"] = cuda_ms(lambda: bwd(ref, ref_used, v), 20)
         res[kb]["plain_ms"] = cuda_ms(lambda: bwd_plain(ref, ref_used, v), 3)
     return res
@@ -467,7 +517,8 @@ def compare_flat(cand, cs, cc, tiles_x, width, height, seed, timed):
         2 * cs.numel() * 4, seed, timed)
 
 
-def compare_topk(cand, origins, counts, width, height, seed, timed):
+def compare_topk(cand, origins, counts, width, height, seed, timed,
+                 fwd_only=False):
     import torch
 
     from holoscene_tpu_torch.ops import splat_flat as sf
@@ -483,6 +534,7 @@ def compare_topk(cand, origins, counts, width, height, seed, timed):
         real.reshape(-1, sf.CHUNK), cs, pixels,
         lambda: st.composite_fwd(cand, origins, counts, *geom),
         lambda: st.composite_fwd_plain(cand, origins, counts, *geom),
+        None if fwd_only else
         lambda o, u, v: st.composite_bwd(cand, origins, u, o, v, *geom),
         lambda o, u, v: st.composite_bwd_plain(cand, origins, u, o, v, *geom),
         lambda o, u, v: st.composite_bwd_plain(cand, origins, u, o, v, *geom,
@@ -544,17 +596,18 @@ def flat_inputs(xy, depth, conic, valid, opac, rgb, res):
 
 
 def projection(means, quats, scales, opac, colors, viewmat, intr, w, h,
-               sh_degree, ortho=False):
+               sh_degree, ortho=False, camera_model="pinhole", dist=None):
     """Projected, shaded gaussians as render_gaussians makes them: (xy,
-    depth, conic, radius, valid, opac, rgb)."""
+    depth, conic, radius, valid, opac, rgb); opencv / fisheye cameras
+    through the unscented transform."""
     import torch
 
-    from holoscene_tpu_torch.ops.gaussians import project_gaussians_fused
-    from holoscene_tpu_torch.ops.splat import shade
+    from holoscene_tpu_torch.ops.splat import project_for_render, shade
 
     with torch.no_grad():
-        xy, depth, conic, radius, valid = project_gaussians_fused(
-            means, quats, scales, viewmat, intr, w, h, ortho=ortho)
+        xy, depth, conic, radius, valid = project_for_render(
+            means, quats, scales, viewmat, intr, w, h, ortho=ortho,
+            camera_model=camera_model, dist=dist)
         rgb = shade(means, colors, viewmat, sh_degree)
     return xy, depth, conic, radius, valid, opac, rgb
 
@@ -1418,8 +1471,6 @@ def stage2_phase(work: Path, dev, card: str, chain: dict) -> dict:
     defaults' model, which the post conf's model section shares). Returns
     {H kernel: {launches, and at the invisible render's / the collision
     points' call: max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
-    import os
-
     import numpy as np
     import torch
 
@@ -1926,6 +1977,9 @@ MV_SEEDS = (42, 3, 7)  # phase 14a: mv_predict's --seeds
 W3D_ATOL = 1e-5       # the Wonder3D+ provider on the card vs the CPU
 # phase 16: the chamfers' samples a mesh and the analytic meshes' grid
 CHAMFER_SAMPLES, GT_MESH_RES = 30000, 64
+# phase 16b's Stage-4 iterations: half the CLI's default (200 a mesh, 600
+# here), cut to keep the script in its time once phase 17 joined it
+CHAIN_S4_ITERS = 300
 
 
 def w3d_stand_in(path: Path) -> str:
@@ -2173,7 +2227,8 @@ def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
     try:
         runner = exp_runner_gaussian.main(
             ["--conf", str(conf), "--exps_folder", str(work / "exps_s1b"),
-             "--log_every", "1", "--quiet", "--device", "cuda"])
+             "--max_niters", str(CHAIN_S4_ITERS), "--log_every", "1",
+             "--quiet", "--device", "cuda"])
     finally:
         s4.Stage4Runner._step, s4.Stage4Runner.export = step_fn, export_fn
     wall = time.perf_counter() - t0
@@ -2274,6 +2329,372 @@ def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
         f"{time.perf_counter() - t0:.1f} s):")
     log(json.dumps(record))
     return launches, walks
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the free-Gaussian trainer and the Gaussian ray tracer
+# ---------------------------------------------------------------------------
+
+FREE_CAPACITY, FREE_WARMUP, FREE_REFINE, FREE_ITERS = 100_000, 500, 100, 700
+FREE_RESUME = 10          # (b): iterations after the checkpoint's
+MCMC_ITERS, MCMC_WARMUP, MCMC_EVERY = 200, 50, 50
+COLMAP_ITERS, COLMAP_POINTS = 60, 20_000
+COLMAP_FISHEYE = (0.02, 0.004, -0.001, 0.0002)   # OPENCV_FISHEYE k1..k4
+UT_DIST = ("0.02", "0.005", "0.001", "-0.001")    # gs_render --camera opencv
+TRACE_HITS = 128          # gs_render --max_hits' default
+TRACE_PSNR_MIN = 20.0     # trace vs raster of one view (the JAX test: 24 dB
+                          # on a random cloud of round particles)
+T1_ATOL = 1e-5            # composite of T1's hits vs plain's
+# float32 operations per (ray, gaussian) pair up to T1's acceptance test
+# (kernel degree 2, counted from csrc/gs_trace_select.cu): o - mu 3, the
+# two 3x3 transforms 30, |grdu| 7 (with the sqrt and the clamp), grd 3,
+# t_proj 6, the cross product 9 and its square 5, the response 2 (one exp),
+# alpha 2, the three tests 3
+T1_OPS_PAIR = 65
+
+
+def free_frame_walks(tr, frame: int, timed: bool) -> dict:
+    """K1/K2 against plain on a GSTrainer's training frame as its step
+    hands them over: the trainer's flat plan and bins (_get_bins) over every
+    slot of its capacity, dead slots at opacity 0, the candidates gathered
+    from the current parameters."""
+    import torch
+
+    from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.ops.gaussians import view_matrix
+
+    p, cfg = tr.params, tr.cfg
+    h, w = tr.dataset.img_res
+    pose, intr = tr._pose_intr(tr.dataset.pose_all[frame])
+    with torch.no_grad():
+        bins = tr._get_bins(frame, pose, intr)
+        colors = torch.cat([p["features_dc"][:, None, :],
+                            p["features_rest"]], dim=1)
+        opac = torch.sigmoid(p["opacity_logits"]) * tr.state["alive"]
+        xy, depth, conic, _, _, opac, rgb = projection(
+            p["means"], p["quats"], torch.exp(p["log_scales"]), opac, colors,
+            view_matrix(pose, pose.device), intr, w, h, cfg.sh_degree,
+            camera_model=cfg.camera_model, dist=cfg.dist)
+        cand = sf.gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
+    return compare_flat(cand, bins["tile_chunk_start"],
+                        bins["tile_chunk_cnt"], -(-w // cfg.tile_size), w, h,
+                        8, timed=timed)
+
+
+def walk_note(walks: dict, card: str) -> str:
+    return "; ".join(f"{k} max abs err {r['max_abs_err']:.3g}"
+                     f"{exact_note(r)}, kernel {r['ms']:.3f} ms, plain "
+                     f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                     f"by {r['bound_by']}" for k, r in walks.items()) \
+        + f"; on {card}"
+
+
+def write_colmap_scene(src: Path, dst: Path, camera: tuple) -> Path:
+    """An OPENCV_FISHEYE COLMAP reconstruction (cameras / images /
+    points3D.bin) of a generated scene: its images and poses, the
+    distortion coefficients `camera`, and COLMAP_POINTS points sampled on
+    the analytic scene's surfaces as its sparse cloud."""
+    import shutil
+    import struct
+
+    import numpy as np
+
+    from holoscene_tpu_torch.datasets.synthetic import scene_meshes
+    from holoscene_tpu_torch.training.gs_render import load_dataset
+
+    ds = load_dataset("ns", str(src))
+    h, w = ds.img_res
+    k = ds.intrinsics
+    sparse = dst / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    shutil.copytree(src / "images", dst / "images")
+    names = sorted(p.name for p in (dst / "images").iterdir())
+    with open(sparse / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 5, w, h))
+        f.write(struct.pack("<8d", k[0, 0], k[1, 1], k[0, 2], k[1, 2],
+                            *camera))
+    with open(sparse / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, (name, c2w) in enumerate(zip(names, ds.pose_all)):
+            rot = c2w[:3, :3].T.astype(np.float64)      # world to camera
+            tvec = -rot @ c2w[:3, 3]
+            qw = np.sqrt(max(1.0 + np.trace(rot), 1e-12)) / 2
+            qvec = (qw, (rot[2, 1] - rot[1, 2]) / (4 * qw),
+                    (rot[0, 2] - rot[2, 0]) / (4 * qw),
+                    (rot[1, 0] - rot[0, 1]) / (4 * qw))
+            f.write(struct.pack("<i4d3di", i + 1, *qvec, *tvec, 1))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([m.sample_surface(COLMAP_POINTS // 3, rng)
+                          for m in scene_meshes(32)])
+    with open(sparse / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(pts)))
+        for i, xyz in enumerate(pts):
+            f.write(struct.pack("<Q3d3BdQ", i + 1, *xyz, 128, 128, 128,
+                                0.5, 0))
+    return dst
+
+
+def free_gaussian_phase(work: Path, dev, card: str, gauss_ply: Path,
+                        paths: dict, other: dict) -> dict:
+    """Phase 17: gs_train (splatfacto, resume, MCMC, a distorted COLMAP
+    scene), gs_render's ray tracer and UT camera on phase 4's export, T1
+    against plain, one viewer frame. Fills paths["gs_train"] with K1-K4's
+    launches of (a), other["gs_train"] with K1/K2 against plain on (a)'s
+    training frame and other["ut_raster"] with K3 against plain on the UT
+    raster's lists; returns T1's kernel-table row (its launches: the
+    two traced runs of (e))."""
+    import numpy as np
+    import torch
+
+    from holoscene_tpu_torch import viewer
+    from holoscene_tpu_torch.export.gs_ingp import read_gaussians_ingp
+    from holoscene_tpu_torch.models.gom import read_gaussian_ply
+    from holoscene_tpu_torch.ops import gs_trace
+    from holoscene_tpu_torch.ops.gaussians import view_matrix
+    from holoscene_tpu_torch.training import gs_render, gs_train
+
+    def t1_count():
+        torch.cuda.synchronize()
+        return gs_trace.select_hits.launches
+
+    wall = {}
+    scene = work / "data_s1" / "scene_0"
+    out = work / "gs_free"
+    common = ["--dataset", "ns", "--data_root", str(scene), "--out",
+              str(out), "--capacity", str(FREE_CAPACITY), "--sh_degree", "3",
+              "--warmup", str(FREE_WARMUP), "--refine_every",
+              str(FREE_REFINE), "--quiet", "--device", "cuda"]
+
+    # (a) splatfacto at the CLI's defaults, two refine events
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = gs_train.main(common + ["--iters", str(FREE_ITERS), "--export",
+                                 "scene.ply", "--log_every", "1"])
+    wall["a splatfacto"] = time.perf_counter() - t0
+    paths["gs_train"] = launches = read_counts()
+    hist = [h for h in tr.history if "loss" in h]
+    trend = thirds(hist, ("loss", "psnr"))
+    steps_s = FREE_ITERS / tr.run_seconds
+    n_alive = int(tr.state["alive"].sum())
+    log(f"== 17 free gaussians: (a) gs_train --dataset ns on the {S1_IMAGES}"
+        f" x {S1_RES}^2 scene, capacity {FREE_CAPACITY}, SH 3, splatfacto "
+        f"every {FREE_REFINE} after {FREE_WARMUP}: {FREE_ITERS} steps in "
+        f"{tr.run_seconds:.3f} s ({steps_s:.3f} steps/s, "
+        f"{1e3 / steps_s:.2f} ms/step, {n_alive * steps_s:.6g} splats/s at "
+        f"the final {n_alive} alive; first step and refines included), "
+        f"wall {wall['a splatfacto']:.1f} s; first/last third means: "
+        + ", ".join(f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in trend.items())
+        + f"; refines {tr.refines}; eval {tr.metrics}; launches "
+        f"{launches}; flat plan {tr.flat_plan}; on {card}")
+    if len(hist) != FREE_ITERS or not all(finite(h["loss"]) for h in hist):
+        raise RuntimeError(f"gs_train: {len(hist)} logged steps or a "
+                           "non-finite loss")
+    if not trend["psnr"][1] > trend["psnr"][0]:
+        raise RuntimeError(f"gs_train: PSNR did not rise: {trend}")
+    if launches["K1"] < FREE_ITERS or launches["K2"] < FREE_ITERS:
+        raise RuntimeError(f"gs_train: K1/K2 not on every step: {launches}")
+    events = [it for it in range(FREE_WARMUP, FREE_ITERS)
+              if (it + 1) % FREE_REFINE == 0]
+    if [r["iter"] for r in tr.refines] != events or any(
+            r["n_alive"] == r["n_alive_before"] for r in tr.refines):
+        raise RuntimeError(f"gs_train: alive did not change at each refine "
+                           f"(after steps {events}): {tr.refines}")
+    if not (finite(tr.metrics["psnr"]) and finite(tr.metrics["ssim"])) \
+            or launches["K3"] < 1 or not (out / "scene.ply").exists():
+        raise RuntimeError(f"gs_train: eval {tr.metrics}, K3 "
+                           f"{launches['K3']} or no export")
+    other["gs_train"] = walks = free_frame_walks(tr, 0, timed=True)
+    log(f"   K1/K2 vs plain, gs_train's training frame 0 after step "
+        f"{FREE_ITERS} ({walks['K1']['walked_chunks']} chunks walked, "
+        f"{walks['K1']['live_candidate_pixels']} of "
+        f"{walks['K1']['candidate_pixels']} candidate-pixels live): "
+        + walk_note(walks, card))
+
+    # (b) resume from the checkpoint's iteration
+    reset_counts()
+    t0 = time.perf_counter()
+    tr_b = gs_train.main(common + ["--iters", str(FREE_ITERS + FREE_RESUME),
+                                   "--resume", "--log_every", "1"])
+    wall["b resume"] = time.perf_counter() - t0
+    res_launch = read_counts()
+    new = [h["iter"] for h in tr_b.history if "loss" in h][-FREE_RESUME:]
+    log(f"   (b) --resume for {FREE_RESUME} more: iterations {new[0]}.."
+        f"{new[-1]}, iter_step {tr_b.iter_step}, launches {res_launch}, "
+        f"wall {wall['b resume']:.1f} s")
+    # K1/K2 once a step, K3 once an eval view
+    if new != list(range(FREE_ITERS, FREE_ITERS + FREE_RESUME)) \
+            or res_launch["K2"] != FREE_RESUME:
+        raise RuntimeError(f"resume: iterations {new}, {res_launch}")
+
+    # (c) MCMC: relocation keeps the alive count
+    reset_counts()
+    t0 = time.perf_counter()
+    tr_c = gs_train.main(
+        ["--dataset", "ns", "--data_root", str(scene), "--out",
+         str(work / "gs_mcmc"), "--capacity", str(FREE_CAPACITY),
+         "--strategy", "mcmc", "--warmup", str(MCMC_WARMUP),
+         "--refine_every", str(MCMC_EVERY), "--iters", str(MCMC_ITERS),
+         "--quiet", "--device", "cuda"])
+    wall["c mcmc"] = time.perf_counter() - t0
+    log(f"   (c) --strategy mcmc, {MCMC_ITERS} steps in "
+        f"{tr_c.run_seconds:.3f} s: relocations {tr_c.refines}, eval "
+        f"{tr_c.metrics}, launches {read_counts()}, wall "
+        f"{wall['c mcmc']:.1f} s")
+    if not tr_c.refines or any(r["n_alive"] != r["n_alive_before"]
+                               or r["n_moved"] == 0 for r in tr_c.refines):
+        raise RuntimeError(f"mcmc: {tr_c.refines}")
+
+    # (d) a distorted COLMAP capture, trained through the UT projection
+    colmap = write_colmap_scene(scene, work / "colmap_fisheye",
+                                COLMAP_FISHEYE)
+    reset_counts()
+    t0 = time.perf_counter()
+    tr_d = gs_train.main(
+        ["--dataset", "colmap", "--data_root", str(colmap), "--out",
+         str(work / "gs_colmap"), "--capacity", str(FREE_CAPACITY),
+         "--iters", str(COLMAP_ITERS), "--export", "scene.ingp", "--quiet",
+         "--device", "cuda"])
+    wall["d colmap"] = time.perf_counter() - t0
+    d_launch = read_counts()
+    ingp = read_gaussians_ingp(str(work / "gs_colmap" / "scene.ingp"))
+    log(f"   (d) OPENCV_FISHEYE COLMAP scene ({COLMAP_POINTS} points, "
+        f"k {COLMAP_FISHEYE}): camera {tr_d.cfg.camera_model} "
+        f"{tr_d.cfg.dist}, {COLMAP_ITERS} steps in {tr_d.run_seconds:.3f} "
+        f"s, eval {tr_d.metrics}, launches {d_launch}; scene.ingp read back "
+        f"with {len(ingp['means'])} gaussians; wall {wall['d colmap']:.1f} s")
+    if tr_d.cfg.camera_model != "fisheye" or min(
+            d_launch["K1"], d_launch["K2"]) < COLMAP_ITERS \
+            or len(ingp["means"]) != int(tr_d.state["alive"].sum()):
+        raise RuntimeError(f"colmap run: {tr_d.cfg}, {d_launch}, "
+                           f"{len(ingp['means'])} read back")
+
+    # (e) gs_render: the tracer (pinhole, fisheye), the UT raster camera
+    data = work / "data" / "scene_0"
+    ds = gs_render.load_dataset("ns", str(data))
+    h, w = ds.img_res
+    per_view = -(-h * w // gs_trace.SELECT_RAYS)
+    trace_launch = {}
+    for camera in ("pinhole", "fisheye"):
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = gs_render.main(
+            ["--ply", str(gauss_ply), "--dataset", "ns", "--data_root",
+             str(data), "--split", "train", "--out",
+             str(work / f"trace_{camera}"), "--renderer", "trace",
+             "--camera", camera, "--device", "cuda"])
+        wall[f"e trace {camera}"] = time.perf_counter() - t0
+        trace_launch[camera] = t1_count()
+        pngs = list((work / f"trace_{camera}").glob("render_*.png"))
+        log(f"   (e) gs_render --renderer trace --camera {camera}: "
+            f"{len(pngs)} views in {wall[f'e trace {camera}']:.1f} s, mean "
+            f"{summary}, T1 launches {trace_launch[camera]}")
+        if len(pngs) != ds.n_images or not finite(summary["psnr"]) \
+                or trace_launch[camera] != ds.n_images * per_view:
+            raise RuntimeError(f"trace {camera}: {len(pngs)} PNGs, "
+                               f"{summary}, {trace_launch[camera]} launches")
+    g = read_gaussian_ply(str(gauss_ply))
+    traced = gs_trace.trace_image(g, ds.pose_all[0], ds.intrinsics[:3, :3],
+                                  w, h, sh_degree=3, device="cuda")
+    on_white = traced["rgb"] + (1.0 - traced["alpha"][..., None])
+    raster = next(gs_render.render_views(
+        g, ds.pose_all[:1], ds.intrinsics[:3, :3], ds.img_res, 3,
+        device="cuda"))
+    mse = float(np.mean((on_white - raster) ** 2))
+    trace_psnr = -10.0 * np.log10(max(mse, 1e-12))
+    reset_counts()
+    t0 = time.perf_counter()
+    ut = gs_render.main(
+        ["--ply", str(gauss_ply), "--dataset", "ns", "--data_root",
+         str(data), "--split", "train", "--out", str(work / "ut_render"),
+         "--camera", "opencv", "--dist", *UT_DIST, "--device", "cuda"])
+    wall["e ut raster"] = time.perf_counter() - t0
+    ut_launch = read_counts()
+    log(f"   trace vs raster of view 0 (white background): PSNR "
+        f"{trace_psnr:.2f} dB (gate {TRACE_PSNR_MIN}); gs_render --camera "
+        f"opencv --dist {' '.join(UT_DIST)}: mean {ut}, launches "
+        f"{ut_launch}, wall {wall['e ut raster']:.1f} s")
+    if not trace_psnr > TRACE_PSNR_MIN:
+        raise RuntimeError(f"trace vs raster PSNR {trace_psnr}")
+    if ut_launch["K3"] < ds.n_images or not finite(ut["psnr"]):
+        raise RuntimeError(f"UT raster: {ut}, {ut_launch}")
+    # K3 vs plain on the UT raster's view 0, at the K it calibrated (the
+    # path renders and takes no gradient: K4 is not on it)
+    gt = gs_render.gaussian_tensors(g, dev)
+    vm0 = view_matrix(ds.pose_all[0], dev)
+    intr0 = torch.as_tensor(ds.intrinsics[:3, :3], dtype=torch.float32,
+                            device=dev)
+    dist = tuple(float(x) for x in UT_DIST)
+    k_ut = gs_render.pick_max_per_tile(*gt, vm0, intr0, w, h, 3, "opencv",
+                                       dist)
+    lists = topk_lists(*projection(*gt, vm0, intr0, w, h, 3,
+                                   camera_model="opencv", dist=dist),
+                       w, h, k_ut)
+    other["ut_raster"] = walks = compare_topk(*lists, w, h, 9, timed=True,
+                                              fwd_only=True)
+    log(f"   K3 vs plain, the UT raster's view 0 at its calibrated K "
+        f"{k_ut}, {tuple(lists[0].shape)}: " + walk_note(walks, card))
+
+    # (f) T1 vs plain on one selection of view 0 (its middle rows)
+    means, quats, scales, opac, sh = gs_render.gaussian_tensors(g, dev)
+    quats = quats / torch.linalg.vector_norm(quats, dim=-1, keepdim=True)
+    g13 = gs_trace.pack_gaussians(means, quats, scales, opac)
+    ro, rd = gs_trace.pinhole_rays(ds.pose_all[0], ds.intrinsics[:3, :3], w,
+                                   h, dev)
+    n_sel = min(gs_trace.SELECT_RAYS, h * w)
+    mid = (h * w // n_sel // 2) * n_sel
+    ro, rd = (x[mid:mid + n_sel].contiguous() for x in (ro, rd))
+    args = (TRACE_HITS, 0.0113, 1.0 / 255.0, 1e-4, 2)
+    idx, cnt = gs_trace.select_hits(g13, ro, rd, *args)
+    idx2, cnt2 = gs_trace.select_hits(g13, ro, rd, *args)
+    ref_i, ref_c = gs_trace.select_hits_plain(g13, ro, rd, *args)
+    same_bits = torch.equal(idx, idx2) and torch.equal(cnt, cnt2)
+    equal_plain = torch.equal(idx, ref_i) and torch.equal(cnt, ref_c)
+    got = gs_trace.composite_hits(means, quats, scales, opac, sh, ro, rd,
+                                  idx, cnt, 3)
+    want = gs_trace.composite_hits(means, quats, scales, opac, sh, ro, rd,
+                                   ref_i, ref_c, 3)
+    err = max(float((got[k] - want[k]).abs().max()) for k in got)
+    ms = cuda_ms(lambda: gs_trace.select_hits(g13, ro, rd, *args), 10)
+    plain_ms = cuda_ms(lambda: gs_trace.select_hits_plain(g13, ro, rd, *args),
+                       2)
+    n_live = int((opac > 1.0 / 255.0).sum())
+    n_bytes = n_sel * (24 + 4 * TRACE_HITS + 4) + g13.numel() * 4
+    bound, by = bound_ms(n_bytes, n_sel * n_live * T1_OPS_PAIR)
+    log(f"   (f) T1 vs plain, {n_sel} rays x {g13.shape[0]} gaussians "
+        f"({n_live} can pass 1/255), K {TRACE_HITS}: indices equal plain's "
+        f"{equal_plain}, two launches bitwise {same_bits}, hits a ray "
+        f"{float(cnt.float().mean()):.1f} (max {int(cnt.max())}), composite "
+        f"max abs err {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {bound:.4f} ms by {by} ({bound / ms:.1%}); on {card}")
+    if not (same_bits and equal_plain and err <= T1_ATOL):
+        raise RuntimeError(f"T1 vs plain: bitwise {same_bits}, equal "
+                           f"{equal_plain}, err {err}")
+
+    # (g) one viewer frame on the card
+    reset_counts()
+    t0 = time.perf_counter()
+    frame = viewer.GaussianOrbitRenderer(str(gauss_ply), device="cuda") \
+        .render(35.0, 20.0, 1.0, RES)
+    wall["g viewer"] = time.perf_counter() - t0
+    v_launch = read_counts()
+    log(f"   (g) viewer orbit frame {frame.shape}: mean {frame.mean():.4f}, "
+        f"std {frame.std():.4f}, launches {v_launch}, "
+        f"{wall['g viewer']:.2f} s; phase 17 wall s by part: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    if not np.isfinite(frame).all() or frame.std() < 1e-3 \
+            or v_launch["K3"] < 1:
+        raise RuntimeError(f"viewer frame: std {frame.std()}, {v_launch}")
+    return {"name": "T1 gs_trace_select", "route": "cuda",
+            "source": "holoscene_tpu_torch/csrc/gs_trace_select.cu",
+            "replaces": "holoscene_tpu/ops/gs_trace.py:133",
+            "launches": sum(trace_launch.values()), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "launches_by_path": dict(trace_launch),
+            "index_mismatches": int((idx != ref_i).sum())}
 
 
 def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
@@ -2539,6 +2960,11 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
 
 
 def main() -> int:
+    # one process runs every phase: segments that grow in place keep the
+    # blocks earlier phases freed from stranding the chain's Stage-4 step
+    # (12 GiB gradient arrays at ~5M gaussians)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     # 1 environment
@@ -2760,7 +3186,7 @@ def main() -> int:
                                            timed=False)}
         g = gs_render.gaussian_tensors(
             read_gaussian_ply(str(plots / "gauss_scene.ply")), dev)
-        ds = gs_render._load_dataset("ns", str(work / "data" / "scene_0"), -1)
+        ds = gs_render.load_dataset("ns", str(work / "data" / "scene_0"), -1)
         vm0 = view_matrix(ds.pose_all[0], dev)
         intr_r = as_tensor(ds.intrinsics[:3, :3], dev)
         k_render = gs_render.pick_max_per_tile(*g, vm0, intr_r, w, h, 3)
@@ -2785,6 +3211,8 @@ def main() -> int:
                               chain)
         paths["chain_stage4"], other["chain_stage4"] = chain_phase(
             work, dev, card, chain)
+        t1_row = free_gaussian_phase(work, dev, card,
+                                     plots / "gauss_scene.ply", paths, other)
         for k, row in hash_rows.items():
             row["launches_by_path"]["quality_gate"] = gate[k]
             row["launches_by_path"]["mv_predict"] = mv[k].pop("launches")
@@ -2804,15 +3232,17 @@ def main() -> int:
         b["max_abs_err"] = max(
             [b["max_abs_err"], small[k]["max_abs_err"]]
             + [r[k]["max_abs_err"] for r in other.values() if k in r])
-        if k in other["chain_stage4"]:
-            b["chain_stage4"] = {
-                key: val for key, val in other["chain_stage4"][k].items()
-                if key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "max_abs_err", "max_abs_err_exact",
-                           "plain_max_abs_err_exact")}
+        for tag in ("chain_stage4", "gs_train", "ut_raster"):
+            if k in other[tag]:
+                b[tag] = {key: val for key, val in other[tag][k].items()
+                          if key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err",
+                                     "max_abs_err_exact",
+                                     "plain_max_abs_err_exact")}
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
     table.extend(hash_rows.values())
+    table.append(t1_row)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

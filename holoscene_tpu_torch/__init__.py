@@ -9,8 +9,8 @@ of `holoscene_tpu`: it keeps its own copy of the host-side modules it needs
 (config, datasets, utils/{mesh,mc,eval_rgb}, export/gs_usdz; numpy / PIL /
 scipy only).
 
-Layer map (the Stage-1 neural-SDF slice and the Stage-4 Gaussian-on-Mesh
-slice):
+Layer map (the Stage-1 neural-SDF slice, the Stage-4 Gaussian-on-Mesh
+slice and the free-Gaussian / ray-tracing stack):
   ops/        Stage 1: rays, positional encoding, Laplace density, volume
               rendering, the hash grid with the H1 / H2 kernels (hashgrid),
               the error-bound sampler and the baked probe grid.
@@ -18,11 +18,15 @@ slice):
               and the K1/K2 tile-walk kernels (splat_flat), the K3/K4 top-K
               walks (splat_topk), the renderer entry with per-tile
               selection and the image epilogue (splat), the mesh
-              mask/depth rasterizer
+              mask/depth rasterizer; the unscented-transform camera
+              projection (gaussians), the gaussian ray tracer with its
+              T1 hit-selection kernel (gs_trace)
   csrc/       hand-written CUDA for sm_90a (built by kernels.py on first use)
   models/     the SDF and rendering networks (fields), the Stage-1 renderer
               (holoscene); Gaussian-on-Mesh seeding, reparameterisations,
-              render, loss (gom)
+              render, loss (gom) and its fixed-capacity densification
+              (gom_adaptive); free gaussians with splatfacto / MCMC and
+              SelectiveAdam (gaussians_free)
   losses/     the Stage-1 loss stack
   stage0/     monocular depth / normal priors (TorchScript providers, CLI)
   stage2/     per-object refinement (Stage2Runner and its parts), the
@@ -31,15 +35,18 @@ slice):
   training/   Stage1Runner and its exp_runner CLI; Stage3Runner (colour
               field, UV bake) and its exp_runner_texture CLI;
               Stage4Runner, the exp_runner_gaussian CLI, the gs_render
-              CLI; checkpoints
+              CLI (raster and trace); GSTrainer and the gs_train CLI;
+              checkpoints (the port's .pth and the JAX package's msgpack)
   datasets/   the synthetic scene with analytic meshes and packs, loaders
   utils/      mesh I/O, marching tetrahedra, the chart UV atlas, PSNR/SSIM
               (host, numpy), the JSONL metrics log
-  export/     gaussian USDZ, GLB, USD with PhysX schemas, the export CLI
-              and its read-back (load_scene)
+  export/     gaussian USDZ / INGP / PLY, GLB, USD with PhysX schemas, the
+              export CLI and its read-back (load_scene)
+  viewer.py   the orbit viewer (HTTP server; gaussians or meshes)
   config.py   HOCON-subset config parser
   convert.py  JAX params/static (as numpy) <-> torch tensors (Stage 4's,
-              Stage 1's)
+              Stage 1's, the free-Gaussian trainer's); the flax msgpack
+              reader
 """
 
 from __future__ import annotations

@@ -25,15 +25,16 @@
 // Bounds on the card. Operations, not bytes: a walked chunk is 8 KB read
 // and 8 KB written against ~33k alpha evaluations and, for the quarter of
 // the (candidate, pixel) pairs that are live, a log1p, an exp, a division
-// and ten sums over the tile. What the time goes to is the sums: the design
-// of splat_walk.cuh::backprop_tile (per-warp slabs instead of shared-memory
-// atomics, a 12-shuffle transposing butterfly, alphas in groups of eight
-// with a ballot so that only candidates live in the warp reach the serial
-// part, the next chunk fetched by cp.async meanwhile) is shared with K4.
-// One block per tile, one thread per pixel; a 256-thread block takes 52 KB
-// of dynamic shared memory and 75 registers a thread: three blocks an SM.
-// Sums are taken in a fixed order, so the result is the same bits from
-// launch to launch.
+// and ten sums over the tile (the exp, the division and the chain's sums in
+// double: splat_walk.cuh::backprop_chunk says why). What the time goes to
+// is the sums: the design of splat_walk.cuh::backprop_tile (per-warp slabs
+// instead of shared-memory atomics, a 12-shuffle transposing butterfly,
+// alphas in groups of eight with a ballot so that only candidates live in
+// the warp reach the serial part, the next chunk fetched by cp.async
+// meanwhile) is shared with K4. One block per tile, one thread per pixel; a
+// 256-thread block takes 52 KB of dynamic shared memory and 80 registers a
+// thread (28 bytes spilled): three blocks an SM. Sums are taken in a fixed
+// order, so the result is the same bits from launch to launch.
 
 #include "splat_walk.cuh"
 
@@ -42,10 +43,11 @@ namespace {
 using namespace splat_walk;
 
 // The launch bounds are the register budget only: a 1024-thread block can
-// be given 64 registers a thread and no more (ptxas spills 16 bytes there);
-// for the 256-thread blocks of 16 x 16 tiles it takes 75 at three blocks an
-// SM (71 before the chunk partials of splat_walk.cuh::backprop_chunk, and
-// then 4-6% faster here than 64 at four).
+// be given 64 registers a thread and no more (ptxas spills 72 bytes there
+// since the chain went to double, 16 before); for the 256-thread blocks of
+// 16 x 16 tiles it takes 80 at three blocks an SM, its cap there (75 before
+// the double chain, 71 before the chunk partials of
+// splat_walk.cuh::backprop_chunk; then 4-6% faster here than 64 at four).
 template <int kMaxThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     splat_flat_bwd_kernel(const float* __restrict__ cand,

@@ -29,14 +29,16 @@
 // dcand, 67 MB for lists [1024, 1024, 16], of which the walk writes a
 // third), but the time goes to operations as in K2: the alpha of every
 // (candidate, pixel) pair and, for the live ones, a log1p, an exp, a
-// division and ten sums over the tile. The walk is K2's,
-// splat_walk.cuh::backprop_tile: per-warp slabs instead of shared-memory
-// atomics, a 12-shuffle transposing butterfly, alphas in groups of eight
-// with a ballot so that only candidates live in the warp reach the serial
-// part, the next chunk fetched by cp.async meanwhile. One block per tile,
-// one thread per pixel; a 256-thread block takes 52 KB of dynamic shared
-// memory and 71 registers a thread: three blocks an SM. Sums are taken in a
-// fixed order, so the result is the same bits from launch to launch.
+// division and ten sums over the tile (the exp, the division and the
+// chain's sums in double: splat_walk.cuh::backprop_chunk says why). The
+// walk is K2's, splat_walk.cuh::backprop_tile: per-warp slabs instead of
+// shared-memory atomics, a 12-shuffle transposing butterfly, alphas in
+// groups of eight with a ballot so that only candidates live in the warp
+// reach the serial part, the next chunk fetched by cp.async meanwhile. One
+// block per tile, one thread per pixel; a 256-thread block takes 52 KB of
+// dynamic shared memory and 80 registers a thread (44 bytes spilled): three
+// blocks an SM. Sums are taken in a fixed order, so the result is the same
+// bits from launch to launch.
 
 #include "splat_walk.cuh"
 
@@ -45,9 +47,10 @@ namespace {
 using namespace splat_walk;
 
 // The launch bounds are the register budget only: a 1024-thread block can
-// be given 64 registers a thread and no more (ptxas spills 16 bytes there);
-// for the 256-thread blocks of 16 x 16 tiles it takes 71 at three blocks an
-// SM, which is 4-6% faster here than 64 at four.
+// be given 64 registers a thread and no more (ptxas spills 84 bytes there
+// since the chain went to double, 16 before); for the 256-thread blocks of
+// 16 x 16 tiles it takes 80 at three blocks an SM, its cap there (71 before
+// the double chain, then 4-6% faster here than 64 at four).
 template <int kMaxThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     splat_topk_bwd_kernel(const float* __restrict__ cand,

@@ -398,16 +398,28 @@ __device__ __forceinline__ int grad_row(int lane) {
 // chip_smoke.py phase 16's frame (tiles of up to 70 chunks), it put K2 up
 // to 1.2e-2 off plain; kept this way K2 is 7.0e-4 off plain, and 1.2e-3 off
 // float64 sums where float32 plain is 9.8e-4 off them.
+// Everything after the alpha (the two sums, T_k, w, s, dL/da and the
+// exponent's gradient) is taken in double; the alphas, log1p and the ten
+// terms stay float, and so do the sums over the tile. At chip_smoke.py
+// phase 17's gs_train frame, opaque gaussians wider than the view sit in
+// front of the camera with their centres far outside it, so a conic
+// gradient sums dpow * dx^2 with dx of hundreds of pixels over the tile,
+// and the sum cancels: with a float32 chain K2 was 41.2 off plain's
+// float64 sums (41 values outside 5e-4 + 5e-3 |exact|; float32 plain 20.1
+// off). The double chain brings the error of dpow down to what that sum
+// can bear.
 __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
                                                unsigned* mask, float px,
                                                float py, bool in_img,
                                                float total,
                                                const float (&v)[5],
-                                               float& suffix, float& s_after,
-                                               int lane, int row) {
-  const float head = total - suffix;  // log T before this chunk's candidates
-  float part = 0.f;                   // sum log(1 - a), later in the chunk
-  float s_part = 0.f;                 // sum w s, later in the chunk
+                                               double& suffix,
+                                               double& s_after, int lane,
+                                               int row) {
+  // log T before this chunk's candidates
+  const double head = static_cast<double>(total) - suffix;
+  double part = 0.0;    // sum log(1 - a), later in the chunk
+  double s_part = 0.0;  // sum w s, later in the chunk
   for (int word = kChunk / 32 - 1; word >= 0; --word) {
     unsigned reached = 0;  // bit k % 32: some lane keeps candidate k
     for (int grp = 32 / kGroup - 1; grp >= 0; --grp) {
@@ -450,25 +462,30 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
 #pragma unroll
         for (int r = 0; r < kGradRows; ++r) g[r] = 0.f;
         if (a >= kAlphaEps) {
-          const float incl = part + log1pf(-a);
-          const float tr = in_img ? expf(head - incl) : 0.0f;
-          const float w = a * tr;
-          const float s = v[0] * c1.z + v[1] * c1.w + v[2] * c2.x +
-                          v[3] * c2.y + v[4] * c2.z;
-          const float da = a_pre < 0.999f
-                               ? tr * s - (s_part + s_after) / (1.0f - a)
-                               : 0.0f;
-          const float dpow = (negative >> i) & 1u ? da * a : 0.0f;
+          const double ad = a;
+          const double incl = part + static_cast<double>(log1pf(-a));
+          const double tr = in_img ? exp(head - incl) : 0.0;
+          const double w = ad * tr;
+          const double s = static_cast<double>(v[0]) * c1.z +
+                           static_cast<double>(v[1]) * c1.w +
+                           static_cast<double>(v[2]) * c2.x +
+                           static_cast<double>(v[3]) * c2.y +
+                           static_cast<double>(v[4]) * c2.z;
+          const double da = a_pre < 0.999f
+                                ? tr * s - (s_part + s_after) / (1.0 - ad)
+                                : 0.0;
+          const float dpow =
+              (negative >> i) & 1u ? static_cast<float>(da * ad) : 0.0f;
           g[0] = dpow * (ca * dx + cb * dy);
           g[1] = dpow * (cb * dx + cc * dy);
           g[2] = dpow * (-0.5f * dx * dx);
           g[3] = dpow * (-dx * dy);
           g[4] = dpow * (-0.5f * dy * dy);
-          g[5] = da * e[i];
-          g[6] = v[0] * w;
-          g[7] = v[1] * w;
-          g[8] = v[2] * w;
-          g[9] = v[3] * w;
+          g[5] = static_cast<float>(da * e[i]);
+          g[6] = static_cast<float>(v[0] * w);
+          g[7] = static_cast<float>(v[1] * w);
+          g[8] = static_cast<float>(v[2] * w);
+          g[9] = static_cast<float>(v[3] * w);
           part = incl;
           s_part += w * s;
         }
@@ -534,8 +551,8 @@ __device__ __forceinline__ void backprop_tile(const float* cand_last,
   float* slabs = bwd_smem + 2 * kStage;
   unsigned* masks = reinterpret_cast<unsigned*>(slabs + n_warps * kSlab);
 
-  float suffix = 0.f;   // sum log(1 - a) over later candidates
-  float s_after = 0.f;  // sum w s over later candidates
+  double suffix = 0.0;   // sum log(1 - a) over later candidates
+  double s_after = 0.0;  // sum w s over later candidates
   if (used > 0) prefetch_chunk(stage, cand_last, p, n_pix);
   for (int j = 0; j < used; ++j) {
     wait_prefetch();

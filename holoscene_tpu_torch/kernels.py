@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: (argtypes) — each returns cudaGetLastError() as int
 _SIGNATURES = {
     # cand, cs, cc, out, n_tiles, tiles_x, tile_size, img_w, img_h, stream
@@ -53,6 +54,9 @@ _SIGNATURES = {
                        _P),
     # x01, emb, scales, ints, out, n, n_levels, packed, stream
     "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # rays_o, rays_d, g13, n_rays, n_gauss, k, min_kernel, min_alpha, near,
+    # degree, idx, count, stream
+    "gs_trace_select": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P),
 }
 
 

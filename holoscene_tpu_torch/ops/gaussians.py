@@ -1,4 +1,5 @@
-"""3D Gaussian math: quaternions, EWA projection, spherical harmonics.
+"""3D Gaussian math: quaternions, EWA and unscented-transform projection,
+spherical harmonics.
 
 Port of holoscene_tpu/ops/gaussians.py (same conventions: quaternions are
 (w, x, y, z), rotation matrices are world-from-local with COLUMNS as local
@@ -261,6 +262,115 @@ def project_gaussians_fused(
     )
     xy = torch.stack([px, py], dim=-1)
     return xy, z, conic, radius, valid & (z > near) & on_screen
+
+
+def _finalize_cov2d(xy, z, cov2d, width: int, height: int, near: float):
+    """Shared projection tail: conic / 3-sigma radius / validity from a
+    projected mean and its 2D covariance (the math of project_gaussians)."""
+    a, b, c = cov2d[:, 0, 0], cov2d[:, 0, 1], cov2d[:, 1, 1]
+    det = torch.clamp(a * c - b * b, min=1e-12)
+    conic = torch.stack([c / det, -b / det, a / det], dim=-1)
+    mid = 0.5 * (a + c)
+    eig = mid + torch.sqrt(torch.clamp(mid * mid - det, min=1e-12))
+    radius = torch.ceil(3.0 * torch.sqrt(eig))
+    on_screen = ((xy[:, 0] + radius > 0) & (xy[:, 0] - radius < width)
+                 & (xy[:, 1] + radius > 0) & (xy[:, 1] - radius < height))
+    return conic, radius, (z > near) & on_screen
+
+
+def camera_project(cam, intrinsics, camera_model: str = "pinhole",
+                   dist=None, near: float = 0.01):
+    """Camera-frame points [..., 3] -> pixel coordinates [..., 2] under a
+    nonlinear camera model (the counterpart's camera_project):
+
+      pinhole  fx x/z + cx
+      opencv   radial k1, k2[, k3] and tangential p1, p2 on the normalised
+               plane (dist = (k1, k2, p1, p2[, k3]))
+      fisheye  equidistant r_px = f * theta_d with the OpenCV theta
+               polynomial (dist = (k1, k2, k3, k4)); ops/gs_trace.py's
+               fisheye_rays for dist = 0
+    """
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    x, y, z = cam[..., 0], cam[..., 1], cam[..., 2]
+    zc = torch.clamp(z, min=near)
+    u, v = x / zc, y / zc
+    if camera_model == "pinhole":
+        return torch.stack([fx * u + cx, fy * v + cy], dim=-1)
+    if camera_model == "opencv":
+        d = tuple(dist or ()) + (0.0,) * 5
+        k1, k2, p1, p2, k3 = d[:5]
+        r2 = u * u + v * v
+        rad = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        ud = u * rad + 2 * p1 * u * v + p2 * (r2 + 2 * u * u)
+        vd = v * rad + p1 * (r2 + 2 * v * v) + 2 * p2 * u * v
+        return torch.stack([fx * ud + cx, fy * vd + cy], dim=-1)
+    if camera_model != "fisheye":
+        raise ValueError(f"unknown camera model {camera_model!r}")
+    k = tuple(dist or ()) + (0.0,) * 4
+    r = torch.sqrt(torch.clamp(u * u + v * v, min=1e-12))
+    theta = torch.arctan(r)
+    t2 = theta * theta
+    theta_d = theta * (1.0 + t2 * (k[0] + t2 * (k[1] + t2 * (k[2]
+                                                             + t2 * k[3]))))
+    scale = theta_d / r
+    return torch.stack([fx * u * scale + cx, fy * v * scale + cy], dim=-1)
+
+
+def project_gaussians_ut(
+    means: torch.Tensor,
+    sqrt_cov: torch.Tensor,
+    viewmat: torch.Tensor,
+    intrinsics: torch.Tensor,
+    width: int,
+    height: int,
+    near: float = 0.01,
+    blur: float = 0.3,
+    camera_model: str = "pinhole",
+    dist=None,
+    viewmat_end: torch.Tensor | None = None,
+):
+    """Unscented-transform projection (the counterpart's
+    project_gaussians_ut): the 6 sigma points mean +- sqrt(3) M[:, i] of
+    each gaussian (cov3d = M M^T; for 3DGS parameters M = R diag(s)) go
+    through the full nonlinear camera model, weights 1/6 each and 0 for the
+    centre. viewmat_end turns on a linear rolling shutter: each gaussian's
+    pose is blended between viewmat (row 0) and viewmat_end (the last row)
+    by its projected row, found with two fixed-point iterations. Plain
+    PyTorch, differentiable through autograd. Returns (xy, depth, conic,
+    radius, valid) as project_gaussians_fused."""
+    n = means.shape[0]
+    offs = (3.0 ** 0.5) * sqrt_cov.transpose(-1, -2)   # rows = scaled columns
+    pts = torch.cat([means[:, None, :] + offs, means[:, None, :] - offs],
+                    dim=1)                            # [N, 6, 3]
+
+    def to_cam(p, vm):
+        return p @ vm[:3, :3].T + vm[:3, 3]
+
+    cam_c = to_cam(means, viewmat)
+    cam_s = to_cam(pts, viewmat)
+    if viewmat_end is not None:
+        cam_c_e = to_cam(means, viewmat_end)
+        cam_s_e = to_cam(pts, viewmat_end)
+        t = torch.full((n, 1), 0.5, device=means.device)
+        for _ in range(2):
+            blend_c = (1 - t) * cam_c + t * cam_c_e
+            rowpix = camera_project(blend_c, intrinsics, camera_model, dist,
+                                    near)[:, 1]
+            t = torch.clamp(rowpix / max(height - 1, 1), 0.0, 1.0)[:, None]
+        cam_c = (1 - t) * cam_c + t * cam_c_e
+        cam_s = (1 - t[:, :, None]) * cam_s + t[:, :, None] * cam_s_e
+
+    p2 = camera_project(cam_s, intrinsics, camera_model, dist, near)
+    xy = p2.mean(dim=1)
+    d = p2 - xy[:, None, :]
+    cov2d = torch.einsum("nki,nkj->nij", d, d) / 6.0 \
+        + blur * torch.eye(2, device=means.device)
+    z = cam_c[:, 2]
+    conic, radius, ok = _finalize_cov2d(xy, z, cov2d, width, height, near)
+    # every sigma point in front of the camera (3DGUT's frustum gate)
+    ok = ok & torch.all(cam_s[..., 2] > near, dim=1)
+    return xy, z, conic, radius, ok
 
 
 def eval_sh(sh_coeffs: torch.Tensor, dirs: torch.Tensor,

@@ -10,8 +10,10 @@ Projection (EWA) and view-dependent colour are shared. Compositing is either
     with `torch.topk` over -depth in chunks of 64 tiles, gathered as packed
     width-16 payload rows and walked front to back.
 `tile_overlap_counts`, `auto_max_per_tile` and `calibrate_max_per_tile` pick
-the top-K depth from a scene. Projection through the unscented transform
-(non-pinhole cameras) is not ported; ROADMAP.md queues it.
+the top-K depth from a scene. Non-pinhole cameras (opencv / fisheye with
+their distortion coefficients) and a rolling shutter (`viewmat_end`) project
+through the unscented transform (ops/gaussians.py::project_gaussians_ut) on
+either path.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from holoscene_tpu_torch.ops.gaussians import (
     eval_sh,
     project_gaussians,
     project_gaussians_fused,
+    project_gaussians_ut,
+    quat_to_rotmat,
 )
 from holoscene_tpu_torch.ops.splat_flat import (
     composite_tiles_flat,
@@ -162,6 +166,8 @@ def render_gaussians(
     background: torch.Tensor | None = None,
     ortho: bool = False,
     camera_model: str = "pinhole",
+    dist=None,
+    viewmat_end: torch.Tensor | None = None,
     flat_plan=None,
     flat_bins: dict | None = None,
     chw: bool = False,
@@ -175,15 +181,15 @@ def render_gaussians(
     the flat sorted-candidate pipeline (`max_per_tile` is ignored);
     flat_bins is a cached binning plan for it. Without a plan each tile
     composites its `max_per_tile` nearest overlapping gaussians. ortho=True
-    projects orthographically (intrinsics hold pixels per world unit)."""
-    if camera_model != "pinhole":
-        raise NotImplementedError(
-            "unscented-transform projection is not ported yet "
-            "(see ROADMAP.md)")
+    projects orthographically (intrinsics hold pixels per world unit).
+    camera_model opencv / fisheye (coefficients in `dist`) or a
+    `viewmat_end` (linear rolling shutter) project through the unscented
+    transform instead of the EWA linearisation."""
     tiles_x = -(-width // tile_size)
     tiles_y = -(-height // tile_size)
-    xy, depth, conic, radius, valid = project_gaussians_fused(
-        means, quats, scales, viewmat, intrinsics, width, height, ortho=ortho)
+    xy, depth, conic, radius, valid = project_for_render(
+        means, quats, scales, viewmat, intrinsics, width, height, ortho,
+        camera_model, dist, viewmat_end)
     rgb_n = shade(means, colors, viewmat, sh_degree)
 
     if flat_plan is not None:
@@ -217,6 +223,25 @@ def render_gaussians(
                           chw=chw)
     out["used_chunks"] = used
     return out
+
+
+def project_for_render(means, quats, scales, viewmat, intrinsics,
+                       width: int, height: int, ortho: bool = False,
+                       camera_model: str = "pinhole", dist=None,
+                       viewmat_end=None):
+    """The renderer's projection: EWA (project_gaussians_fused) for a
+    pinhole camera, the unscented transform for opencv / fisheye models or
+    a rolling shutter. Returns (xy, depth, conic, radius, valid)."""
+    if camera_model == "pinhole" and viewmat_end is None:
+        return project_gaussians_fused(means, quats, scales, viewmat,
+                                       intrinsics, width, height, ortho=ortho)
+    if ortho:
+        raise ValueError("the unscented-transform projection is "
+                         "perspective-only")
+    sqrt_cov = quat_to_rotmat(quats) * scales[..., None, :]
+    return project_gaussians_ut(
+        means, sqrt_cov, viewmat, intrinsics, width, height,
+        camera_model=camera_model, dist=dist, viewmat_end=viewmat_end)
 
 
 def shade(means, colors, viewmat, sh_degree: int | None):

@@ -7,7 +7,9 @@ holoscene_tpu/training/exp_runner.py).
         [--device cuda]
 
 --device defaults to cuda (the hand-written kernels; it fails without a
-card); --device cpu runs the kernels' plain versions.
+card); --device cpu runs the kernels' plain versions. --is_continue
+resumes from the run's latest checkpoint, the port's .pth or the JAX
+package's .msgpack.
 """
 
 from __future__ import annotations

@@ -8,10 +8,11 @@ training/exp_runner_post.py).
         [--finetune_iters N] [--mesh_resolution 256] [--quiet] \
         [--device cuda]
 
-Loads the port's own Stage-1 checkpoint from
-<exps_folder>/<train.expname>/<timestamp>/checkpoints (written by
-`python -m holoscene_tpu_torch.training.exp_runner`; the JAX package's
-msgpack checkpoints are not read yet, ROADMAP.md A.1) and runs Stage 2;
+Loads the Stage-1 checkpoint from
+<exps_folder>/<train.expname>/<timestamp>/checkpoints (written by `python
+-m holoscene_tpu_torch.training.exp_runner` as .pth, or by the JAX
+package's exp_runner as .msgpack; training/checkpoints.py reads both) and
+runs Stage 2;
 the artifacts land in the run's plots dir (coarse_recon_obj_{i}.ply,
 vis_info_{i}.pkl, bg_info.pkl, graph_node_dict.pkl, translation_dict.pkl,
 scene_settle.json — the reference layout). --finetune_iters 0 or absent

@@ -18,8 +18,12 @@ frame and, with extract_meshes_on_plot, extracts the per-object meshes
 tetrahedra on the host, visibility pruning, surface_{it}_{k}.ply and
 bbox/bbox_{k}.json).
 
+A resume (`is_continue`, `ft_folder`) loads a run's checkpoint whichever
+package wrote it: the port's .pth or the JAX package's .msgpack (its
+params, Adam moments and step; training/checkpoints.py).
+
 Not ported yet (ROADMAP.md queue A): the multi-device mesh, the occupancy
-grid, loading the JAX package's msgpack checkpoints."""
+grid."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K4 and H1/H2 (holoscene_tpu_torch/csrc)
+"""The hand-written CUDA kernels K1-K4, H1/H2 and T1 (holoscene_tpu_torch/csrc)
 against their plain PyTorch versions, on the card. CUDA kernels have no
 CPU mode, so every test here needs an NVIDIA GPU with nvcc and skips
 without one; run them on the card with
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from holoscene_tpu_torch.ops import gaussians as tg
+from holoscene_tpu_torch.ops import gs_trace as ttrace
 from holoscene_tpu_torch.ops import hashgrid as thash
 from holoscene_tpu_torch.ops import splat as tsplat
 from holoscene_tpu_torch.ops import splat_flat as tflat
@@ -1035,3 +1036,57 @@ def test_peeled_rasterizer_on_card_matches_cpu(cuda, ortho):
         err = (g["depth"].cpu()[both] - r["depth"][both]).abs()
         assert both.any() and float(err.max()) <= 1e-5, k
     assert bool(ref[3]["mask"].any())      # four surfaces at the centre
+
+
+def _trace_cloud(n, r, seed):
+    """Random particles in front of a ray fan (dead slots included)."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    means[:, 2] += 3.0
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    scales = rng.uniform(0.02, 0.3, (n, 3)).astype(np.float32)
+    scales[::5, 2] = 1e-4                  # flat, as Gaussian-on-Mesh
+    opac = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    opac[::17] = 0.0
+    ro = (rng.normal(size=(r, 3)) * 0.1).astype(np.float32)
+    rd = (rng.normal(size=(r, 3)) * 0.3).astype(np.float32)
+    rd[:, 2] = 1.0
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return means, quats, scales, opac, ro, rd
+
+
+@pytest.mark.parametrize("degree", [1, 2, 4, 8])
+def test_t1_matches_plain(cuda, degree):
+    """T1 (csrc/gs_trace_select.cu) against select_hits_plain on the card:
+    the same indices and counts, bit for bit, and two launches equal."""
+    means, quats, scales, opac, ro, rd = _trace_cloud(3000, 1000, 4)
+    g13 = ttrace.pack_gaussians(*(torch.tensor(a) for a in (
+        means, quats, scales, opac))).to(cuda)
+    ro_d, rd_d = (torch.tensor(a, device=cuda) for a in (ro, rd))
+    args = (64, 0.0113, 1.0 / 255.0, 1e-4, degree)
+    before = ttrace.select_hits.launches
+    idx, cnt = ttrace.select_hits(g13, ro_d, rd_d, *args)
+    idx2, cnt2 = ttrace.select_hits(g13, ro_d, rd_d, *args)
+    assert ttrace.select_hits.launches == before + 2
+    ref_i, ref_c = ttrace.select_hits_plain(g13, ro_d, rd_d, *args)
+    assert torch.equal(idx, idx2) and torch.equal(cnt, cnt2)
+    assert torch.equal(cnt, ref_c)
+    assert torch.equal(idx, ref_i)
+    assert int(cnt.max()) == 64 and int(cnt.min()) < 64
+
+
+def test_trace_on_card_matches_cpu(cuda):
+    """trace_gaussians (T1 + the composite) on the card against the CPU's
+    plain run: the same hit sets, outputs within 1e-5."""
+    means, quats, scales, opac, ro, rd = _trace_cloud(2000, 512, 5)
+    sh = np.random.default_rng(6).normal(0, 0.5, (2000, 4, 3)).astype(
+        np.float32)
+    host = [torch.tensor(a) for a in (means, quats, scales, opac, sh, ro,
+                                      rd)]
+    ref = ttrace.trace_gaussians(*host, sh_degree=1, max_hits=32,
+                                 with_normal=True)
+    got = ttrace.trace_gaussians(*(t.to(cuda) for t in host), sh_degree=1,
+                                 max_hits=32, with_normal=True)
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].cpu().numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)

@@ -44,14 +44,18 @@ def test_port_lists_its_slice_modules():
                  "training.exp_runner_texture", "utils.uv_atlas",
                  "export.glb", "export.usd", "export.load_scene",
                  "export.cli", "stage0", "stage0.priors",
-                 "stage2.mv_predict"):
+                 "stage2.mv_predict", "models.gaussians_free",
+                 "models.gom_adaptive", "training.gs_trainer",
+                 "training.gs_train", "ops.gs_trace", "export.gs_ingp",
+                 "viewer"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 
 def test_kernel_signatures_match_sources():
     """ctypes passes exactly the arguments each extern "C" entry of csrc/
-    declares, pointers (and the stream) as void*, ints as int: a mismatch
-    is a crash on the card that no CPU test would otherwise see."""
+    declares, pointers (and the stream) as void*, ints as int, floats as
+    float: a mismatch is a crash on the card that no CPU test would
+    otherwise see."""
     import ctypes
 
     from holoscene_tpu_torch import kernels
@@ -60,8 +64,9 @@ def test_kernel_signatures_match_sources():
     decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
     assert set(decls) == set(kernels._SIGNATURES)
     for name, params in decls.items():
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
-                 for p in params.split(",")]
+        kinds = [ctypes.c_void_p if "*" in p
+                 else ctypes.c_float if p.split()[0] == "float"
+                 else ctypes.c_int for p in params.split(",")]
         assert kinds == list(kernels._SIGNATURES[name]), name
 
 

@@ -158,8 +158,16 @@ def test_select_topk_sets_equal_jax_approx_max_k_on_cpu():
 
 
 def test_non_pinhole_cameras_are_refused():
+    """Where the unscented transform cannot go: an orthographic camera
+    (the UT projects through a perspective model) and a model it does not
+    know. The UT itself is held to JAX in test_torch_gaussians_ut.py."""
     host = _scene(10, 3)
-    with pytest.raises(NotImplementedError, match="unscented"):
+    with pytest.raises(ValueError, match="perspective-only"):
         tsplat.render_gaussians(
             *map(torch.as_tensor, host), torch.eye(4),
-            torch.as_tensor(_intr(False)), W, H, camera_model="fisheye")
+            torch.as_tensor(_intr(True)), W, H, ortho=True,
+            camera_model="fisheye")
+    with pytest.raises(ValueError, match="unknown camera model"):
+        tsplat.render_gaussians(
+            *map(torch.as_tensor, host), torch.eye(4),
+            torch.as_tensor(_intr(False)), W, H, camera_model="kannala")

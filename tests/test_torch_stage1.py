@@ -86,18 +86,33 @@ def _check_losses(jm, tm):
     assert float(tm["nonfinite"]) == 0.0
 
 
+@pytest.fixture(scope="module")
+def sgd_runs():
+    """_run_both with SGD (lr 1) by (mode, probe, call_reg), each run once
+    in the module: test_adam_step_matches_optax reads the sampled_all
+    run's port gradient from test_train_step_matches_jax's."""
+    runs = {}
+
+    def get(mode, probe, call_reg):
+        if (mode, probe, call_reg) not in runs:
+            runs[mode, probe, call_reg] = _run_both(
+                mode, probe, call_reg, lambda: optax.sgd(1.0),
+                lambda m: (torch.optim.SGD(m.parameters(), lr=1.0), None))
+        return runs[mode, probe, call_reg]
+
+    return get
+
+
 @pytest.mark.parametrize("mode,probe,call_reg", [
     ("exact", False, False),
     ("exact", True, False),
     ("sampled_all", False, False),
     ("sampled_all", True, True),
 ])
-def test_train_step_matches_jax(mode, probe, call_reg):
+def test_train_step_matches_jax(mode, probe, call_reg, sgd_runs):
     """Losses and the gradient of every parameter (SGD, lr 1) against JAX;
     the sampled backward with JAX's own uniforms."""
-    jm, jd, tm, td = _run_both(
-        mode, probe, call_reg, lambda: optax.sgd(1.0),
-        lambda m: (torch.optim.SGD(m.parameters(), lr=1.0), None))
+    jm, jd, tm, td = sgd_runs(mode, probe, call_reg)
     _check_losses(jm, tm)
     assert set(jd) == set(td)
     moved = 0
@@ -224,7 +239,7 @@ def test_every_stage1_conf_model_section_is_accepted(path):
     assert cfg.forward_grad_mode in ths.GRAD_MODES
 
 
-def test_adam_step_matches_optax():
+def test_adam_step_matches_optax(sgd_runs):
     """make_optimizer (Adam 0.9 / 0.99, eps 1e-15, grid lr x20, decay) one
     step against the JAX make_optimizer's."""
     lr, factor = 5e-4, 20.0
@@ -233,16 +248,10 @@ def test_adam_step_matches_optax():
         lambda: js1.make_optimizer(lr, factor, 100),
         lambda m: ts1.make_optimizer(m, lr, factor, 100))
     _check_losses(jm, tm)
-    # the gradient (the port's SGD step, held to JAX's above) says where
-    # the sign is certain
-    jc, tc = cfgs("sampled_all")
-    model = port_model(tc, jax_params(jc))
-    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    b = batch()
-    ts1.train_step(model, torch.optim.SGD(model.parameters(), lr=1.0), None,
-                   LossConfig(), ts1.batch_to_device(b, b, "cpu"),
-                   step_draws(jax.random.PRNGKey(5), jc, tc), 0)
-    gd = {k: before[k] - v for k, v in model.state_dict().items()}
+    # the gradient (the port's SGD step from the same state and draws,
+    # held to JAX's in test_train_step_matches_jax) says where the sign is
+    # certain
+    gd = {k: -v for k, v in sgd_runs("sampled_all", False, False)[3].items()}
     for k, ref in jd.items():
         g = gd[k].abs()
         sure = g > 1e-2 * g.max()

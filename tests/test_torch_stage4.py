@@ -54,6 +54,43 @@ def meshes():
     return scene_meshes(12)
 
 
+@pytest.fixture(scope="module")
+def jax_flat(scene, meshes, tmp_path_factory):
+    """The JAX flat runner and its jitted step loss (value and gradient),
+    built once for the two flat-step tests and the invisible-view test:
+    none changes the runner's parameters or optimizer state (the JAX steps
+    are functional), and the loss takes the frame's inputs as arguments,
+    so it compiles once. max_per_tile 0 (256 on the flat path) and
+    use_pallas are the invisible-view step's; the flat steps never read
+    them."""
+    ds, _ = scene
+    jcfg = jgom.GoMConfig(sh_degree=1, tile_size=16, use_flat=True,
+                          max_per_tile=0, use_pallas=True)
+    jr = JaxStage4Runner(meshes, ds, cfg=jcfg, area_to_subdivide=AREA,
+                         max_total_iters=40,
+                         out_dir=str(tmp_path_factory.mktemp("j")),
+                         quiet=True)
+    static = {**jr._static_host, **jr._static_arr}
+    h, w = ds.img_res
+
+    @jax.jit
+    def value_and_grad(params, pose, intr, bins, bg, image, acm, mesh_depth):
+        def loss_fn(p):      # stage4.step_fn's loss, with bg passed in
+            out = jgom.render_gom(p, static, jr.cfg, pose, intr, w, h, bg,
+                                  flat_plan=jr.flat_plan, flat_bins=bins,
+                                  chw=True)
+            batch = {"image": image * acm[None]
+                     + (1 - acm[None]) * bg[:, None, None],
+                     "acm": acm, "mesh_depth": mesh_depth, "mask": None}
+            losses = jgom.gom_loss(out, batch, jr.cfg, chw=True)
+            return (losses["main_loss"] * jr.loss_scale
+                    + losses["scale_reg"], losses)
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    return jr, value_and_grad
+
+
 def _port_runner(meshes, ds, out_dir, use_flat=True, **kw):
     cfg = GoMConfig(sh_degree=1, tile_size=16, use_flat=use_flat, **kw)
     return Stage4Runner(meshes, ds, cfg=cfg, area_to_subdivide=AREA,
@@ -61,16 +98,17 @@ def _port_runner(meshes, ds, out_dir, use_flat=True, **kw):
                         device="cpu")
 
 
-def test_one_step_matches_jax(scene, meshes, tmp_path):
-    _flat_step_both(scene, meshes, tmp_path, FRAME)
+def test_one_step_matches_jax(scene, meshes, jax_flat, tmp_path):
+    _flat_step_both(scene, meshes, jax_flat, tmp_path, FRAME)
 
 
 def test_one_step_matches_jax_off_the_alpha_thresholds(scene, meshes,
-                                                       tmp_path):
+                                                       jax_flat, tmp_path):
     """Frame 0: every gaussian's gradient and update agree but for those
     with a (pixel, candidate) alpha within THRESH_EPS of the 1/255 cut or
     the 0.999 clamp, and these are a handful."""
-    _flat_step_both(scene, meshes, tmp_path, 0, skip_near_thresholds=True)
+    _flat_step_both(scene, meshes, jax_flat, tmp_path, 0,
+                    skip_near_thresholds=True)
 
 
 def _near_thresholds(tr, frame):
@@ -105,13 +143,10 @@ def _near_thresholds(tr, frame):
     return np.array(sorted(near - {n}), dtype=np.int64)
 
 
-def _flat_step_both(scene, meshes, tmp_path, frame,
+def _flat_step_both(scene, meshes, jax_flat, tmp_path, frame,
                     skip_near_thresholds=False):
     ds, _ = scene
-    jcfg = jgom.GoMConfig(sh_degree=1, tile_size=16, use_flat=True)
-    jr = JaxStage4Runner(meshes, ds, cfg=jcfg, area_to_subdivide=AREA,
-                         max_total_iters=40, out_dir=str(tmp_path / "j"),
-                         quiet=True)
+    jr, value_and_grad = jax_flat
     tr = _port_runner(meshes, ds, str(tmp_path / "t"))
     assert tr.static["num_gaussians"] == jr.static["num_gaussians"]
     assert tr.instance_ranges == jr.instance_ranges
@@ -129,21 +164,9 @@ def _flat_step_both(scene, meshes, tmp_path, frame,
     intr = jnp.asarray(ds.intrinsics[:3, :3])
     bg = jax.random.uniform(jax.random.PRNGKey(3), (3,))
     jbins = jr._get_bins(frame, pose, intr)
-    static = {**jr._static_host, **jr._static_arr}
-
-    def loss_fn(p):      # stage4.step_fn's loss, with bg passed in
-        out = jgom.render_gom(p, static, jr.cfg, pose, intr, w, h, bg,
-                              flat_plan=jr.flat_plan, flat_bins=jbins,
-                              chw=True)
-        batch = {"image": jnp.asarray(image) * acm[None]
-                 + (1 - acm[None]) * bg[:, None, None],
-                 "acm": jnp.asarray(acm), "mesh_depth": jnp.asarray(mesh_depth),
-                 "mask": None}
-        losses = jgom.gom_loss(out, batch, jr.cfg, chw=True)
-        return losses["main_loss"] * jr.loss_scale + losses["scale_reg"], losses
-
-    (jtotal, jlosses), jgrads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(jr.params)
+    (jtotal, jlosses), jgrads = value_and_grad(
+        jr.params, pose, intr, jbins, bg, jnp.asarray(image),
+        jnp.asarray(acm), jnp.asarray(mesh_depth))
     upd, _ = jr.optimizer.update(jgrads, jr.opt_state, jr.params)
     jnew = optax.apply_updates(jr.params, upd)
 
@@ -249,16 +272,13 @@ def test_one_topk_step_matches_jax(scene, meshes, tmp_path):
     _check_grads_and_update(tr, before, jgrads, jnew)
 
 
-def test_one_invisible_view_step_matches_jax(scene, meshes, tmp_path):
+def test_one_invisible_view_step_matches_jax(scene, meshes, jax_flat,
+                                            tmp_path):
     """One invisible-view step of the flat trainer on an analytic pack of
     sphere 0 (mesh 1): only that object's gaussians render, orthographic,
     through the top-K compositor at the flat trainer's depth."""
     ds, _ = scene
-    jcfg = jgom.GoMConfig(sh_degree=1, tile_size=16, use_flat=True,
-                          max_per_tile=0, use_pallas=True)
-    jr = JaxStage4Runner(meshes, ds, cfg=jcfg, area_to_subdivide=AREA,
-                         max_total_iters=40, out_dir=str(tmp_path / "j"),
-                         quiet=True)
+    jr, _ = jax_flat
     tr = _port_runner(meshes, ds, str(tmp_path / "t"), max_per_tile=0)
     assert tr.cfg.max_per_tile == jr.cfg.max_per_tile == 256
     before = _copy_state(tr, jr)

@@ -211,10 +211,14 @@ Phases, one '== ' line each:
                  and K3 against plain on the top-K lists of its view 0
                  (UT-projected, at its calibrated K).
                  (f) T1 against plain on the middle 65,536-ray selection
-                 of view 0 (plain 4096 rays at a time): indices equal
-                 plain's, two launches the same bits, the
-                 composite of the hits within 1e-5; kernel ms, plain ms,
-                 bound. (g) one viewer orbit frame (K3) on the card
+                 of view 0 (plain 4096 rays at a time): pinhole rays in
+                 trace_image's tile order and row-major, and fisheye rays
+                 in tile order (as (e) traces them): indices equal plain's, two
+                 launches the same bits, the composite of the hits within
+                 1e-5; survivors a block and exact pairs tested (the
+                 cull's plain mirror); kernel ms, plain ms, the bound and
+                 the all-pairs bound. (g) one viewer orbit frame (K3)
+                 on the card
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
 15, 16 and 17) it is
 launched twice on the same inputs and the two results must be the same bits
@@ -256,14 +260,21 @@ jacobian term, whose [L*2, 3, N] cotangent is then not read either) or 6
 (H2), over 67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
 is null.
 
-The bound of T1, from phase 17 (f)'s selection. Operations: per (ray,
-gaussian) pair whose opacity can pass the 1/255 test (the others are
-decided without arithmetic) the 65 float32 operations up to the acceptance
-test (T1_OPS_PAIR, counted from the source; sqrt, divisions and the exp one
-each), over 67 TFLOP/s. Bytes: the rays (24 B each), the packed gaussians
-(52 B each) read once, the indices and counts written once, over 3.35
-TB/s. No PyTorch call selects the K nearest accepted hits of a ray against
-a gaussian mixture: library_ms is null.
+The bound of T1, from phase 17 (f)'s selection (tile order). The work
+depends on the data, so it counts what these inputs need. Operations: per
+(ray, gaussian) pair whose ray meets the gaussian's exact sphere (the
+world sphere outside which the acceptance test cannot pass, no margins;
+counted by the cull's plain mirror) the 65 float32 operations up to the
+acceptance test (T1_OPS_PAIR, counted from the source; sqrt, divisions and
+the exp one each), over 67 TFLOP/s. Bytes: the rays (24 B each) and the
+packed gaussians (52 B) read once, the indices and counts written once,
+over 3.35 TB/s; the cull spheres are the kernel's own intermediate, made
+from the packed rows, and not counted. The all-pairs bound, of the
+kernel's first design that tested every pair, counts every (ray,
+gaussian) pair whose opacity can pass 1/255: it stands beside the new one
+as all_pairs_bound_ms. No PyTorch call selects
+the K nearest accepted hits of a ray against a gaussian mixture:
+library_ms is null.
 """
 
 from __future__ import annotations
@@ -2342,6 +2353,8 @@ COLMAP_ITERS, COLMAP_POINTS = 60, 20_000
 COLMAP_FISHEYE = (0.02, 0.004, -0.001, 0.0002)   # OPENCV_FISHEYE k1..k4
 UT_DIST = ("0.02", "0.005", "0.001", "-0.001")    # gs_render --camera opencv
 TRACE_HITS = 128          # gs_render --max_hits' default
+# T1's K, min_kernel, min_alpha, near and kernel degree: trace_image's
+T1_ARGS = (TRACE_HITS, 0.0113, 1.0 / 255.0, 1e-4, 2)
 TRACE_PSNR_MIN = 20.0     # trace vs raster of one view (the JAX test: 24 dB
                           # on a random cloud of round particles)
 T1_ATOL = 1e-5            # composite of T1's hits vs plain's
@@ -2349,7 +2362,8 @@ T1_ATOL = 1e-5            # composite of T1's hits vs plain's
 # (kernel degree 2, counted from csrc/gs_trace_select.cu): o - mu 3, the
 # two 3x3 transforms 30, |grdu| 7 (with the sqrt and the clamp), grd 3,
 # t_proj 6, the cross product 9 and its square 5, the response 2 (one exp),
-# alpha 2, the three tests 3
+# alpha 2, the three tests 3; the bound counts it for each pair whose ray
+# meets the gaussian's exact sphere (the pairs the function needs tested)
 T1_OPS_PAIR = 65
 
 
@@ -2435,6 +2449,132 @@ def write_colmap_scene(src: Path, dst: Path, camera: tuple) -> Path:
             f.write(struct.pack("<Q3d3BdQ", i + 1, *xyz, 128, 128, 128,
                                 0.5, 0))
     return dst
+
+
+def t1_inputs(g: dict, ds, dev):
+    """T1's inputs at view 0 of `ds`: the gaussian tensors as trace_image
+    makes them (means, unit quats, scales, opacities, SH), packed, and the
+    view's row-major pinhole rays."""
+    import torch
+
+    from holoscene_tpu_torch.ops import gs_trace
+    from holoscene_tpu_torch.training import gs_render
+
+    means, quats, scales, opac, sh = gs_render.gaussian_tensors(g, dev)
+    quats = quats / torch.linalg.vector_norm(quats, dim=-1, keepdim=True)
+    h, w = ds.img_res
+    rays = gs_trace.pinhole_rays(ds.pose_all[0], ds.intrinsics[:3, :3], w,
+                                 h, dev)
+    return ((means, quats, scales, opac, sh),
+            gs_trace.pack_gaussians(means, quats, scales, opac), *rays)
+
+
+def t1_work(g13, ro, rd) -> dict:
+    """T1's work on one selection, from the cull's plain mirror: each
+    block's survivors, the exact pairs the kernel tests, the pairs whose ray
+    meets the exact sphere (the work the function needs), and the bound."""
+    import torch
+
+    from holoscene_tpu_torch.ops import gs_trace
+
+    k, min_kernel, min_alpha, near, degree = T1_ARGS
+    cut = (min_kernel, min_alpha, degree)
+    bundles = gs_trace.ray_bundles(ro, rd, near)
+    keep = gs_trace.bundle_survivors(gs_trace.cull_spheres(g13, ro, *cut),
+                                     bundles)
+    met = gs_trace.ray_sphere_pairs(
+        gs_trace.cull_spheres(g13, ro, *cut, exact=True), ro, rd, keep)
+    per_block = keep.sum(1)
+    n = ro.shape[0]
+    rays_in = torch.clamp(n - torch.arange(per_block.numel(),
+                                           device=ro.device)
+                          * gs_trace.CULL_RAYS, max=gs_trace.CULL_RAYS)
+    bound, by = bound_ms(n * (24 + 4 * k + 4) + g13.shape[0] * 52,
+                         met * T1_OPS_PAIR)
+    return {"blocks": per_block.numel(),
+            "culling_blocks": int(bundles["cull"].sum()),
+            "survivors_mean": float(per_block.float().mean()),
+            "survivors_max": int(per_block.max()),
+            "exact_pairs": int((per_block * rays_in).sum()),
+            "sphere_pairs": met, "bound": bound, "by": by}
+
+
+def t1_against_plain(g: dict, ds, dev, card: str) -> dict:
+    """Phase 17 (f): T1 against plain on the middle 65,536-ray selection of
+    view 0 of `ds` (a gaussian dict g): pinhole rays in trace_image's tile
+    order and row-major, and fisheye rays (as phase 17 (e) traces them,
+    rays past theta = pi/2 included) in tile order. For each: bitwise
+    indices, two launches, the composite, the cull's survivors (plain
+    mirror), kernel ms and both bounds; plain ms for the pinhole tiles.
+    Returns {"tile": ..., "row": ..., "fisheye": ...} and the all-pairs
+    bound in "all_pairs"."""
+    import torch
+
+    from holoscene_tpu_torch.ops import gs_trace
+
+    h, w = ds.img_res
+    gt, g13, ro_all, rd_all = t1_inputs(g, ds, dev)
+    means, quats, scales, opac, sh = gt
+    n_sel = min(gs_trace.SELECT_RAYS, h * w)
+    mid = (h * w // n_sel // 2) * n_sel
+    tiles = gs_trace.tile_order(w, h, dev)[mid:mid + n_sel]
+    fish = gs_trace.fisheye_rays(ds.pose_all[0], ds.intrinsics[:3, :3], w,
+                                 h, dev)
+    sels = {"tile": (ro_all, rd_all, tiles),
+            "row": (ro_all, rd_all, torch.arange(mid, mid + n_sel,
+                                                 device=dev)),
+            "fisheye": (*fish, tiles)}
+    args = T1_ARGS
+    n_live = int((opac > 1.0 / 255.0).sum())
+    # the all-pairs bound: every (ray, live gaussian) pair, packed rows only
+    all_pairs = bound_ms(n_sel * (24 + 4 * TRACE_HITS + 4) + g13.numel() * 4,
+                         n_sel * n_live * T1_OPS_PAIR)[0]
+    t1 = {}
+    for order, (o_all, d_all, sel) in sels.items():
+        ro, rd = o_all[sel].contiguous(), d_all[sel].contiguous()
+        idx, cnt = gs_trace.select_hits(g13, ro, rd, *args)
+        idx2, cnt2 = gs_trace.select_hits(g13, ro, rd, *args)
+        ref_i, ref_c = gs_trace.select_hits_plain(g13, ro, rd, *args)
+        got = gs_trace.composite_hits(means, quats, scales, opac, sh, ro, rd,
+                                      idx, cnt, 3)
+        want = gs_trace.composite_hits(means, quats, scales, opac, sh, ro,
+                                       rd, ref_i, ref_c, 3)
+        r = t1[order] = {
+            "same_bits": torch.equal(idx, idx2) and torch.equal(cnt, cnt2),
+            "equal_plain": torch.equal(idx, ref_i) and torch.equal(cnt,
+                                                                   ref_c),
+            "mismatches": int((idx != ref_i).sum() + (cnt != ref_c).sum()),
+            "err": max(float((got[k] - want[k]).abs().max()) for k in got),
+            "hits": float(cnt.float().mean()), "max_hits": int(cnt.max()),
+            "ms": cuda_ms(lambda: gs_trace.select_hits(g13, ro, rd, *args),
+                          10),
+            **t1_work(g13, ro, rd)}
+        if order == "tile":
+            r["plain_ms"] = cuda_ms(
+                lambda: gs_trace.select_hits_plain(g13, ro, rd, *args), 2)
+        log(f"   (f) T1 vs plain, {order}, {n_sel} rays x "
+            f"{g13.shape[0]} gaussians ({n_live} can pass 1/255), K "
+            f"{TRACE_HITS}: indices equal plain's {r['equal_plain']}, two "
+            f"launches bitwise {r['same_bits']}, hits a ray {r['hits']:.1f} "
+            f"(max {r['max_hits']}), composite max abs err {r['err']:.3g}; "
+            f"survivors a block {r['survivors_mean']:.1f} (max "
+            f"{r['survivors_max']}; {r['culling_blocks']} of "
+            f"{r['blocks']} blocks cull), exact pairs tested "
+            f"{r['exact_pairs']} of {n_sel * g13.shape[0]} "
+            f"({r['exact_pairs'] / (n_sel * g13.shape[0]):.3%}), pairs "
+            f"meeting the exact sphere {r['sphere_pairs']}; kernel "
+            f"{r['ms']:.3f} ms"
+            + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
+            + f", bound {r['bound']:.4f} ms by {r['by']} "
+            f"({r['bound'] / r['ms']:.1%}; the all-pairs bound "
+            f"{all_pairs:.4f} ms, {all_pairs / r['ms']:.1%}); on {card}")
+    bad = {o: r for o, r in t1.items() if not (
+        r["same_bits"] and r["equal_plain"] and r["err"] <= T1_ATOL)}
+    if bad:
+        raise RuntimeError(f"T1 vs plain: {bad}")
+    t1["all_pairs"] = all_pairs
+    return t1
+
 
 
 def free_gaussian_phase(work: Path, dev, card: str, gauss_ply: Path,
@@ -2637,41 +2777,10 @@ def free_gaussian_phase(work: Path, dev, card: str, gauss_ply: Path,
     log(f"   K3 vs plain, the UT raster's view 0 at its calibrated K "
         f"{k_ut}, {tuple(lists[0].shape)}: " + walk_note(walks, card))
 
-    # (f) T1 vs plain on one selection of view 0 (its middle rows)
-    means, quats, scales, opac, sh = gs_render.gaussian_tensors(g, dev)
-    quats = quats / torch.linalg.vector_norm(quats, dim=-1, keepdim=True)
-    g13 = gs_trace.pack_gaussians(means, quats, scales, opac)
-    ro, rd = gs_trace.pinhole_rays(ds.pose_all[0], ds.intrinsics[:3, :3], w,
-                                   h, dev)
-    n_sel = min(gs_trace.SELECT_RAYS, h * w)
-    mid = (h * w // n_sel // 2) * n_sel
-    ro, rd = (x[mid:mid + n_sel].contiguous() for x in (ro, rd))
-    args = (TRACE_HITS, 0.0113, 1.0 / 255.0, 1e-4, 2)
-    idx, cnt = gs_trace.select_hits(g13, ro, rd, *args)
-    idx2, cnt2 = gs_trace.select_hits(g13, ro, rd, *args)
-    ref_i, ref_c = gs_trace.select_hits_plain(g13, ro, rd, *args)
-    same_bits = torch.equal(idx, idx2) and torch.equal(cnt, cnt2)
-    equal_plain = torch.equal(idx, ref_i) and torch.equal(cnt, ref_c)
-    got = gs_trace.composite_hits(means, quats, scales, opac, sh, ro, rd,
-                                  idx, cnt, 3)
-    want = gs_trace.composite_hits(means, quats, scales, opac, sh, ro, rd,
-                                   ref_i, ref_c, 3)
-    err = max(float((got[k] - want[k]).abs().max()) for k in got)
-    ms = cuda_ms(lambda: gs_trace.select_hits(g13, ro, rd, *args), 10)
-    plain_ms = cuda_ms(lambda: gs_trace.select_hits_plain(g13, ro, rd, *args),
-                       2)
-    n_live = int((opac > 1.0 / 255.0).sum())
-    n_bytes = n_sel * (24 + 4 * TRACE_HITS + 4) + g13.numel() * 4
-    bound, by = bound_ms(n_bytes, n_sel * n_live * T1_OPS_PAIR)
-    log(f"   (f) T1 vs plain, {n_sel} rays x {g13.shape[0]} gaussians "
-        f"({n_live} can pass 1/255), K {TRACE_HITS}: indices equal plain's "
-        f"{equal_plain}, two launches bitwise {same_bits}, hits a ray "
-        f"{float(cnt.float().mean()):.1f} (max {int(cnt.max())}), composite "
-        f"max abs err {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms, bound {bound:.4f} ms by {by} ({bound / ms:.1%}); on {card}")
-    if not (same_bits and equal_plain and err <= T1_ATOL):
-        raise RuntimeError(f"T1 vs plain: bitwise {same_bits}, equal "
-                           f"{equal_plain}, err {err}")
+    # (f) T1 vs plain on one selection of view 0: pinhole in both ray
+    # orders, fisheye in tile order
+    t1 = t1_against_plain(g, ds, dev, card)
+    all_pairs = t1.pop("all_pairs")
 
     # (g) one viewer frame on the card
     reset_counts()
@@ -2690,11 +2799,17 @@ def free_gaussian_phase(work: Path, dev, card: str, gauss_ply: Path,
     return {"name": "T1 gs_trace_select", "route": "cuda",
             "source": "holoscene_tpu_torch/csrc/gs_trace_select.cu",
             "replaces": "holoscene_tpu/ops/gs_trace.py:133",
-            "launches": sum(trace_launch.values()), "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
-            "launches_by_path": dict(trace_launch),
-            "index_mismatches": int((idx != ref_i).sum())}
+            "launches": sum(trace_launch.values()),
+            "max_abs_err": max(r["err"] for r in t1.values()),
+            "ms": t1["tile"]["ms"], "plain_ms": t1["tile"]["plain_ms"],
+            "bound_ms": t1["tile"]["bound"], "bound_by": t1["tile"]["by"],
+            "library_ms": None, "launches_by_path": dict(trace_launch),
+            "row_order_ms": t1["row"]["ms"],
+            "fisheye_ms": t1["fisheye"]["ms"],
+            "all_pairs_bound_ms": all_pairs,
+            "survivors_per_block": [t1["tile"]["survivors_mean"],
+                                    t1["tile"]["survivors_max"]],
+            "index_mismatches": sum(r["mismatches"] for r in t1.values())}
 
 
 def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:

@@ -27,10 +27,18 @@ recall of ~0.95 on a TPU; the port keeps the CPU's set, as ops/splat.py's
 select_topk does (tests/test_torch_gs_trace.py pins it there). Indices past
 a ray's count are 0, as the counterpart's are.
 
+T1 culls before it tests: a block of CULL_RAYS rays bounds its rays by a
+cone and tests every gaussian's bounding sphere (`cull_spheres`, made by
+the wrapper) against it, then runs the exact test on the survivors only.
+`ray_bundles` / `bundle_survivors` are the cull's plain mirror, the same
+float32 operations (the tests hold it to `_pair_hits`: no accepted pair is
+culled); `ray_sphere_pairs` counts the pairs whose ray meets a sphere.
+
 `pinhole_rays` / `fisheye_rays` generate a camera's rays and `trace_image`
-renders a gaussian dict (read_gaussian_ply layout): one selection (a T1
-launch on the card) for every SELECT_RAYS rays, then the composite a ray
-chunk at a time.
+renders a gaussian dict (read_gaussian_ply layout): the rays in tile order
+(`tile_order`: TILE_W x TILE_H pixels, a compact bundle for each T1 block),
+one selection (a T1 launch on the card) for every SELECT_RAYS of them, then
+the composite in pixel order a ray chunk at a time.
 """
 
 from __future__ import annotations
@@ -49,6 +57,15 @@ MAX_HITS = 256        # the largest K kernel T1's per-ray buffer holds
 # the H100's 132 SMs (a 4096-ray chunk is 32 blocks, a quarter of them)
 SELECT_RAYS = 65536
 PACK = 13             # floats a gaussian: mean, A = diag(1/s) R^T, opacity
+CULL_RAYS = 128       # rays a T1 block, bounded by one cone
+TILE_W, TILE_H = 16, 8    # trace_image's pixel tile: one T1 block's rays
+# the cull's margins and slacks (csrc/gs_trace_select.cu derives them)
+_LOG_SLACK = 2.0 ** -20   # expf, resp * op and the test, in -ln(resp)
+_REL, _REL_KAPPA, _ABS = 2.0 ** -10, 2.0 ** -19, 2.0 ** -16
+_COS_SLACK = 2.0 ** -20   # the bundle's cos T, below its least ray's
+_MIN_COS = 2.0 ** -4      # a wider cone does not cull
+_TOL = 2.0 ** -18         # the cone test's own rounding
+_HUGE = 1e18              # a radius that culls nothing
 
 
 def _response(gd, kernel_degree: int):
@@ -140,15 +157,166 @@ def select_hits_plain(g13, rays_o, rays_d, k: int, min_kernel: float,
 
 
 @torch.no_grad()
+def cull_spheres(g13, rays_o, min_kernel: float, min_alpha: float,
+                 kernel_degree: int = 2, exact: bool = False):
+    """[N, 4] float32 (mean, radius): the sphere around each packed gaussian
+    outside which no ray of `rays_o`'s origins is accepted, radius -1 where
+    none can be (opacity <= min_alpha). T1's cull input, computed in
+    float64 and rounded up: the unit-frame threshold sqrt(gd_max) of the
+    acceptance test times ||A^-1||, with the margins for float32 rounding
+    derived in csrc/gs_trace_select.cu. exact=True: the sphere of the exact
+    threshold, no slack and no margin (the bound's pair count)."""
+    n = g13.shape[0]
+    a = g13[:, 3:12].double().reshape(n, 3, 3)
+    op = g13[:, 12].double()
+    mk, ma = float(np.float32(min_kernel)), float(np.float32(min_alpha))
+    dead = ~(op > ma) | (ma >= float(np.float32(0.99))) | (mk >= 1.0)
+    slack = 0.0 if exact else _LOG_SLACK
+    gd_max = ((slack - torch.log(torch.clamp(ma / op, min=mk)))
+              * ((1.0 + slack) / abs(KERNEL_SCALES[kernel_degree]))) \
+        ** (2.0 / kernel_degree)
+    # ||A^-1|| and ||A|| <= sqrt of the largest Gershgorin row sum of the
+    # Gram matrix; A^-1 = adj(A) / det, adj(A)^T's rows the rows' crosses
+    cols = torch.linalg.cross(a[:, [1, 2, 0]], a[:, [2, 0, 1]])
+    det = (a[:, 0] * cols[:, 0]).sum(-1)
+    grams = torch.stack([cols, a], 1)                      # [N, 2, 3, 3]
+    grams = (grams[:, :, :, None] * grams[:, :, None]).sum(-1)
+    norms = torch.sqrt(grams.abs().sum(-1).amax(-1))       # [N, 2]
+    s_max = norms[:, 0] / det.abs()
+    radius = s_max * torch.sqrt(gd_max)
+    if not exact:
+        o_scale = torch.linalg.vector_norm(rays_o, dim=-1).amax().double() \
+            if rays_o.shape[0] else 0.0
+        radius = radius * (1.0 + _REL + _REL_KAPPA * s_max * norms[:, 1]) \
+            + _ABS * (torch.linalg.vector_norm(g13[:, :3], dim=-1).double()
+                      + o_scale)
+    inf = float("inf")
+    radius = torch.nan_to_num(radius, nan=inf, posinf=inf)
+    r32 = radius.float()
+    r32 = torch.where(r32.double() < radius,
+                      torch.nextafter(r32, torch.full_like(r32, inf)), r32)
+    r32 = torch.where(dead, torch.full_like(r32, -1.0), r32)
+    return torch.cat([g13[:, :3], r32[:, None]], dim=1).contiguous()
+
+
+def _blocks(x, n_blocks: int):
+    """[R, 3] -> [n_blocks, CULL_RAYS, 3], zero rows past R."""
+    pad = n_blocks * CULL_RAYS - x.shape[0]
+    return torch.cat([x, x.new_zeros(pad, 3)]).reshape(n_blocks, CULL_RAYS,
+                                                        3)
+
+
+def _norm3(x, y, z):
+    return torch.sqrt((x * x + y * y) + z * z)
+
+
+@torch.no_grad()
+def ray_bundles(rays_o, rays_d, near: float) -> dict:
+    """Plain mirror of T1's pass (a): for each block of CULL_RAYS rays the
+    bundle the kernel reduces in shared memory, in its float32 operations
+    and order. Returns {"c": [B, 3] first origin, "ro": [B] origin radius,
+    "a": [B, 3] axis, "cos_t": [B], "inv_sin": [B], "cull": [B] bool}; no
+    block culls at near < 0, where hits behind the origin count."""
+    r = rays_o.shape[0]
+    nb = -(-r // CULL_RAYS)
+    active = (torch.arange(nb * CULL_RAYS, device=rays_o.device)
+              < r).reshape(nb, CULL_RAYS)
+    o, d = _blocks(rays_o, nb), _blocks(rays_d, nb)
+    dx, dy, dz = d.unbind(-1)
+    d2n = (dx * dx + dy * dy) + dz * dz
+    ok = torch.isfinite(o).all(-1) & torch.isfinite(d2n) & (d2n > 0)
+    all_ok = (ok | ~active).all(1)
+    c = o[:, 0]
+    e = torch.where(active, _norm3(*(o - c[:, None]).unbind(-1)),
+                    torch.zeros_like(d2n))
+    ro = e.amax(1)
+    s = torch.where(active[..., None], d, torch.zeros_like(d))
+    while s.shape[1] > 1:                     # the kernel's tree
+        h = s.shape[1] // 2
+        s = s[:, :h] + s[:, h:]
+    s = s[:, 0]
+    sn = _norm3(*s.unbind(-1))
+    a = s / sn[:, None]
+    ax, ay, az = (x[:, None] for x in a.unbind(-1))
+    cos = ((dx * ax + dy * ay) + dz * az) / torch.sqrt(d2n)
+    cos = torch.where(active, cos, torch.full_like(cos, 2.0))
+    cos_t = torch.clamp(cos.amin(1) - _COS_SLACK, max=1.0 - _COS_SLACK)
+    return {"c": c, "ro": ro + ro * _COS_SLACK, "a": a, "cos_t": cos_t,
+            "inv_sin": 1.0 / torch.sqrt((1.0 - cos_t) * (1.0 + cos_t)),
+            "cull": all_ok & (sn > 0) & (cos_t >= _MIN_COS)
+            & bool(np.float32(near) >= 0)}
+
+
+@torch.no_grad()
+def bundle_survivors(spheres, bundles: dict, chunk: int = 16):
+    """Plain mirror of T1's pass (b): [B, N] bool, the spheres that block b
+    keeps for the exact test (every live one where it does not cull)."""
+    out = []
+    mx, my, mz, rad = (x[None] for x in spheres.unbind(-1))
+    for b0 in range(0, bundles["cull"].shape[0], chunk):
+        sl = slice(b0, b0 + chunk)
+        cx, cy, cz = (x[:, None] for x in bundles["c"][sl].unbind(-1))
+        ax, ay, az = (x[:, None] for x in bundles["a"][sl].unbind(-1))
+        ro, cos_t, inv_sin = (bundles[k][sl][:, None]
+                              for k in ("ro", "cos_t", "inv_sin"))
+        rr = rad + ro
+        vx, vy, vz = mx - cx, my - cy, mz - cz
+        s = rr * inv_sin
+        wx, wy, wz = vx + s * ax, vy + s * ay, vz + s * az
+        wa = (wx * ax + wy * ay) + wz * az
+        wn = _norm3(wx, wy, wz)
+        va = (vx * ax + vy * ay) + vz * az
+        tol = _TOL * (wn + 2.0 * s)
+        meets = ((va + rr) + tol >= 0) & (wa + tol >= cos_t * wn)
+        out.append((rad >= 0) & (~bundles["cull"][sl][:, None]
+                                 | ~(rr < _HUGE) | meets))
+    return torch.cat(out)
+
+
+@torch.no_grad()
+def ray_sphere_pairs(spheres, rays_o, rays_d, survivors,
+                     chunk: int = 8192) -> int:
+    """How many (ray, gaussian) pairs have the ray (t >= 0) meet the
+    gaussian's sphere, counted among each block's `survivors`: all of them
+    when these spheres lie inside the ones the survivors were culled with
+    (the exact spheres inside the cull spheres)."""
+    r = rays_o.shape[0]
+    b_idx, g_idx = survivors.nonzero(as_tuple=True)
+    lanes = torch.arange(CULL_RAYS, device=rays_o.device)
+    total = 0
+    for p0 in range(0, b_idx.numel(), chunk):
+        rid = b_idx[p0:p0 + chunk, None] * CULL_RAYS + lanes
+        valid = rid < r
+        rid = rid.clamp(max=r - 1)
+        sp = spheres[g_idx[p0:p0 + chunk]]
+        o, d = rays_o[rid], rays_d[rid]
+        v = sp[:, None, :3] - o
+        t = torch.clamp((v * d).sum(-1), min=0.0)
+        q = v - t[..., None] * d
+        hit = (q * q).sum(-1) <= sp[:, None, 3] ** 2
+        total += int((hit & valid).sum())
+    return total
+
+
+@torch.no_grad()
 def select_hits(g13, rays_o, rays_d, k: int, min_kernel: float,
                 min_alpha: float, near: float, kernel_degree: int = 2,
                 block: int = 2048):
-    """T1 wrapper. CUDA tensor: launches `gs_trace_select` of
-    csrc/gs_trace_select.cu (a ray a thread, the gaussians streamed through
-    shared memory, a sorted K-buffer a ray) and counts the launch in
-    `select_hits.launches`; CPU tensor: select_hits_plain. Returns (idx
-    int32 [R, k], count int32 [R]). `block` sizes the plain version's
-    gaussian blocks (the kernel streams 128 at a time)."""
+    """T1 wrapper. CUDA tensor: makes the cull spheres (`cull_spheres`),
+    launches `gs_trace_select` of csrc/gs_trace_select.cu (a ray a thread,
+    each block of 128 rays culls the spheres against its bundle and runs the
+    exact test on the survivors, a sorted K-buffer a ray) and counts the
+    launch in `select_hits.launches`; CPU tensor: select_hits_plain. Returns
+    (idx int32 [R, k], count int32 [R]), the same bits either way. `block`
+    sizes the plain version's gaussian blocks."""
+    return _select_hits(g13, rays_o, rays_d, k, min_kernel, min_alpha, near,
+                        kernel_degree, block, None)
+
+
+def _select_hits(g13, rays_o, rays_d, k, min_kernel, min_alpha, near,
+                 kernel_degree, block, spheres):
+    """select_hits with the cull spheres given (trace_image makes them once
+    a view, from all its origins); None: made from these rays."""
     if kernel_degree not in KERNEL_SCALES:
         raise ValueError(f"kernel_degree {kernel_degree} not in 1, 2, 4, 8")
     if not 1 <= k <= MAX_HITS:
@@ -167,10 +335,13 @@ def select_hits(g13, rays_o, rays_d, k: int, min_kernel: float,
     idx = torch.empty((r, k), dtype=torch.int32, device=rays_o.device)
     count = torch.empty((r,), dtype=torch.int32, device=rays_o.device)
     if r:
+        if spheres is None:
+            spheres = cull_spheres(g13, rays_o, min_kernel, min_alpha,
+                                   kernel_degree)
         st = kernels.library().gs_trace_select(
-            rays_o.data_ptr(), rays_d.data_ptr(), g13.data_ptr(), r,
-            g13.shape[0], k, min_kernel, min_alpha, near, kernel_degree,
-            idx.data_ptr(), count.data_ptr(),
+            rays_o.data_ptr(), rays_d.data_ptr(), g13.data_ptr(),
+            spheres.data_ptr(), r, g13.shape[0], k, min_kernel, min_alpha,
+            near, kernel_degree, idx.data_ptr(), count.data_ptr(),
             torch.cuda.current_stream(rays_o.device).cuda_stream)
         kernels.check(st, "gs_trace_select")
         select_hits.launches += 1
@@ -312,6 +483,18 @@ def fisheye_rays(pose_c2w, intrinsics, width: int, height: int,
     return pose[:3, 3].expand(dirs.shape).contiguous(), dirs.contiguous()
 
 
+def tile_order(width: int, height: int, device="cpu") -> torch.Tensor:
+    """[H*W] int64: the row-major pixel indices in tile order (tiles of
+    TILE_W x TILE_H pixels, row-major over the tiles and within each), so
+    that each T1 block of 128 consecutive rays is one compact tile."""
+    y = torch.arange(height, device=device)[:, None]
+    x = torch.arange(width, device=device)[None, :]
+    tiles_x = -(-width // TILE_W)
+    key = ((y // TILE_H) * tiles_x + x // TILE_W) * (TILE_W * TILE_H) \
+        + (y % TILE_H) * TILE_W + x % TILE_W
+    return torch.argsort(key.reshape(-1))
+
+
 @torch.no_grad()
 def trace_image(g: dict, pose_c2w, intrinsics, width: int, height: int,
                 sh_degree: int = 3, camera: str = "pinhole",
@@ -321,9 +504,11 @@ def trace_image(g: dict, pose_c2w, intrinsics, width: int, height: int,
                 block: int = 2048, kernel_degree: int = 2) -> dict:
     """Render a gaussian dict (read_gaussian_ply layout: means, quats,
     log_scales, opacity_logits, features_dc, features_rest) with the ray
-    tracer: the hits of SELECT_RAYS rays a selection (one T1 launch on
-    the card), composited `chunk` rays at a time. Returns rgb [H,W,3],
-    depth [H,W], alpha [H,W] as numpy."""
+    tracer: the hits of SELECT_RAYS rays in tile order a selection (one T1
+    launch on the card), composited in pixel order `chunk` rays at a time.
+    Each ray's hits do not depend on the other rays, so the image is the
+    same bits as a row-major selection's. Returns rgb [H,W,3], depth
+    [H,W], alpha [H,W] as numpy."""
     dev = resolve_device(device)
     rays = pinhole_rays if camera == "pinhole" else fisheye_rays
     rays_o, rays_d = rays(pose_c2w, intrinsics, width, height, dev)
@@ -337,19 +522,26 @@ def trace_image(g: dict, pose_c2w, intrinsics, width: int, height: int,
                     as_tensor(g["features_rest"], dev)], dim=1)
     g13 = pack_gaussians(means, quats, scales, opac)
     k = min(max_hits, means.shape[0])
-    span = -(-SELECT_RAYS // chunk) * chunk
+    n = rays_o.shape[0]
+    order = tile_order(width, height, dev)
+    tiled_o, tiled_d = rays_o[order], rays_d[order]
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    spheres = cull_spheres(g13, rays_o, min_kernel, min_alpha,
+                           kernel_degree) if rays_o.is_cuda else None
+    for s0 in range(0, n, SELECT_RAYS):
+        sl = slice(s0, s0 + SELECT_RAYS)
+        idx[order[sl]], cnt[order[sl]] = _select_hits(
+            g13, tiled_o[sl], tiled_d[sl], k, min_kernel, min_alpha, near,
+            kernel_degree, block, spheres)
     outs = {"rgb": [], "depth": [], "alpha": []}
-    for s0 in range(0, rays_o.shape[0], span):
-        idx, cnt = select_hits(g13, rays_o[s0:s0 + span],
-                               rays_d[s0:s0 + span], k, min_kernel,
-                               min_alpha, near, kernel_degree, block)
-        for c0 in range(0, idx.shape[0], chunk):
-            sl = slice(s0 + c0, s0 + c0 + chunk)
-            o = composite_hits(means, quats, scales, opac, sh, rays_o[sl],
-                               rays_d[sl], idx[c0:c0 + chunk],
-                               cnt[c0:c0 + chunk], sh_degree, kernel_degree)
-            for key in outs:
-                outs[key].append(o[key].cpu().numpy())
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, c0 + chunk)
+        o = composite_hits(means, quats, scales, opac, sh, rays_o[sl],
+                           rays_d[sl], idx[sl], cnt[sl], sh_degree,
+                           kernel_degree)
+        for key in outs:
+            outs[key].append(o[key].cpu().numpy())
     return {
         "rgb": np.concatenate(outs["rgb"]).reshape(height, width, 3),
         "depth": np.concatenate(outs["depth"]).reshape(height, width),

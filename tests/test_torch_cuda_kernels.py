@@ -1055,15 +1055,51 @@ def _trace_cloud(n, r, seed):
     return means, quats, scales, opac, ro, rd
 
 
+def _t1_rays(case, rng):
+    """Rays for T1's cases: a random fan, a pinhole view in trace_image's
+    tile order, a fisheye view from inside the cloud (rays past theta =
+    pi/2 look backwards), blocks of scattered origins, a view looking
+    away from the cloud (every sphere culled), and a pinhole view from
+    inside the cloud (traced at a negative near: hits behind it)."""
+    if case == "scattered":
+        centre = rng.normal(size=(16, 1, 3)) * 0.3
+        axis = rng.normal(size=(16, 1, 3)) * 0.2 + [0.0, 0.0, 1.0]
+        ro = centre + rng.normal(size=(16, 128, 3)) * 0.2
+        rd = axis + rng.normal(size=(16, 128, 3)) * 0.05
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        return (torch.tensor(ro.reshape(-1, 3), dtype=torch.float32),
+                torch.tensor(rd.reshape(-1, 3), dtype=torch.float32))
+    pose = np.eye(4, dtype=np.float32)
+    if case == "culled":
+        pose[:3, :3] = np.diag([1.0, -1.0, -1.0])   # looking down -z
+        pose[2, 3] = -1.0
+    f, rays = 120.0, ttrace.pinhole_rays
+    if case in ("fisheye", "behind"):
+        pose[2, 3] = 3.0                             # the cloud's centre
+    if case == "fisheye":
+        f, rays = 28.0, ttrace.fisheye_rays
+    intr = np.array([[f, 0, 64], [0, f, 32], [0, 0, 1]], np.float32)
+    ro, rd = rays(pose, intr, 128, 64)
+    order = ttrace.tile_order(128, 64)
+    return ro[order].contiguous(), rd[order].contiguous()
+
+
+@pytest.mark.parametrize("case,k", [
+    ("fan", 64), ("pinhole", 128), ("fisheye", 128), ("scattered", 1),
+    ("scattered", 256), ("culled", 128), ("behind", 128)])
 @pytest.mark.parametrize("degree", [1, 2, 4, 8])
-def test_t1_matches_plain(cuda, degree):
+def test_t1_matches_plain(cuda, degree, case, k):
     """T1 (csrc/gs_trace_select.cu) against select_hits_plain on the card:
-    the same indices and counts, bit for bit, and two launches equal."""
+    the same indices and counts, bit for bit, and two launches equal. The
+    case `behind` traces at near -5, where no block may cull."""
     means, quats, scales, opac, ro, rd = _trace_cloud(3000, 1000, 4)
+    if case != "fan":
+        ro, rd = _t1_rays(case, np.random.default_rng(degree))
     g13 = ttrace.pack_gaussians(*(torch.tensor(a) for a in (
         means, quats, scales, opac))).to(cuda)
-    ro_d, rd_d = (torch.tensor(a, device=cuda) for a in (ro, rd))
-    args = (64, 0.0113, 1.0 / 255.0, 1e-4, degree)
+    ro_d, rd_d = (torch.as_tensor(a, device=cuda) for a in (ro, rd))
+    near = -5.0 if case == "behind" else 1e-4
+    args = (k, 0.0113, 1.0 / 255.0, near, degree)
     before = ttrace.select_hits.launches
     idx, cnt = ttrace.select_hits(g13, ro_d, rd_d, *args)
     idx2, cnt2 = ttrace.select_hits(g13, ro_d, rd_d, *args)
@@ -1072,7 +1108,26 @@ def test_t1_matches_plain(cuda, degree):
     assert torch.equal(idx, idx2) and torch.equal(cnt, cnt2)
     assert torch.equal(cnt, ref_c)
     assert torch.equal(idx, ref_i)
-    assert int(cnt.max()) == 64 and int(cnt.min()) < 64
+    bundles = ttrace.ray_bundles(ro_d, rd_d, near)
+    spheres = ttrace.cull_spheres(g13, ro_d, *args[1:3], degree)
+    keep = ttrace.bundle_survivors(spheres, bundles)
+    if case == "culled":
+        assert int(cnt.max()) == 0 and int(keep.sum()) == 0
+    else:
+        assert int(cnt.max()) == k
+    if case in ("fan", "pinhole"):       # short rays too
+        assert int(cnt.min()) < k
+    if case == "behind":       # hits behind the origin: the cull is off
+        assert not bool(bundles["cull"].any())
+        forward = ttrace.bundle_survivors(
+            spheres, ttrace.ray_bundles(ro_d, rd_d, 1e-4))
+        accept, _t = ttrace._pair_hits(g13, ro_d, rd_d, *args[1:4], degree)
+        block = torch.arange(ro_d.shape[0], device=cuda) // ttrace.CULL_RAYS
+        assert bool((accept & ~forward[block]).any())
+    elif case != "fan":
+        assert bool(bundles["cull"].all())
+    if case in ("pinhole", "fisheye"):
+        assert float(keep.sum(1).float().mean()) < 0.5 * g13.shape[0]
 
 
 def test_trace_on_card_matches_cpu(cuda):

@@ -12,7 +12,10 @@ the scene export CLI on the result, and the rest of the chain: Stage 0's
 priors and Stage 4 on Stage 3's textured meshes, with the chain record;
 then the free-Gaussian trainer (gs_train) at its CLI's defaults, the
 Gaussian ray tracer behind gs_render --renderer trace with its kernel T1,
-the unscented-transform camera and the viewer.
+the unscented-transform camera and the viewer; last the camera refinement,
+the physics grid and LPIPS against the CPU, the Stage-1 occupancy grid
+through the CLI, and Stage 1 and Stage 4 over torch.distributed ranks
+against the single-process steps.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -103,7 +106,7 @@ Phases, one '== ' line each:
                  patch), with the step's own cotangents: kernel ms and
                  bound
  13 quality gate the 2500-iteration synthetic gate's code path, short:
-                 training/quality_gate.main at 300 iterations on the card
+                 training/quality_gate.main at 200 iterations on the card
                  (16 images at 128^2, the gate's widths and stack): eval
                  PSNR finite and above iteration 0's training PSNR, the
                  background chamfer finite, H1-fwd / H1-bwd / H2 launched
@@ -167,8 +170,8 @@ Phases, one '== ' line each:
                  the CPU: the files equal (depth within 1e-6). (b)
                  training/exp_runner_gaussian.main on phase 15's run (its
                  surface_{i}.obj: the room and both spheres, never cut)
-                 with the dataset's test split, --max_niters 300 (half the
-                 CLI's default of 200 a mesh, cut for time): every loss
+                 with the dataset's test split, --max_niters 200 (a third
+                 of the CLI's default of 200 a mesh, cut for time): every loss
                  finite, K1 and K2 launched on every step, gauss_scene.ply
                  and .usdz written, the test PSNR and SSIM finite; the
                  gaussians by object, steps/s, splats/s, the l1 in thirds
@@ -219,6 +222,37 @@ Phases, one '== ' line each:
                  cull's plain mirror); kernel ms, plain ms, the bound and
                  the all-pairs bound. (g) one viewer orbit frame (K3)
                  on the card
+ 18 last modules (a) models/cam_opt.py::exp_map_so3xr3 and its gradient
+                 on 4096 tangents (64 of them zero, the deltas' initial
+                 value: finite), ops/phygrid.py at 256^3 with 2^20 points
+                 (splat bitwise, sample and smooth within 1e-6) and
+                 utils/lpips.py on random weights at 512^2 (relative
+                 1e-4), each on the card against the CPU. (b) exp_runner
+                 on phase 10's scene and conf with use_occupancy = true,
+                 40 steps: every loss finite, rgb_loss falls, H1 three
+                 times a step plus the patch's, H2 at the bakes and in the
+                 patches' samplers (the step's sampler reads the probe
+                 grid, as in phase 10); the mean (far' - near') / (far -
+                 near) of the restricted steps below 1; ms a step beside
+                 phase 10's. (c) Stage 1 over torch.distributed at the
+                 flagship width (random tables, 1024 rays and the 32 x 32
+                 background patch, SGD lr 1): one NCCL world-size-1 step in
+                 this process, then two gloo ranks spawned on the one card
+                 (NCCL refuses two ranks on one device) at dp 2 and at
+                 model 2 (row-sharded tables), each against the
+                 single-process step on the same global batch and draws:
+                 loss rtol 2e-5 atol 2e-6, every gradient within 5e-5 x
+                 max |g| of its tensor (the 0-d beta 5e-4). (d) the Stage-4
+                 dp step at dp 2 in the same two ranks, each rendering one
+                 of phase 4's 512^2 frames through K1/K2: the parameters
+                 after one SGD step (lr 1e-3) against the single-process
+                 step on the two frames' gradient mean, rtol 2e-4 atol
+                 2e-6. (e) python -m torch.distributed.run, two ranks,
+                 -m holoscene_tpu_torch.training.exp_runner on phase 10's
+                 conf with --dist_backend gloo, 5 steps: every loss
+                 finite, step 0's the single-process run's (phase 10's
+                 step 0, rtol 2e-5; step 1's printed beside phase 10's),
+                 one run directory with rank 0's metrics and checkpoint
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
 15, 16 and 17) it is
 launched twice on the same inputs and the two results must be the same bits
@@ -227,8 +261,9 @@ from launch to launch, so its two launches must agree within its tolerance
 to plain (1e-5 of the largest gradient), not bitwise.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
 10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run), 16
-(its Stage-4 run) and 17 (each gs_train run, each gs_render run, the
-viewer frame) and read just after. Then the kernel table as one JSON line
+(its Stage-4 run), 17 (each gs_train run, each gs_render run, the
+viewer frame) and 18 (the occupancy run, each rank's step) and read just
+after. Then the kernel table as one JSON line
 and last the device line {"ok": true, "device": {...}}. Any failure exits
 non-zero before it.
 
@@ -482,17 +517,25 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     # the reference: plain's closed form with float64 sums over the same
     # float32 alphas and masks; both float32 walks round their long sums
     # (thousands of candidates a pixel on the chain's tiles) their own way
+    del again
     exact = bwd_exact(ref, ref_used, v)
-    err_x = (dker.double() - exact).abs()
-    over = int((err_x > BWD_ATOL + BWD_RTOL * exact.abs()).sum())
-    err_b = float((dker - dref).abs().max())
-    plain_x = float((dref.double() - exact).abs().max())
+    # the float64 differences a slice of rows at a time: at the chain's
+    # frame one float64 copy of the gradient array is ~20 GiB
+    step = max(1, (1 << 27) // max(1, dker[0].numel()))
+    over, max_x, plain_x, err_b = 0, 0.0, 0.0, 0.0
+    for i in range(0, dker.shape[0], step):
+        e, k, p = exact[i:i + step], dker[i:i + step], dref[i:i + step]
+        x = (k.double() - e).abs()
+        over += int((x > BWD_ATOL + BWD_RTOL * e.abs()).sum())
+        max_x = max(max_x, float(x.max()))
+        plain_x = max(plain_x, float((p.double() - e).abs().max()))
+        err_b = max(err_b, float((k - p).abs().max()))
     if not torch.isfinite(dker).all() or over:
         raise RuntimeError(f"{kb} disagrees with plain's exact sums: {over} "
                            f"values outside atol {BWD_ATOL} rtol {BWD_RTOL}; "
-                           f"max abs err {float(err_x.max())} (float32 plain "
+                           f"max abs err {max_x} (float32 plain "
                            f"{plain_x}, kernel vs float32 plain {err_b})")
-    res[kb] = dict(max_abs_err=err_b, max_abs_err_exact=float(err_x.max()),
+    res[kb] = dict(max_abs_err=err_b, max_abs_err_exact=max_x,
                    plain_max_abs_err_exact=plain_x, ms=None, plain_ms=None,
                    **work)
     res[kb]["bound_ms"], res[kb]["bound_by"] = bound_ms(
@@ -754,7 +797,7 @@ S1B_STEPS = 40        # phase 10b: the vjp mode's heavier untiered step
 PLOT_RES = 512        # phase 12: confs/replica_room0_tpu.conf's resolution
 EXTRACT_CHUNK = 1 << 18   # utils/plots.py::extract_object_meshes' chunk
 COARSE_RES = 64       # and its coarse sweep
-GATE_ITERS = 300      # phase 13: the quality gate's code path, short
+GATE_ITERS = 200      # phase 13: the quality gate's code path, short
 BENCH_RAYS, BENCH_WARMUP, BENCH_TIMED, PROFILED = 1024, 3, 20, 3
 H_REL = 1e-5          # hash kernels vs plain, relative to the largest value
 BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
@@ -1226,7 +1269,7 @@ def check_stage1_run(tag, runner, steps, launches, bg_every, per_step,
     0 on the others, H1-fwd / H1-bwd launched
     per_step times a step plus once a background step, and H2 in each
     background patch's sampler (once, then once a round some ray has not
-    converged). Returns the thirds' trend."""
+    converged). Returns the ms a step after the first."""
     hist = runner.history
     keys = ("loss", "rgb_loss", "eikonal_loss", "background_reg_loss",
             "psnr")
@@ -1263,7 +1306,7 @@ def check_stage1_run(tag, runner, steps, launches, bg_every, per_step,
     if launches["H1-fwd"] != want or launches["H1-bwd"] != want:
         raise RuntimeError(f"{tag}: H1 launches {launches}, expected {want}: "
                            f"{per_step} a step plus one a background step")
-    return trend
+    return 1e3 / steady
 
 
 # a spin of the card (~0.11 ms at 1.755 GHz) before each timed H2 launch
@@ -1988,9 +2031,10 @@ MV_SEEDS = (42, 3, 7)  # phase 14a: mv_predict's --seeds
 W3D_ATOL = 1e-5       # the Wonder3D+ provider on the card vs the CPU
 # phase 16: the chamfers' samples a mesh and the analytic meshes' grid
 CHAMFER_SAMPLES, GT_MESH_RES = 30000, 64
-# phase 16b's Stage-4 iterations: half the CLI's default (200 a mesh, 600
-# here), cut to keep the script in its time once phase 17 joined it
-CHAIN_S4_ITERS = 300
+# phase 16b's Stage-4 iterations: a third of the CLI's default (200 a
+# mesh, 600 here), cut to keep the script in its time as phases 17 and 18
+# joined it (300 with phase 17)
+CHAIN_S4_ITERS = 200
 
 
 def w3d_stand_in(path: Path) -> str:
@@ -2868,8 +2912,9 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
     launches = read_hash_counts()
     splat = read_counts()
     cfg10 = runner.model_cfg
-    check_stage1_run("Stage-1 run", runner, S1_STEPS, launches,
-                     cfg10.render_bg_iter, 3, card)
+    STEP_MS["10"] = check_stage1_run("Stage-1 run", runner, S1_STEPS,
+                                     launches, cfg10.render_bg_iter, 3, card)
+    PHASE10_LOSSES[:] = [h["loss"] for h in runner.history[:CLI_RANK_STEPS]]
     n_bg = len(range(0, S1_STEPS, cfg10.render_bg_iter))
     per_bake = -(-(cfg10.probe_grid_res + 1) ** 3 // BAKE_CHUNK)
     bake_h2 = len(runner.probe_bakes) * per_bake
@@ -3072,6 +3117,517 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
                 f"by {r[k]['bound_by']} ({100 * r[k]['bound_ms'] / r[k]['ms']:.1f}%)"
                 for k in ("H1-fwd", "H1-bwd")))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 18: camera refinement, the physics grid, LPIPS, the occupancy grid,
+# multi-rank Stage 1 and Stage 4
+# ---------------------------------------------------------------------------
+
+CAM_TANGENTS = 4096
+PHY_RES, PHY_POINTS = 256, 1 << 20    # reference model/PhyGrid.py's 256^3
+LPIPS_RES = 512
+OCC_STEPS = 40
+RANKS, RANK_RAYS = 2, 1024
+CLI_RANK_STEPS = 5     # (e): exp_runner under torchrun, phase 10's conf
+RANK_DEVICE = "cuda"
+PHASE10_LOSSES: list = []   # phase 10's first CLI_RANK_STEPS losses
+# a multi-rank step against the single-process step on the same global
+# batch (tests/test_multichip.py's tolerances; 0-d beta's gradient, one
+# cancelling sum over every sample, at 5e-4: tests/test_torch_parallel.py)
+S1_LOSS_RTOL, S1_LOSS_ATOL, S1_GRAD_REL, S1_SCALAR_REL = 2e-5, 2e-6, 5e-5, 5e-4
+S4_RTOL, S4_ATOL, S4_LR = 2e-4, 2e-6, 1e-3   # tests/test_stage4_dp.py's
+STEP_MS: dict = {}    # ms a step of the Stage-1 runs, by phase
+
+
+def small_modules_phase(dev, card: str) -> None:
+    """Phase 18 (a): exp_map_so3xr3 and its gradient, the dense grid at
+    256^3 and LPIPS at 512^2, each on the card against the CPU."""
+    import torch
+
+    from holoscene_tpu_torch.models.cam_opt import exp_map_so3xr3
+    from holoscene_tpu_torch.ops import phygrid
+    from holoscene_tpu_torch.utils import lpips
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(18)
+    tan = torch.randn(CAM_TANGENTS, 6, generator=gen) * 0.5
+    tan[:64] = 0.0                      # the pose deltas' initial value
+    tan[64:128, 3:] *= 1e-7             # the small-angle branch
+    w = torch.randn(CAM_TANGENTS, 3, 4, generator=gen)
+    res = []
+    for d in ("cpu", dev):
+        x = tan.to(d).clone().requires_grad_(True)
+        y = exp_map_so3xr3(x)
+        (y * w.to(d)).sum().backward()
+        res.append((y.detach().cpu(), x.grad.cpu()))
+    (yc, gc), (yg, gg) = res
+    cam = (float((yg - yc).abs().max()), float((gg - gc).abs().max()))
+    if not (bool(torch.isfinite(gg).all()) and cam[0] <= 1e-6
+            and cam[1] <= 1e-5):
+        raise RuntimeError(f"exp_map_so3xr3 card vs CPU: value / gradient "
+                           f"errors {cam}, finite {torch.isfinite(gg).all()}")
+
+    pts = torch.rand(PHY_POINTS, 3, generator=gen) * 2.2 - 1.1
+    vals = torch.rand(PHY_POINTS, generator=gen)
+    q = torch.rand(PHY_POINTS, 3, generator=gen) * 2.2 - 1.1
+    out, ms = [], {}
+    for d in ("cpu", dev):
+        g = phygrid.grid_splat_max(phygrid.init_dense_grid(PHY_RES, 1.0, d),
+                                   pts.to(d), vals.to(d))
+        out.append((g["values"].cpu(), phygrid.grid_sample(g, q.to(d)).cpu(),
+                    phygrid.grid_smooth(g)["values"].cpu()))
+    g = phygrid.init_dense_grid(PHY_RES, 1.0, dev)
+    pd, vd, qd = pts.to(dev), vals.to(dev), q.to(dev)
+    ms["splat"] = cuda_ms(lambda: phygrid.grid_splat_max(g, pd, vd), 5)
+    g = phygrid.grid_splat_max(g, pd, vd)
+    ms["sample"] = cuda_ms(lambda: phygrid.grid_sample(g, qd), 5)
+    ms["smooth"] = cuda_ms(lambda: phygrid.grid_smooth(g), 5)
+    (vc, sc, mc), (vg, sg, mg) = out
+    phy = (bool(torch.equal(vg, vc)), float((sg - sc).abs().max()),
+           float((mg - mc).abs().max()))
+    if not (phy[0] and phy[1] <= 1e-6 and phy[2] <= 1e-6):
+        raise RuntimeError(f"phygrid card vs CPU: splat bitwise {phy[0]}, "
+                           f"sample / smooth errors {phy[1:]}")
+
+    params = lpips.init_random_params(0)
+    a = torch.rand(LPIPS_RES, LPIPS_RES, 3, generator=gen)
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen)).clamp(0, 1)
+    lp = [float(lpips.lpips_pair(lpips.params_to_torch(params, d), a.to(d),
+                                 b.to(d))) for d in ("cpu", dev)]
+    on_card = (lpips.params_to_torch(params, dev), a.to(dev), b.to(dev))
+    lp_ms = cuda_ms(lambda: lpips.lpips_pair(*on_card), 5)
+    rel = abs(lp[1] - lp[0]) / abs(lp[0])
+    if not (finite(lp[1]) and rel <= 1e-4):
+        raise RuntimeError(f"LPIPS card {lp[1]} vs CPU {lp[0]}: relative "
+                           f"{rel:.3g} > 1e-4")
+    log(f"== 18 (a) small modules in {time.perf_counter() - t0:.1f} s: "
+        f"exp_map_so3xr3 on {CAM_TANGENTS} tangents (64 zero, 64 in the "
+        f"small-angle branch) card vs CPU: value {cam[0]:.3g}, gradient "
+        f"{cam[1]:.3g}, finite; phygrid {PHY_RES}^3 with {PHY_POINTS} "
+        f"points: splat bitwise {phy[0]}, sample {phy[1]:.3g}, smooth "
+        f"{phy[2]:.3g}, card ms splat {ms['splat']:.3f} sample "
+        f"{ms['sample']:.3f} smooth {ms['smooth']:.3f}; LPIPS "
+        f"(init_random_params) {LPIPS_RES}^2 card {lp[1]:.6f} CPU "
+        f"{lp[0]:.6f}, relative {rel:.3g}, {lp_ms:.3f} ms on the card; on "
+        f"{card}")
+
+
+def occupancy_phase(work: Path, card: str) -> dict:
+    """Phase 18 (b): phase 10's scene and conf with use_occupancy, through
+    the CLI. Returns the hash kernels' launches."""
+    import torch
+
+    from holoscene_tpu_torch.models import holoscene as hs
+    from holoscene_tpu_torch.ops.occupancy import occupied_mask
+    from holoscene_tpu_torch.training import exp_runner
+
+    model = S1_MODEL_TPU.replace("use_occupancy = false",
+                                 "use_occupancy = true")
+    conf = stage1_conf(work, "smoke_s1_occ", model, 80000)
+    ratios = []
+    plain_range = hs.ray_range
+
+    def recording(occ, ro, rd, near, far, beta, cfg):
+        nr, fr = plain_range(occ, ro, rd, near, far, beta, cfg)
+        ok = far > near
+        ratios.append(float(((fr - nr)[ok] / (far - near)[ok]).mean()))
+        return nr, fr
+
+    hs.ray_range = recording
+    reset_counts()
+    try:
+        runner = exp_runner.main(
+            ["--conf", str(conf), "--exps_folder", str(work / "exps_occ"),
+             "--max_niters", str(OCC_STEPS), "--log_every", "1", "--quiet",
+             "--device", "cuda"])
+    finally:
+        hs.ray_range = plain_range
+    launches = read_hash_counts()
+    cfg = runner.model_cfg
+    if not cfg.use_occupancy or runner.occ is None:
+        raise RuntimeError("occupancy run: the grid is not on")
+    log(f"== 18 (b) occupancy grid ({cfg.occupancy.resolution}^3, "
+        f"{cfg.occupancy.taps} taps, updated every "
+        f"{runner.occ_update_every}th step) on phase 10's scene and conf, "
+        f"{OCC_STEPS} steps through the CLI:")
+    ms = check_stage1_run("occupancy run", runner, OCC_STEPS, launches,
+                          cfg.render_bg_iter, 3, card)
+    n_upd = len(range(0, OCC_STEPS, runner.occ_update_every))
+    n_bg = len(range(0, OCC_STEPS, cfg.render_bg_iter))
+    per_bake = -(-(cfg.probe_grid_res + 1) ** 3 // BAKE_CHUNK)
+    bake_h2 = len(runner.probe_bakes) * per_bake
+    beta = runner.model.density["beta"].detach().abs() + cfg.beta_min
+    occupied = float(occupied_mask(runner.occ, beta, cfg.occupancy)
+                     .float().mean())
+    mean_ratio = sum(ratios) / max(len(ratios), 1)
+    log(f"   restricted steps {len(ratios)} (the other {n_upd} update the "
+        f"grid): mean (far' - near') / (far - near) {mean_ratio:.4f} "
+        f"(by step: first {ratios[0]:.4f}, last {ratios[-1]:.4f}); "
+        f"occupied cells at the end {100 * occupied:.1f}%; "
+        f"{ms:.2f} ms/step beside phase 10's {STEP_MS['10']:.2f}; H2 "
+        f"{launches['H2']} (bakes {bake_h2}, the rest in the {n_bg} patches' "
+        f"samplers: the step's sampler reads the probe grid); on {card}")
+    if len(ratios) != OCC_STEPS - n_upd or not mean_ratio < 1.0:
+        raise RuntimeError(f"occupancy run: {len(ratios)} restricted steps "
+                           f"for {OCC_STEPS - n_upd}, mean ratio "
+                           f"{mean_ratio}")
+    if not n_bg <= launches["H2"] - bake_h2 \
+            <= n_bg * cfg.sampler.max_total_iters:
+        raise RuntimeError(f"occupancy run: H2 launches {launches}")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def s1_rank_step(inp: dict, mesh=None) -> tuple:
+    """One SGD (lr 1) Stage-1 step of inp's model on its global batch and
+    draws, over `mesh` or in one process: (metrics, {name: gradient})."""
+    import torch
+
+    from holoscene_tpu_torch.losses.holoscene_loss import LossConfig
+    from holoscene_tpu_torch.models.holoscene import init_holoscene
+    from holoscene_tpu_torch.parallel.mesh import shard_optimizer, shard_params
+    from holoscene_tpu_torch.training import stage1 as s1
+
+    dev = inp["batch"]["uv"].device
+    model = init_holoscene(inp["cfg"], device=dev)
+    model.load_state_dict(inp["state"])
+    shards = shard_params(mesh, model) if mesh is not None else {}
+    opt = torch.optim.SGD(model.parameters(), lr=1.0)
+    if mesh is not None:
+        shard_optimizer(mesh, opt, model, shards)
+    m = s1.train_step(model, opt, None, LossConfig(), inp["batch"],
+                      inp["draws"], 0, mesh=mesh, shards=shards)
+    grads = {k: inp["state"][k] - v.detach()
+             for k, v in model.state_dict().items()}
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def s1_errors(m, grads, ref) -> dict:
+    """A step's deviations from the single-process step `ref`: the loss's
+    relative error and the worst gradient deviation as a share of its
+    tolerance (<= 1 passes), test_multichip.py's atol 5e-5 x max(max |g|,
+    1e-3) of each tensor (the 0-d beta 5e-4)."""
+    m_ref, g_ref = ref
+    worst, name, worst_scale = 0.0, "", 0.0
+    for k, g in g_ref.items():
+        scale = float(g.abs().max())
+        tol = (S1_GRAD_REL if g.dim() else S1_SCALAR_REL) * max(scale, 1e-3)
+        share = float((grads[k] - g).abs().max()) / tol
+        if share > worst:
+            worst, name, worst_scale = share, k, scale
+    loss_err = abs(m["loss"] - m_ref["loss"])
+    return {"loss": m["loss"], "loss_rel": loss_err / abs(m_ref["loss"]),
+            "loss_ok": loss_err <= S1_LOSS_ATOL + S1_LOSS_RTOL
+            * abs(m_ref["loss"]),
+            "grad_share": worst, "grad_worst": name,
+            "grad_worst_max": worst_scale}
+
+
+def swap_halves(s1: dict) -> dict:
+    """s1's batch and draws with the two halves of its rays swapped (the
+    background patch as it is): the same loss, its sums taken in another
+    order; the single-process step on it measures the float noise the
+    multi-rank steps are held to."""
+    import dataclasses
+
+    import torch
+
+    n = s1["batch"]["uv"].shape[0]
+    perm = torch.cat([torch.arange(n // 2, n), torch.arange(n // 2)]).to(
+        s1["batch"]["uv"].device)
+
+    def per_ray(u):
+        if u is None:
+            return None
+        k = u.shape[-1] // n
+        return u.reshape(*u.shape[:-1], n, k)[..., perm, :] \
+            .reshape(u.shape).contiguous()
+
+    d = s1["draws"]
+    r = d.render
+    sampler = dataclasses.replace(r.sampler, t_rand=r.sampler.t_rand[perm],
+                                  u=r.sampler.u[perm],
+                                  eik_idx=r.sampler.eik_idx[perm])
+    render = dataclasses.replace(
+        r, sampler=sampler, eik_uniform=r.eik_uniform[perm],
+        nei=torch.cat([r.nei[:n][perm], r.nei[n:][perm]]),
+        fused=[None if f is None else tuple(per_ray(u) for u in f)
+               for f in r.fused])
+    batch = {k: (v[perm] if v.dim() and v.shape[0] == n else v)
+             for k, v in s1["batch"].items()}
+    return {**s1, "batch": batch,
+            "draws": dataclasses.replace(d, jitter=d.jitter[perm],
+                                         render=render)}
+
+
+def s4_errors(params, ref) -> dict:
+    """Post-step parameters against the reference: the worst violation of
+    |a - b| <= atol + rtol |b| as a share of its bound."""
+    worst, name = 0.0, ""
+    for k, b in ref.items():
+        share = float(((params[k] - b).abs()
+                       / (S4_ATOL + S4_RTOL * b.abs())).max())
+        if share > worst:
+            worst, name = share, k
+    return {"share": worst, "worst": name}
+
+
+def rank_worker(rank: int, port: int, in_path: str, out_dir: str) -> None:
+    """Rank `rank` of a gloo group of RANKS processes on card 0: the dp
+    and the model-sharded Stage-1 steps, then the dp Stage-4 step on frame
+    `rank`, each held to the single-process references in the input."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        from holoscene_tpu_torch.parallel.mesh import make_mesh
+        from holoscene_tpu_torch.parallel.stage4_dp import make_stage4_dp_step
+
+        inp = torch.load(in_path, map_location="cuda:0", weights_only=False)
+        dp, mp = make_mesh(RANKS, 1), make_mesh(1, RANKS)
+        res = {}
+        for tag, mesh in (("dp", dp), ("model", mp)):
+            reset_counts()
+            t0 = time.perf_counter()
+            m, grads = s1_rank_step(inp["s1"], mesh)
+            torch.cuda.synchronize()
+            res[tag] = {**s1_errors(m, grads, inp["s1_ref"]),
+                        "s": time.perf_counter() - t0,
+                        "launches": read_hash_counts()}
+            del grads
+        s4 = inp["s4"]
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in s4["params"].items()}
+        opt = torch.optim.SGD(params.values(), lr=S4_LR)
+        step = make_stage4_dp_step(dp, opt, s4["static"], s4["cfg"],
+                                   s4["plan"], s4["loss_scale"], s4["width"],
+                                   s4["height"])
+        f = s4["frames"][rank]
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics, used, stale = step(params, f["pose"], f["intr"], f["image"],
+                                    f["acm"], f["mesh_depth"], f["bins"],
+                                    f["bg"])
+        torch.cuda.synchronize()
+        res["s4"] = {**s4_errors({k: v.detach() for k, v in params.items()},
+                                 s4["ref"]),
+                     "loss": float(metrics["loss"]),
+                     "used": tuple(used.shape), "stale": stale.tolist(),
+                     "s": time.perf_counter() - t0, "launches": read_counts()}
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multirank_phase(work: Path, dev, card: str, s4runner) -> dict:
+    """Phase 18 (c) and (d): multi-rank Stage 1 (dp 2 and model 2 over
+    gloo on the one card, one NCCL world-size-1 step) and Stage 4 (dp 2
+    over gloo on phase 4's scene), each against the single-process step.
+    Returns the launches by path."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from holoscene_tpu_torch.models.holoscene import init_holoscene
+    from holoscene_tpu_torch.parallel.mesh import make_mesh
+    from holoscene_tpu_torch.parallel.stage4_dp import frame_loss
+    from holoscene_tpu_torch.training.stage1 import StepDraws
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(flagship_cfg(3), use_bg_reg=True)
+    model = init_holoscene(cfg, 18, dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    with torch.no_grad():
+        # tables and the first layer random (the geometric init gives the
+        # tables no gradient on a first step)
+        for t in (model.implicit.grid, model.implicit.color_grid):
+            t.copy_((torch.rand(t.shape, generator=gen, device=dev) - 0.5)
+                    * 0.2)
+        v = model.implicit.mlp.lin0.v
+        v.copy_(torch.randn(v.shape, generator=gen, device=dev) * 0.3)
+    n = RANK_RAYS
+    s1 = {"cfg": cfg,
+          "state": {k: v.detach().clone()
+                    for k, v in model.state_dict().items()},
+          "batch": bench_batch(gen, dev, n),
+          "draws": StepDraws.make(cfg, n, gen, dev, with_bg=True)}
+    del model
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = s1_rank_step(s1)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_launches = read_hash_counts()
+    floor = s1_errors(*s1_rank_step(swap_halves(s1)), ref)
+
+    # (c) one NCCL world-size-1 step in this process
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        nccl = s1_errors(*s1_rank_step(s1, make_mesh(1, 1)), ref)
+    finally:
+        dist.destroy_process_group()
+    if not (nccl["loss_ok"] and nccl["grad_share"] <= 1.0):
+        raise RuntimeError(f"NCCL world-size-1 step vs single process: "
+                           f"{nccl}")
+
+    # (d) the Stage-4 reference: the mean of frames 0 and 1's gradients
+    r = s4runner
+    frames = []
+    bg_gen = torch.Generator(device=dev).manual_seed(19)
+    h, w = r.dataset.img_res
+    for fi in range(RANKS):
+        pose, intr = r._pose_intr(fi)
+        acm, depth = r._frame_mesh_raster(fi)
+        frames.append({
+            "pose": pose, "intr": intr, "acm": acm, "mesh_depth": depth,
+            "image": torch.tensor(r.dataset.rgb_images[fi].reshape(h, w, 3)
+                                  .transpose(2, 0, 1), device=dev)
+            .contiguous(),
+            "bins": r._get_bins(fi, pose, intr),
+            "bg": torch.rand(3, generator=bg_gen, device=dev)})
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in r.params.items()}
+    grads = []
+    for f in frames:
+        total, _, _ = frame_loss(params, r.static, r.cfg, r.flat_plan,
+                                 r.loss_scale, w, h, f["pose"], f["intr"],
+                                 f["image"], f["acm"], f["mesh_depth"],
+                                 f["bins"], f["bg"])
+        grads.append(torch.autograd.grad(total, list(params.values())))
+    s4 = {"params": {k: v.detach() for k, v in params.items()},
+          "static": r.static, "cfg": r.cfg, "plan": r.flat_plan,
+          "loss_scale": r.loss_scale, "width": w, "height": h,
+          "frames": frames,
+          "ref": {k: p.detach() - S4_LR * (g0 + g1) / 2
+                  for (k, p), g0, g1 in zip(params.items(), *grads)}}
+    del grads, params
+    in_path = work / "ranks_in.pt"
+    torch.save({"s1": s1, "s1_ref": ref, "s4": s4}, in_path)
+    ref_loss = ref[0]["loss"]
+    del s1, s4, ref
+    torch.cuda.empty_cache()
+
+    # the two gloo ranks on this card
+    t0 = time.perf_counter()
+    tmp.start_processes(rank_worker, args=(_free_port(), str(in_path),
+                                           str(work)),
+                        nprocs=RANKS, join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{i}.pt", weights_only=False)
+             for i in range(RANKS)]
+    for i, res in enumerate(ranks):
+        for tag in ("dp", "model"):
+            e = res[tag]
+            if not (e["loss_ok"] and e["grad_share"] <= 1.0):
+                raise RuntimeError(f"rank {i} Stage-1 {tag}-{RANKS} step vs "
+                                   f"single process: {e}")
+        if not (ranks[i]["s4"]["share"] <= 1.0
+                and ranks[i]["s4"]["used"][0] == RANKS):
+            raise RuntimeError(f"rank {i} Stage-4 dp step: {res['s4']}")
+    s1_launch = {k: sum(res[t]["launches"][k] for res in ranks
+                        for t in ("dp", "model")) for k in ref_launches}
+    s4_launch = {k: sum(res["s4"]["launches"][k] for res in ranks)
+                 for k in ranks[0]["s4"]["launches"]}
+    if min(res[t]["launches"][k] for res in ranks for t in ("dp", "model")
+           for k in ("H1-fwd", "H1-bwd", "H2")) < 1 \
+            or min(res["s4"]["launches"][k] for res in ranks
+                   for k in ("K1", "K2")) < 1:
+        raise RuntimeError(f"multi-rank steps: launches {s1_launch} "
+                           f"{s4_launch}")
+    fmt = "; ".join(
+        f"rank {i}: " + ", ".join(
+            f"{t} loss rel {res[t]['loss_rel']:.2g}, gradients "
+            f"{res[t]['grad_share']:.3f} of tolerance (worst "
+            f"{res[t]['grad_worst']}, max |g| "
+            f"{res[t]['grad_worst_max']:.3g}), {res[t]['s']:.2f} s"
+            for t in ("dp", "model"))
+        + f", Stage-4 {res['s4']['share']:.3f} of tolerance (worst "
+        f"{res['s4']['worst']}), {res['s4']['s']:.2f} s"
+        for i, res in enumerate(ranks))
+    log(f"== 18 (c, d) multi-rank: the flagship model (d_out 3), {n} rays + "
+        f"the {32 * 32}-pixel patch; single-process step {ref_s:.2f} s, "
+        f"loss {ref_loss:.6f}, launches {ref_launches}; the same step on "
+        f"the batch with its halves swapped: loss rel "
+        f"{floor['loss_rel']:.2g}, gradients {floor['grad_share']:.3f} of "
+        f"tolerance (worst {floor['grad_worst']}, max |g| "
+        f"{floor['grad_worst_max']:.3g}); NCCL "
+        f"world-size-1 step loss rel {nccl['loss_rel']:.2g}, gradients "
+        f"{nccl['grad_share']:.3f} of tolerance; two gloo ranks on the card "
+        f"({spawn_s:.1f} s, process start included): {fmt}; Stage 4 on "
+        f"phase 4's scene ({r.static['num_gaussians']} gaussians, "
+        f"{w}x{h}, flat); launches Stage 1 {s1_launch}, Stage 4 "
+        f"{s4_launch}; phase (c, d) {time.perf_counter() - t_phase:.1f} s; "
+        f"on {card}")
+    return {"stage1_ranks": s1_launch, "stage4_dp": s4_launch}
+
+
+def torchrun_phase(work: Path, card: str) -> None:
+    """Phase 18 (e): the Stage-1 CLI on phase 10's conf under torchrun,
+    two ranks on the one card over gloo: every step's loss finite, step
+    0's the single-process run's (phase 10; the same seed, batch and
+    draws), one run directory, rank 0's, with its metrics and checkpoint."""
+    exps = work / "exps_torchrun"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(RANKS), "--master_addr", "127.0.0.1", "--master_port",
+           str(_free_port()), "-m", "holoscene_tpu_torch.training.exp_runner",
+           "--conf", str(work / "smoke_s1.conf"), "--exps_folder", str(exps),
+           "--max_niters", str(CLI_RANK_STEPS), "--log_every", "1", "--quiet",
+           "--device", RANK_DEVICE, "--dist_backend", "gloo"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise RuntimeError(f"torchrun exp_runner exit {done.returncode}:\n"
+                           f"{done.stdout[-4000:]}\n{done.stderr[-4000:]}")
+    rundirs = list(exps.glob("*/*"))
+    if len(rundirs) != 1:
+        raise RuntimeError(f"torchrun exp_runner: run directories {rundirs}")
+    rec = [json.loads(line) for line in
+           (rundirs[0] / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rec]
+    ckpt = rundirs[0] / "checkpoints" / "ModelParameters" / "latest.pth"
+    # steps 0 and 1 are the same computation as phase 10's; from step 2
+    # on the learning rate decays over --max_niters (5 here, 100 there)
+    dev = [abs(a - b) / abs(b) for a, b in zip(losses[:2], PHASE10_LOSSES)]
+    log(f"== 18 (e) exp_runner under torchrun, {RANKS} ranks over gloo on "
+        f"the card, phase 10's conf, {CLI_RANK_STEPS} steps in {wall:.1f} s "
+        f"(process start included): losses "
+        + ", ".join(f"{v:.5f}" for v in losses)
+        + "; steps 0 / 1 relative to phase 10's " + " / ".join(
+            f"{d:.2g}" for d in dev)
+        + f" (step 0 held to rtol {S1_LOSS_RTOL}; later steps not compared: "
+        f"the schedule decays over 5 steps here, 100 in phase 10); "
+        f"checkpoint {ckpt.exists()}; on {card}")
+    if len(losses) != CLI_RANK_STEPS or not all(finite(v) for v in losses) \
+            or not ckpt.exists():
+        raise RuntimeError(f"torchrun exp_runner: losses {losses}, "
+                           f"checkpoint {ckpt.exists()}")
+    if abs(losses[0] - PHASE10_LOSSES[0]) > S1_LOSS_ATOL + S1_LOSS_RTOL \
+            * abs(PHASE10_LOSSES[0]):
+        raise RuntimeError(f"torchrun exp_runner step 0 loss {losses[0]} "
+                           f"vs the single-process {PHASE10_LOSSES[0]}")
 
 
 def main() -> int:
@@ -3328,7 +3884,15 @@ def main() -> int:
             work, dev, card, chain)
         t1_row = free_gaussian_phase(work, dev, card,
                                      plots / "gauss_scene.ply", paths, other)
+        # 18 the last modules: small ones, the occupancy grid, multi-rank
+        small_modules_phase(dev, card)
+        occ_launches = occupancy_phase(work, card)
+        ranks = multirank_phase(work, dev, card, runner)
+        torchrun_phase(work, card)
+        paths["stage4_dp"] = ranks["stage4_dp"]
         for k, row in hash_rows.items():
+            row["launches_by_path"]["stage1_occupancy"] = occ_launches[k]
+            row["launches_by_path"]["stage1_ranks"] = ranks["stage1_ranks"][k]
             row["launches_by_path"]["quality_gate"] = gate[k]
             row["launches_by_path"]["mv_predict"] = mv[k].pop("launches")
             row["launches_by_path"]["stage2"] = stage2[k].pop("launches")

@@ -13,7 +13,8 @@ Layer map (the Stage-1 neural-SDF slice, the Stage-4 Gaussian-on-Mesh
 slice and the free-Gaussian / ray-tracing stack):
   ops/        Stage 1: rays, positional encoding, Laplace density, volume
               rendering, the hash grid with the H1 / H2 kernels (hashgrid),
-              the error-bound sampler and the baked probe grid.
+              the error-bound sampler, the baked probe grid and the
+              occupancy grid; the physics dense grid (phygrid).
               Stage 4: projection + SH (gaussians), SSIM, flat tile binning
               and the K1/K2 tile-walk kernels (splat_flat), the K3/K4 top-K
               walks (splat_topk), the renderer entry with per-tile
@@ -23,7 +24,8 @@ slice and the free-Gaussian / ray-tracing stack):
               T1 hit-selection kernel (gs_trace)
   csrc/       hand-written CUDA for sm_90a (built by kernels.py on first use)
   models/     the SDF and rendering networks (fields), the Stage-1 renderer
-              (holoscene); Gaussian-on-Mesh seeding, reparameterisations,
+              (holoscene), camera-pose refinement (cam_opt);
+              Gaussian-on-Mesh seeding, reparameterisations,
               render, loss (gom) and its fixed-capacity densification
               (gom_adaptive); free gaussians with splatfacto / MCMC and
               SelectiveAdam (gaussians_free)
@@ -39,7 +41,10 @@ slice and the free-Gaussian / ray-tracing stack):
               checkpoints (the port's .pth and the JAX package's msgpack)
   datasets/   the synthetic scene with analytic meshes and packs, loaders
   utils/      mesh I/O, marching tetrahedra, the chart UV atlas, PSNR/SSIM
-              (host, numpy), the JSONL metrics log
+              (host, numpy), LPIPS (lpips), the JSONL metrics log
+  parallel/   the (data, model) grid of ranks over torch.distributed and
+              the Stage-1 sharding policy (mesh), the data-parallel
+              Stage-4 step (stage4_dp)
   export/     gaussian USDZ / INGP / PLY, GLB, USD with PhysX schemas, the
               export CLI and its read-back (load_scene)
   viewer.py   the orbit viewer (HTTP server; gaussians or meshes)

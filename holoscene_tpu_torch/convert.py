@@ -1,9 +1,11 @@
 """Converters between the JAX package's state (Gaussian-on-Mesh params and
 static dict, Stage-1 and colour-field params, the free-Gaussian trainer's
-params / state / SelectiveAdam moments) and the port's tensors, and the
-reader of the JAX package's flax msgpack files. Inputs are numpy arrays
-(np.asarray of the JAX leaves), so this module never imports jax; the tests
-use it to start both sides from identical state."""
+params / state / SelectiveAdam moments, the camera optimizer's pose
+deltas, the LPIPS weights, the occupancy grid and the physics dense grid)
+and the port's tensors, and the reader of the JAX package's flax msgpack
+files. Inputs are numpy arrays (np.asarray of the JAX leaves), so this
+module never imports jax; the tests use it to start both sides from
+identical state."""
 
 from __future__ import annotations
 
@@ -82,6 +84,36 @@ def color_field_params_from_jax(tree: dict,
 def color_field_params_to_jax(state: dict) -> dict:
     """ColorField's state dict -> JAX's nested numpy tree."""
     return stage1_params_to_jax(state)
+
+
+def cam_opt_from_jax(params: dict, device: str | torch.device = "cpu"
+                     ) -> dict:
+    """JAX init_camera_optimizer params ({"pose_deltas": [N, 6]}) ->
+    CameraOptimizer's state dict."""
+    return {"pose_deltas": as_tensor(np.asarray(params["pose_deltas"]),
+                                     torch.device(device))}
+
+
+def lpips_params_from_jax(params: dict, device: str | torch.device = "cpu"
+                          ) -> dict:
+    """The LPIPS weight dict (utils/lpips_jax.py's names) -> float32
+    tensors for utils/lpips.py::lpips_pair."""
+    dev = torch.device(device)
+    return {k: as_tensor(np.asarray(v), dev) for k, v in params.items()}
+
+
+def occ_grid_from_jax(occ, device: str | torch.device = "cpu"
+                      ) -> torch.Tensor:
+    """The occupancy grid ([res^3] float32) as a tensor."""
+    return as_tensor(np.asarray(occ), torch.device(device))
+
+
+def dense_grid_from_jax(grid: dict, device: str | torch.device = "cpu"
+                        ) -> dict:
+    """A JAX phygrid dict {"values", "bound"} -> the port's."""
+    return {"values": as_tensor(np.asarray(grid["values"]),
+                                torch.device(device)),
+            "bound": float(grid["bound"])}
 
 
 def read_flax_msgpack(data: bytes):

@@ -12,9 +12,11 @@ one single-table H1 call. The vjp gradient mode (the JAX default) renders
 untiered through `implicit_get_outputs` (H1, exact backward). Every random
 number is an argument (`RenderDraws`). Stage 2 renders objects in isolation
 with render_rays_only_multi_obj (H2 sampler over the subset's SDF, H1
-exact); render_rays_multi_obj renders a subset inside the scene. Not
-ported (ROADMAP.md A.17): the occupancy grid and the jvp gradient
-mode."""
+exact); render_rays_multi_obj renders a subset inside the scene. With
+the occupancy grid (use_occupancy) each ray's sampling interval is
+restricted to its occupied span on the steps that do not update the grid,
+and the update steps fold the sampler's probe buffer back into it. Not
+ported (ROADMAP.md A.17): the jvp gradient mode and the raw fetch."""
 
 from __future__ import annotations
 
@@ -35,10 +37,16 @@ from holoscene_tpu_torch.models.fields import (
 )
 from holoscene_tpu_torch.ops.density import laplace_beta, laplace_density
 from holoscene_tpu_torch.ops.hashgrid import level_tables
+from holoscene_tpu_torch.ops.occupancy import (
+    OccGridConfig,
+    ray_range,
+    update_occ_grid,
+)
 from holoscene_tpu_torch.ops.probe_grid import bake_probe_grid, probe_sdf_fn
 from holoscene_tpu_torch.ops.sampler import (
     SamplerConfig,
     SamplerDraws,
+    _near_far,
     error_bound_sample,
     estimate_weights_from_buffer,
 )
@@ -74,15 +82,13 @@ class HoloSceneConfig:
     use_occupancy: bool = False
     probe_grid_res: int = 0
     probe_update_every: int = 16
+    occupancy: OccGridConfig = dataclasses.field(default_factory=OccGridConfig)
 
     def __post_init__(self):
         if self.forward_grad_mode not in GRAD_MODES:
             raise NotImplementedError(
                 f"forward_grad_mode={self.forward_grad_mode!r}: the port "
                 f"runs {GRAD_MODES}; jvp is {_NOT_PORTED} (A.17)")
-        if self.use_occupancy:
-            raise NotImplementedError(f"use_occupancy=True: the occupancy "
-                                      f"grid is {_NOT_PORTED}")
         if self.implicit.fused_fetch != "packed":
             raise NotImplementedError(
                 f"fused_fetch={self.implicit.fused_fetch!r}: the port runs "
@@ -135,6 +141,9 @@ class HoloSceneConfig:
             use_occupancy=conf.get_bool("use_occupancy", False),
             probe_grid_res=conf.get_int("probe_grid_res", 0),
             probe_update_every=conf.get_int("probe_update_every", 16),
+            occupancy=OccGridConfig(
+                resolution=conf.get_int("occupancy_resolution", 64),
+                bound=sbs, taps=conf.get_int("occupancy_taps", 64)),
         )
 
 
@@ -213,6 +222,25 @@ class RenderDraws:
                               if mode == "sampled_all" else None))
         return cls(sampler, eik, nei, fused)
 
+    def rows(self, sl: slice, n_rays: int) -> "RenderDraws":
+        """The draws of rays sl of an n_rays batch: each per-ray draw's
+        rows; nei's two halves (the uniform and the near eikonal points);
+        the fused backward's uniforms of those rays' points (each call
+        holds a fixed number of points a ray, ray-major)."""
+
+        def cut(u):
+            if u is None:
+                return None
+            k = u.shape[-1] // n_rays
+            return u[..., sl.start * k:sl.stop * k].contiguous()
+
+        nei = torch.cat([self.nei[sl],
+                         self.nei[n_rays + sl.start:n_rays + sl.stop]])
+        fused = [None if f is None else (cut(f[0]), cut(f[1]))
+                 for f in self.fused]
+        return RenderDraws(self.sampler.rows(sl), self.eik_uniform[sl], nei,
+                           fused)
+
 
 def scene_sdf_nograd(model: HoloSceneModel, cfg: HoloSceneConfig,
                      obj_idxs=None):
@@ -250,13 +278,26 @@ def _normalize(v):
 
 def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
                 draws: RenderDraws | None = None, training: bool = True,
-                compute_eikonal: bool = True, probe=None) -> dict:
+                compute_eikonal: bool = True, probe=None, occ=None,
+                update_occ: bool = False, occ_reduce=None) -> dict:
     """Render R rays (rays_o / rays_d [R, 3], depth_scale [R, 1], w2c_rot
     [3, 3]). training=True needs `draws`. probe: a baked probe-grid table
-    for the sampler's placement (render and gradients stay exact)."""
+    for the sampler's placement (render and gradients stay exact).
+
+    occ: the occupancy grid (ops/occupancy.py). Without update_occ each
+    ray's sampling interval is restricted to its occupied span; with it
+    the ray samples its full interval (restricted-only training starves
+    the excluded regions of supervision) and the sampler's probe buffer
+    refreshes the grid, combined over ranks by occ_reduce (an all-reduce
+    MIN) when given. out["occ"] is the grid after the step."""
     cfg = model.cfg
     R = rays_o.shape[0]
     beta_sg = get_beta(model).detach()
+    near = far = None
+    if occ is not None and not update_occ:
+        near0, far0 = _near_far(rays_o, rays_d, cfg.sampler, None, None)
+        near, far = ray_range(occ, rays_o, rays_d, near0, far0, beta_sg,
+                              cfg.occupancy)
     if probe is not None:
         sampler_sdf = probe_sdf_fn(probe.detach(), cfg.probe_grid_res,
                                    cfg.sampler.scene_bounding_sphere)
@@ -266,11 +307,11 @@ def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
 
     prune_m = cfg.render_top_m if training else 0
     tier_ord = None
-    if prune_m > 0:
+    if prune_m > 0 or (occ is not None and update_occ):
         z_vals, z_eik, (z_buf, sdf_buf, beta_buf) = error_bound_sample(
             rays_o, rays_d, sampler_sdf, beta_sg, cfg.sampler, sdraws,
-            training=training, return_aux=True)
-        if prune_m < z_vals.shape[-1]:
+            training=training, return_aux=True, near=near, far=far)
+        if 0 < prune_m < z_vals.shape[-1]:
             est_w = estimate_weights_from_buffer(z_vals, z_buf, sdf_buf,
                                                  beta_buf)
             score = est_w.clone()
@@ -287,7 +328,7 @@ def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
     else:
         z_vals, z_eik = error_bound_sample(
             rays_o, rays_d, sampler_sdf, beta_sg, cfg.sampler, sdraws,
-            training=training)
+            training=training, near=near, far=far)
     S = z_vals.shape[-1]
 
     points = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
@@ -355,6 +396,12 @@ def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
         "sdf": sdf.reshape(R, S),
         "weights": weights,
     }
+    if occ is not None:
+        out["occ"] = occ
+        if update_occ:
+            probe_pts = rays_o[:, None, :] + z_buf[..., None] * rays_d[:, None, :]
+            out["occ"] = update_occ_grid(occ, probe_pts, sdf_buf,
+                                         cfg.occupancy, occ_reduce)
     if training and compute_eikonal:
         eik_pts = torch.cat([draws.eik_uniform, rays_o + z_eik * rays_d])
         nei_pts = eik_pts + (draws.nei - 0.5) * 0.01

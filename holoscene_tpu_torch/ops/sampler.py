@@ -79,6 +79,11 @@ class SamplerDraws:
             torch.randperm(cfg.buffer_width, **kw)[:cfg.N_samples_extra],
             torch.randint(0, cfg.n_final, (n_rays, 1), **kw))
 
+    def rows(self, sl: slice) -> "SamplerDraws":
+        """The draws of rays sl (perm is shared by every ray)."""
+        return SamplerDraws(self.t_rand[sl], self.u[sl], self.perm,
+                            self.eik_idx[sl])
+
 
 def linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
     """n float32 points from start to stop as jnp.linspace rounds them

@@ -40,11 +40,16 @@ def latest_timestamp(expdir: str) -> str | None:
 
 def save_checkpoint(checkpoints_path: str, epoch: int, model, optimizer=None,
                     scheduler=None, extra: dict | None = None,
-                    generator_state: torch.Tensor | None = None) -> None:
+                    generator_state: torch.Tensor | None = None,
+                    optimizer_state: dict | None = None) -> None:
+    """optimizer_state, when given, is written in place of
+    optimizer.state_dict() (a sharded run's reassembled state)."""
     for sub in (MODEL_DIR, OPT_DIR, SCHED_DIR):
         os.makedirs(os.path.join(checkpoints_path, sub), exist_ok=True)
     blobs = {MODEL_DIR: model.state_dict()}
-    if optimizer is not None:
+    if optimizer_state is not None:
+        blobs[OPT_DIR] = optimizer_state
+    elif optimizer is not None:
         blobs[OPT_DIR] = optimizer.state_dict()
     sched = {"scheduler": scheduler.state_dict() if scheduler else None,
              "generator": generator_state}

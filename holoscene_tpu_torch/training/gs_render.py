@@ -218,7 +218,8 @@ def main(argv=None):
         Image.fromarray(
             np.clip(img * 255, 0, 255).astype(np.uint8)
         ).save(os.path.join(args.out, f"render_{i:04d}.png"))
-        m = eval_rgb(img, np.asarray(gts[i]).reshape(h, w, 3))
+        m = eval_rgb(img, np.asarray(gts[i]).reshape(h, w, 3),
+                     device=args.device)
         metrics.append(m)
         print(f"[{i}] psnr={m['psnr']:.2f} ssim={m['ssim']:.3f}")
     summary = {k: float(np.mean([m[k] for m in metrics]))

@@ -339,7 +339,7 @@ class GSTrainer:
             out = render_free_gaussians(self.params, self.state, self.cfg,
                                         pose, intr, w, h, background=zero)
             metrics.append(eval_rgb(out["rgb"].cpu().numpy(),
-                                    gt.reshape(h, w, 3)))
+                                    gt.reshape(h, w, 3), self.device))
         return {k: float(np.mean([m[k] for m in metrics]))
                 for k in metrics[0]}
 

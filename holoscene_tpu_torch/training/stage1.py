@@ -22,8 +22,21 @@ A resume (`is_continue`, `ft_folder`) loads a run's checkpoint whichever
 package wrote it: the port's .pth or the JAX package's .msgpack (its
 params, Adam moments and step; training/checkpoints.py).
 
-Not ported yet (ROADMAP.md queue A): the multi-device mesh, the occupancy
-grid."""
+With model.use_occupancy the runner keeps the occupancy grid
+(ops/occupancy.py): every train.occ_update_every-th step samples the full
+interval and refreshes the grid from the sampler's probes, the others
+sample each ray's occupied span. The grid is not checkpointed.
+
+Several ranks (torch.distributed initialised with a world size above 1,
+e.g. under torchrun): every rank draws the same global batch and the same
+StepDraws from the shared seed and renders its rows of them (the data
+axis, parallel/mesh.py); the loss is computed on every rank from the
+gathered rows, so a step's loss and gradients are those of the
+single-process step on the global batch (the batch-wide depth
+scale-and-shift solve and masked means included). With n_model > 1 the
+hash tables (and the MLP rows JAX's rules shard) are stored and updated
+as row shards, reassembled after every update. Only rank 0 writes
+checkpoints, plots, meshes and logs."""
 
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from holoscene_tpu_torch import as_tensor, resolve_device
 from holoscene_tpu_torch.config import Config
@@ -52,8 +66,21 @@ from holoscene_tpu_torch.models.holoscene import (
     render_bg_patch,
     render_rays,
 )
+from holoscene_tpu_torch.ops.occupancy import init_occ_grid
 from holoscene_tpu_torch.ops.rays import get_camera_rays
 from holoscene_tpu_torch.ops.sampler import SamplerDraws
+from holoscene_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_min,
+    batch_sharding,
+    full_optimizer_state,
+    gather_params,
+    gather_rows,
+    make_mesh,
+    reduce_grads,
+    shard_optimizer,
+    shard_params,
+)
 from holoscene_tpu_torch.training import checkpoints as ckpt_lib
 from holoscene_tpu_torch.training.pruning import instance_meshes_post_pruning
 from holoscene_tpu_torch.utils.logging import MetricsLogger
@@ -111,6 +138,13 @@ class StepDraws:
                    SamplerDraws.make(cfg.sampler, BG_PATCH * BG_PATCH, gen,
                                      device))
 
+    def rows(self, sl: slice, n_rays: int, patch: slice) -> "StepDraws":
+        """The draws of rays sl of the n_rays batch and of the patch's
+        pixels `patch` (bg_uv is shared)."""
+        return StepDraws(
+            self.jitter[sl], self.render.rows(sl, n_rays), self.bg_uv,
+            None if self.bg_sampler is None else self.bg_sampler.rows(patch))
+
 
 def bg_patch_uv(intrinsics: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The BG_PATCH x BG_PATCH pixel grid [BG_PATCH^2, 2] (x fastest) at
@@ -123,45 +157,101 @@ def bg_patch_uv(intrinsics: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return grid + (u * span).to(torch.float32)[None, :]
 
 
+# the render outputs the loss reads: one row a ray, one an eikonal point
+# (the uniform half, then the near half), one a background-patch pixel
+_RAY_KEYS = ("rgb_values", "semantic_values", "object_opacity",
+             "depth_values", "normal_map", "sdf")
+_EIK_KEYS = ("grad_theta", "grad_theta_nei", "sample_sdf", "sample_minsdf")
+_PATCH_KEYS = ("bg_depth_values", "bg_normal_map", "bg_mask")
+
+
+def _gather_outputs(out: dict, mesh: Mesh, rows: slice, n: int,
+                    patch: slice) -> dict:
+    """Every rank's rows of the outputs the loss reads, in the global
+    batch's order (the eikonal points as the single-process render lays
+    them out: all uniform points, then all near points)."""
+    g = mesh.data_group
+    full = {k: gather_rows(out[k], rows, n, g) for k in _RAY_KEYS if k in out}
+    for k in _EIK_KEYS:
+        if k in out:
+            m = out[k].shape[0] // 2
+            full[k] = torch.cat([gather_rows(out[k][:m], rows, n, g),
+                                 gather_rows(out[k][m:], rows, n, g)])
+    for k in _PATCH_KEYS:
+        if k in out:
+            full[k] = gather_rows(out[k], patch, BG_PATCH * BG_PATCH, g)
+    return full
+
+
 def train_step(model: HoloSceneModel, optimizer, scheduler, lcfg: LossConfig,
                batch: dict, draws: StepDraws, step_idx: int,
-               call_reg: bool = False, probe=None) -> dict:
+               call_reg: bool = False, probe=None, occ=None,
+               update_occ: bool = False, mesh: Mesh | None = None,
+               shards: dict | None = None):
     """One optimizer step; returns the metrics as 0-d tensors (no host
-    sync). Draws made with with_bg (draws.bg_uv set) also render the
-    background patch for the bg regulariser. A non-finite loss zeroes every
-    gradient and still steps the optimizer (as the JAX step does), so
-    every parameter gets a gradient, zeros if unused, and Adam treats each
-    as optax does."""
+    sync), and with an occupancy grid `occ` (metrics, the grid after the
+    step): restricted sampling, or with update_occ the full interval and
+    the grid refreshed from the sampler's probes. Draws made with with_bg
+    (draws.bg_uv set) also render the background patch for the bg
+    regulariser. A non-finite loss zeroes every gradient and still steps
+    the optimizer (as the JAX step does), so every parameter gets a
+    gradient, zeros if unused, and Adam treats each as optax does.
+
+    mesh: this rank renders its rows of the global batch and of the
+    background patch; the loss is computed from every rank's rows on each
+    rank, the gradients are summed over the data ranks, and the occupancy
+    update takes the minima of every rank's probes. `shards` (from
+    parallel/mesh.py::shard_params) are the parameters the optimizer holds
+    as row shards; their full values are reassembled after the update."""
     optimizer.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
+    n = batch["uv"].shape[0]
+    rows = patch = slice(None)
+    if mesh is not None:
+        rows = batch_sharding(mesh, n)
+        patch = batch_sharding(mesh, BG_PATCH * BG_PATCH)
+        draws = draws.rows(rows, n, patch)
     rays_o, rays_d, dscale, w2c = rays_from_batch(
-        batch["uv"], batch["pose"], batch["intrinsics"], draws.jitter)
+        batch["uv"][rows], batch["pose"], batch["intrinsics"], draws.jitter)
     out = render_rays(model, rays_o, rays_d, dscale, w2c, draws.render,
-                      training=True, probe=probe)
+                      training=True, probe=probe, occ=occ,
+                      update_occ=update_occ,
+                      occ_reduce=None if mesh is None else all_reduce_min(mesh))
+    occ_new = out.pop("occ", None)
     if draws.bg_uv is not None:
-        po, pd, pscale, pw2c = rays_from_batch(
-            bg_patch_uv(batch["intrinsics"], draws.bg_uv), batch["pose"],
-            batch["intrinsics"])
+        uv = bg_patch_uv(batch["intrinsics"], draws.bg_uv)[patch]
+        po, pd, pscale, pw2c = rays_from_batch(uv, batch["pose"],
+                                               batch["intrinsics"])
         out.update(render_bg_patch(model, po, pd, pscale, pw2c,
                                    draws.bg_sampler, training=True))
+    if mesh is not None:
+        out = _gather_outputs(out, mesh, rows, n, patch)
     gt = {k: batch[k] for k in ("rgb", "depth", "normal", "segs", "mask")}
     losses = holoscene_loss(out, gt, lcfg, step=step_idx, call_reg=call_reg)
     losses["loss"].backward()
+    if mesh is not None:
+        reduce_grads(mesh, model, shards or {})
     finite = torch.isfinite(losses["loss"].detach())
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        else:
-            p.grad = torch.where(finite, p.grad, torch.zeros_like(p.grad))
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad = torch.where(finite, p.grad, torch.zeros_like(p.grad))
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
+    if mesh is not None:
+        gather_params(mesh, model, shards or {})
     with torch.no_grad():
         psnr = -10.0 * torch.log10(
             ((out["rgb_values"] - gt["rgb"].reshape(-1, 3)) ** 2).mean())
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics.update(psnr=psnr, nonfinite=1.0 - finite.float(),
                        beta=model.density["beta"].abs() + model.cfg.beta_min)
-    return metrics
+    if occ is None:
+        return metrics
+    return metrics, occ_new
 
 
 def make_eval_render(cfg: HoloSceneConfig):
@@ -199,9 +289,19 @@ def batch_to_device(sample: dict, gt: dict, device) -> dict:
     return batch
 
 
+OCC_WARNING = ("WARNING: model.use_occupancy is an experimental "
+               "sampling-policy knob; its duty-cycle mitigation is "
+               "validated at <=256^2 gate scale only (see PERF.md "
+               "occupancy flagship-collapse post-mortem)")
+
+
 class Stage1Runner:
     """Conf-driven Stage-1 training on `device` (default cuda; there is no
-    CPU fallback: device='cpu' runs the kernels' plain versions)."""
+    CPU fallback: device='cpu' runs the kernels' plain versions).
+
+    use_mesh: with torch.distributed initialised at a world size above 1,
+    train over a (world / n_model, n_model) mesh of ranks (module
+    docstring); each rank runs on its own `device`."""
 
     def __init__(self, conf: Config, exps_folder: str = "exps",
                  data_root_override: str | None = None,
@@ -209,8 +309,13 @@ class Stage1Runner:
                  checkpoint: str = "latest",
                  max_total_iters: int | None = None, seed: int = 0,
                  quiet: bool = False, expname_suffix: str = "",
-                 ft_folder: str | None = None, device: str = "cuda"):
+                 ft_folder: str | None = None, device: str = "cuda",
+                 use_mesh: bool = True, n_model: int = 1):
         self.device = resolve_device(device)
+        distributed = (use_mesh and dist.is_available()
+                       and dist.is_initialized()
+                       and dist.get_world_size() > 1)
+        self.is_main = not distributed or dist.get_rank() == 0
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -253,8 +358,9 @@ class Stage1Runner:
         self.rundir = os.path.join(self.expdir, timestamp)
         self.checkpoints_path = os.path.join(self.rundir, "checkpoints")
         self.plots_dir = os.path.join(self.rundir, "plots")
-        os.makedirs(self.checkpoints_path, exist_ok=True)
-        os.makedirs(self.plots_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.checkpoints_path, exist_ok=True)
+            os.makedirs(self.plots_dir, exist_ok=True)
 
         self.model = init_holoscene(self.model_cfg, seed, self.device)
         self.optimizer, self.scheduler = make_optimizer(
@@ -277,7 +383,27 @@ class Stage1Runner:
                 if not quiet:
                     print(f"[stage1] no checkpoint under {load_dir}; "
                           "starting fresh", flush=True)
+        self.mesh: Mesh | None = None
+        self.shards: dict = {}
+        if distributed:
+            # rank 0's parameters on every rank (each drew the same init)
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    dist.broadcast(p, 0)
+            self.mesh = make_mesh(n_model=n_model)
+            self.shards = shard_params(self.mesh, self.model)
+            shard_optimizer(self.mesh, self.optimizer, self.model,
+                            self.shards)
         self.render_frame = make_eval_render(self.model_cfg)
+        # occupancy-grid sampling restriction: rebuilt from probe evidence
+        # within about one update cycle, so it is not checkpointed (a
+        # resume starts occupied everywhere)
+        self.occ = None
+        self.occ_update_every = conf.get_int("train.occ_update_every", 8)
+        if self.model_cfg.use_occupancy:
+            if self.is_main:
+                print(OCC_WARNING, flush=True)
+            self.occ = init_occ_grid(self.model_cfg.occupancy, self.device)
         # the probe grid is re-baked on its cadence and at a resume's first
         # step; it is not checkpointed
         self.probe = None
@@ -288,7 +414,22 @@ class Stage1Runner:
         self.run_seconds = 0.0
         self.extract_seconds: dict = {}
         self.extract_fine_res: list[int] = []
-        self.logger = MetricsLogger(self.rundir)
+        self.logger = MetricsLogger(self.rundir) if self.is_main else None
+
+    def save_checkpoint(self, it: int) -> None:
+        """Checkpoint after step `it`, written by rank 0; with sharded
+        tables the Adam moments are reassembled first (every rank takes
+        part), so the file is the single-process runner's."""
+        opt_state = (full_optimizer_state(self.mesh, self.optimizer,
+                                          self.model, self.shards)
+                     if self.mesh is not None else None)
+        if self.is_main:
+            ckpt_lib.save_checkpoint(
+                self.checkpoints_path, epoch=it, model=self.model,
+                optimizer=self.optimizer, scheduler=self.scheduler,
+                extra={"step": it + 1},
+                generator_state=self.generator.get_state(),
+                optimizer_state=opt_state)
 
     def switch_to_exact_bwd(self):
         """Exact table gradients from here on (the sampled one-corner
@@ -420,7 +561,11 @@ class Stage1Runner:
             metrics = train_step(
                 self.model, self.optimizer, self.scheduler, self.loss_cfg,
                 batch, draws, it, call_reg=it >= self.add_objectvio_iter,
-                probe=self.probe)
+                probe=self.probe, occ=self.occ,
+                update_occ=it % self.occ_update_every == 0, mesh=self.mesh,
+                shards=self.shards)
+            if self.occ is not None:
+                metrics, self.occ = metrics
             rays_done += self.num_pixels
             if it % log_every == 0 or it == end - 1:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -428,20 +573,17 @@ class Stage1Runner:
                 m["rays_per_sec"] = rays_done / max(m["elapsed_s"], 1e-9)
                 m["iter"] = it
                 self.history.append(m)
-                self.logger.log(m, step=it)
-                if not self.quiet:
+                if self.is_main:
+                    self.logger.log(m, step=it)
+                if self.is_main and not self.quiet:
                     print(f"[{self.expname}] it {it} loss={m['loss']:.4f} "
                           f"rgb={m['rgb_loss']:.4f} psnr={m['psnr']:.2f} "
                           f"beta={m['beta']:.4f} "
                           f"rays/s={m['rays_per_sec']:.0f}", flush=True)
-            if plot_freq and (it + 1) % plot_freq == 0:
+            if plot_freq and (it + 1) % plot_freq == 0 and self.is_main:
                 self.plot(it, extract_meshes=extract_meshes_on_plot)
             if (it + 1) % self.checkpoint_freq == 0 or it == end - 1:
-                ckpt_lib.save_checkpoint(
-                    self.checkpoints_path, epoch=it, model=self.model,
-                    optimizer=self.optimizer, scheduler=self.scheduler,
-                    extra={"step": it + 1},
-                    generator_state=self.generator.get_state())
+                self.save_checkpoint(it)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.run_seconds = time.time() - t0

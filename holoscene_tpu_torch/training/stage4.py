@@ -483,7 +483,7 @@ class Stage4Runner:
         for i in range(min(len(poses), max_frames)):
             out = self.render_eval(*self._pose_intr(i, poses), h, w)
             metrics.append(eval_rgb(out["rgb"].cpu().numpy(),
-                                    gts[i].reshape(h, w, 3)))
+                                    gts[i].reshape(h, w, 3), self.device))
         return {k: float(np.mean([m[k] for m in metrics]))
                 for k in metrics[0]}
 

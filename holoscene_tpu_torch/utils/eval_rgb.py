@@ -3,12 +3,15 @@ holoscene_tpu/utils/eval_rgb.py).
 
 PSNR/SSIM are implemented directly on [0,1] HWC images (numpy, skimage-
 compatible: the uniform 7x7 window matches skimage.structural_similarity
-defaults with data_range=1). LPIPS needs a pretrained AlexNet backbone the
-port has no access to: `eval_rgb` reports lpips=NaN with a warning, so NaNs
-in eval tables are never silent.
+defaults with data_range=1). LPIPS comes from `lpips_fn`: the `lpips`
+package with its pretrained weights, else the port's network
+(utils/lpips.py) on converted weights; without either, `eval_rgb` reports
+lpips=NaN with a warning, so NaNs in eval tables are never silent.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -69,12 +72,65 @@ def ssim(
     return float(s[pad:-pad, pad:-pad].mean())
 
 
-def eval_rgb(pred: np.ndarray, gt: np.ndarray) -> dict:
-    """Full metric dict for one image pair. The warning goes through Python's
-    default filter, which shows it once per call site."""
-    import warnings
+_LPIPS_CACHE: dict = {}
 
-    warnings.warn("LPIPS unavailable: reporting lpips=NaN in eval metrics",
-                  stacklevel=2)
-    return {"psnr": psnr(pred, gt), "ssim": ssim(pred, gt),
-            "lpips": float("nan")}
+
+def lpips_fn(device="cpu"):
+    """lpips(img1_hwc01, img2_hwc01) -> float, or None when no LPIPS
+    backend is available. Resolution order (JAX lpips_fn's):
+
+      1. the `lpips` package with its pretrained weights (on the CPU);
+      2. utils/lpips.py on `device` from a converted weight file
+         ($HOLOSCENE_LPIPS_NPZ or ~/.cache/holoscene/lpips_alex.npz,
+         scripts/export_lpips_npz.py);
+      3. None.
+
+    The package's network is built once; the weight file is looked up on
+    every call and its network cached by path and device."""
+    if "package" not in _LPIPS_CACHE:
+        try:
+            import lpips as lpips_pkg
+            import torch
+
+            net = lpips_pkg.LPIPS(net="alex")
+
+            def fn(a, b):
+                ta, tb = (torch.from_numpy(np.asarray(x, np.float32)
+                                           .transpose(2, 0, 1)[None] * 2 - 1)
+                          for x in (a, b))
+                with torch.no_grad():
+                    return float(net(ta, tb).item())
+
+            _LPIPS_CACHE["package"] = fn
+        except Exception:
+            _LPIPS_CACHE["package"] = None
+    if _LPIPS_CACHE["package"] is not None:
+        return _LPIPS_CACHE["package"]
+    from holoscene_tpu_torch.utils.lpips import DEFAULT_NPZ, lpips_from_npz
+
+    path = os.environ.get("HOLOSCENE_LPIPS_NPZ") or DEFAULT_NPZ
+    key = (path, str(device))
+    if key not in _LPIPS_CACHE:
+        fn = lpips_from_npz(path, device)
+        if fn is None:      # not cached: the file may appear later
+            return None
+        _LPIPS_CACHE[key] = fn
+    return _LPIPS_CACHE[key]
+
+
+def eval_rgb(pred: np.ndarray, gt: np.ndarray, device="cpu") -> dict:
+    """Full metric dict for one image pair; LPIPS on `device` when it comes
+    from the port's network. Without an LPIPS backend the warning goes
+    through Python's default filter, which shows it once per call site."""
+    out = {"psnr": psnr(pred, gt), "ssim": ssim(pred, gt)}
+    lp = lpips_fn(device)
+    if lp is None:
+        import warnings
+
+        warnings.warn("LPIPS unavailable (lpips package or its weights "
+                      "missing): reporting lpips=NaN in eval metrics",
+                      stacklevel=2)
+        out["lpips"] = float("nan")
+    else:
+        out["lpips"] = lp(pred, gt)
+    return out

@@ -47,7 +47,9 @@ def test_port_lists_its_slice_modules():
                  "stage2.mv_predict", "models.gaussians_free",
                  "models.gom_adaptive", "training.gs_trainer",
                  "training.gs_train", "ops.gs_trace", "export.gs_ingp",
-                 "viewer"):
+                 "viewer", "models.cam_opt", "ops.phygrid", "utils.lpips",
+                 "ops.occupancy", "parallel", "parallel.mesh",
+                 "parallel.stage4_dp"):
         assert f"holoscene_tpu_torch.{name}" in mods, name
 
 

@@ -15,7 +15,9 @@ Gaussian ray tracer behind gs_render --renderer trace with its kernel T1,
 the unscented-transform camera and the viewer; last the camera refinement,
 the physics grid and LPIPS against the CPU, the Stage-1 occupancy grid
 through the CLI, and Stage 1 and Stage 4 over torch.distributed ranks
-against the single-process steps.
+against the single-process steps; and the Stage-1 network variants (the
+tetrahedral stencil and its extraction, the raw fetch, the jvp gradient
+mode, no colour grid with the nerf head) through the CLI.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -112,7 +114,7 @@ Phases, one '== ' line each:
                  background chamfer finite, H1-fwd / H1-bwd / H2 launched
  14a mv_predict  stage2/mv_predict.main on phase 10b's checkpoint with the
                  post conf's sections (as phase 14), --mesh_resolution
-                 256, --seeds 42 3 7, the model-render novel-view provider:
+                 128, --seeds 42 3 7, the model-render novel-view provider:
                  a cache written for every object with a mesh, each
                  loading six views with pose, rgb, normal and mask; H2 and
                  H1-fwd launched, H1-bwd never; wall time and launches.
@@ -129,9 +131,10 @@ Phases, one '== ' line each:
                  grid, 5 sampler rounds) with the loss, invis_loss and
                  model sections of confs/replica_room0_post.conf, the
                  dataset pointed at the generated 512^2 scene (d_out from
-                 it), --mesh_resolution 256 (the CLI's default),
-                 --finetune_iters 100 of the conf's 500 an object (a cut to
-                 stay in time), physics quasi-static (set here, so nothing
+                 it), --mesh_resolution 128 (half the CLI's default, a
+                 cut to stay in time, as phase 14a's), --finetune_iters 60
+                 of the conf's 500 an object (a cut to stay in time),
+                 physics quasi-static (set here, so nothing
                  downgrades silently): every finetune loss finite,
                  invis_loss and collision_loss on the object steps, H1-fwd
                  and H1-bwd launched 3 times a background step and 4 an
@@ -170,7 +173,7 @@ Phases, one '== ' line each:
                  the CPU: the files equal (depth within 1e-6). (b)
                  training/exp_runner_gaussian.main on phase 15's run (its
                  surface_{i}.obj: the room and both spheres, never cut)
-                 with the dataset's test split, --max_niters 200 (a third
+                 with the dataset's test split, --max_niters 120 (a fifth
                  of the CLI's default of 200 a mesh, cut for time): every loss
                  finite, K1 and K2 launched on every step, gauss_scene.ply
                  and .usdz written, the test PSNR and SSIM finite; the
@@ -186,7 +189,7 @@ Phases, one '== ' line each:
                  with a geometry column: calc_3d_metric (accuracy,
                  completion, completion ratio; no alignment) of each
                  object's mesh against the synthetic scene's analytic mesh
-                 for Stage 1 (phase 14's input extraction at 256), Stage 2
+                 for Stage 1 (phase 14's input extraction at 128), Stage 2
                  (the accepted meshes) and Stage 3 (surface_{i}.obj)
  17 free gaussians (a) training/gs_train.main --dataset ns on phase 10b's
                  512^2 scene at the CLI's defaults (capacity 100,000, SH 3,
@@ -253,8 +256,23 @@ Phases, one '== ' line each:
                  finite, step 0's the single-process run's (phase 10's
                  step 0, rtol 2e-5; step 1's printed beside phase 10's),
                  one run directory with rank 0's metrics and checkpoint
+ 19 variants     the Stage-1 network variants through exp_runner.main at
+                 the flagship width on phase 10's scene: (a)
+                 replica_room0.conf's vjp model with grid_interp =
+                 tetrahedral, 40 steps; (e) (a)'s extraction at 256; (b)
+                 replica_room0_tpu.conf's fused model with fused_fetch =
+                 raw, 40 steps; (c) forward_grad_mode = jvp, 20 steps; (d)
+                 color_grid_feature = false with the nerf head, 20 steps:
+                 every loss finite, rgb_loss falling, H1 on every step,
+                 the new instantiations launched (H1-fwd / H1-bwd
+                 tetrahedral on every H1 call of (a), H2 tetrahedral on
+                 every grid chunk of (e), H1-fwd raw on every step of
+                 (b)), ms a step and the first / last loss; H1-fwd and
+                 H1-bwd tetrahedral, H1-fwd raw and H2 packed tetrahedral
+                 against plain on inputs captured from those runs (kernel
+                 ms, plain ms, bound)
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
-15, 16 and 17) it is
+15, 16, 17 and 19) it is
 launched twice on the same inputs and the two results must be the same bits
 (K1-K4, H1-fwd, H2, T1); H1-bwd adds with atomicAdd, whose order changes
 from launch to launch, so its two launches must agree within its tolerance
@@ -262,8 +280,8 @@ to plain (1e-5 of the largest gradient), not bitwise.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
 10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run), 16
 (its Stage-4 run), 17 (each gs_train run, each gs_render run, the
-viewer frame) and 18 (the occupancy run, each rank's step) and read just
-after. Then the kernel table as one JSON line
+viewer frame), 18 (the occupancy run, each rank's step) and 19 (each
+run and the extraction) and read just after. Then the kernel table as one JSON line
 and last the device line {"ok": true, "device": {...}}. Any failure exits
 non-zero before it.
 
@@ -396,6 +414,7 @@ def reset_counts() -> None:
     st.composite_fwd.launches = st.composite_bwd.launches = 0
     hg.fused_fwd.launches = hg.fused_bwd.launches = 0
     hg.sampler_fwd.launches = 0
+    hg.reset_variant_counts()
     gs_trace.select_hits.launches = 0
 
 
@@ -444,7 +463,8 @@ def exact_note(r):
     """A backward's errors against plain's float64 sums, for a log line."""
     if "max_abs_err_exact" not in r:
         return ""
-    return (f" (vs exact sums {r['max_abs_err_exact']:.3g}; float32 plain "
+    return (f" (vs exact sums {r['max_abs_err_exact']:.3g}, worst "
+            f"{r['tolerance_share']:.3g} of its tolerance; float32 plain "
             f"{r['plain_max_abs_err_exact']:.3g})")
 
 
@@ -522,22 +542,25 @@ def compare_walks(names, chunks, real, cs, pixels, fwd, fwd_plain, bwd,
     # the float64 differences a slice of rows at a time: at the chain's
     # frame one float64 copy of the gradient array is ~20 GiB
     step = max(1, (1 << 27) // max(1, dker[0].numel()))
-    over, max_x, plain_x, err_b = 0, 0.0, 0.0, 0.0
+    over, max_x, plain_x, err_b, share = 0, 0.0, 0.0, 0.0, 0.0
     for i in range(0, dker.shape[0], step):
         e, k, p = exact[i:i + step], dker[i:i + step], dref[i:i + step]
         x = (k.double() - e).abs()
-        over += int((x > BWD_ATOL + BWD_RTOL * e.abs()).sum())
+        tol = BWD_ATOL + BWD_RTOL * e.abs()
+        over += int((x > tol).sum())
+        share = max(share, float((x / tol).max()))
         max_x = max(max_x, float(x.max()))
         plain_x = max(plain_x, float((p.double() - e).abs().max()))
         err_b = max(err_b, float((k - p).abs().max()))
     if not torch.isfinite(dker).all() or over:
         raise RuntimeError(f"{kb} disagrees with plain's exact sums: {over} "
                            f"values outside atol {BWD_ATOL} rtol {BWD_RTOL}; "
-                           f"max abs err {max_x} (float32 plain "
-                           f"{plain_x}, kernel vs float32 plain {err_b})")
+                           f"max abs err {max_x}, worst {share:.3f} of its "
+                           f"tolerance (float32 plain {plain_x}, kernel vs "
+                           f"float32 plain {err_b})")
     res[kb] = dict(max_abs_err=err_b, max_abs_err_exact=max_x,
-                   plain_max_abs_err_exact=plain_x, ms=None, plain_ms=None,
-                   **work)
+                   tolerance_share=share, plain_max_abs_err_exact=plain_x,
+                   ms=None, plain_ms=None, **work)
     res[kb]["bound_ms"], res[kb]["bound_by"] = bound_ms(
         read + 2 * block + dker.numel() * 4,
         pairs * OPS_TEST + live * OPS_LIVE_BWD)
@@ -808,6 +831,12 @@ BAKE_CHUNK = 1 << 18  # ops/probe_grid.py bake_probe_grid's chunk
 # the backward (the two fused cotangents 14, b's 2) or of H2 (4)
 OPS_POINT_LEVEL = 18
 OPS_CORNER = {"H1-fwd": 2 + 9 + 20, "H1-bwd": 2 + 9 + 16, "H2": 2 + 4}
+# the tetrahedral stencil (csrc/hash_grid.cuh::tet_rows): per (point,
+# level) the three comparisons, three ranks (6), the sorted fractions (6)
+# and four weights (4); per corner (4 of them) its jacobian weights (9)
+# and the same multiply-adds (no weight product)
+OPS_POINT_LEVEL_TET = 3 + 6 + 6 + 4
+OPS_CORNER_TET = {"H1-fwd": 9 + 20, "H1-bwd": 9 + 16, "H2": 4}
 # H1-bwd with no jacobian term (the packed encode's transpose): the
 # corner's weight (2) and its two products with the feature cotangent (2)
 OPS_CORNER_NO_J = 2 + 2
@@ -1007,10 +1036,10 @@ def bench_batch(gen, dev, n: int, res: int = 512) -> dict:
     }
 
 
-def _gather_bytes(x01, lt, n_tables: int) -> int:
+def _gather_bytes(x01, lt, n_tables: int, interp: str = "trilinear") -> int:
     """Per level, the lesser of its table's bytes and the 32-byte sectors
-    its corner gathers touch (8-byte rows of each table), in-range points
-    only."""
+    its corner gathers touch (8-byte rows of each table; the tetrahedral
+    stencil's 4 corners), in-range points only."""
     import torch
 
     from holoscene_tpu_torch.ops import hashgrid as hg
@@ -1018,7 +1047,8 @@ def _gather_bytes(x01, lt, n_tables: int) -> int:
     x = x01[~((x01 < 0) | (x01 > 1)).any(-1)]
     if not x.shape[0]:
         return 0
-    rows, _ = hg._fused_rows_frac(x, lt)
+    rows = (hg._tet_stencil(x, lt)[0] if interp == "tetrahedral"
+            else hg._fused_rows_frac(x, lt)[0])
     total = 0
     for lvl in range(lt.n_levels):
         sectors = torch.unique(rows[lvl] // 4).numel() * 32
@@ -1027,25 +1057,30 @@ def _gather_bytes(x01, lt, n_tables: int) -> int:
 
 
 def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
-               mode: str = "exact", has_j: bool = True):
+               mode: str = "exact", has_j: bool = True,
+               interp: str = "trilinear"):
     """(bound ms, "bytes" | "operations") of one launch on these inputs:
     the bytes are the inputs read once, the outputs written once and the
     table sectors gathered (H1-bwd: its draws read once and each gradient
     table written once instead of the gathers);
     the operations OPS_POINT_LEVEL + 8 OPS_CORNER a (point, level) of an
-    in-range point. has_j False: H1-bwd without the jacobian cotangent
-    (OPS_CORNER_NO_J a corner, no [L*2, 3, N] cotangent read)."""
+    in-range point (tetrahedral: OPS_POINT_LEVEL_TET + 4 OPS_CORNER_TET).
+    has_j False: H1-bwd without the jacobian cotangent (OPS_CORNER_NO_J a
+    corner, no [L*2, 3, N] cotangent read)."""
     n, L = x01.shape[0], lt.n_levels
     valid = int((~((x01 < 0) | (x01 > 1)).any(-1)).sum())
     tables = 2 if has_b else 1
-    corner = OPS_CORNER[kernel] if has_j else OPS_CORNER_NO_J
-    ops = valid * L * (OPS_POINT_LEVEL + 8 * corner)
+    if interp == "tetrahedral":
+        ops = valid * L * (OPS_POINT_LEVEL_TET + 4 * OPS_CORNER_TET[kernel])
+    else:
+        corner = OPS_CORNER[kernel] if has_j else OPS_CORNER_NO_J
+        ops = valid * L * (OPS_POINT_LEVEL + 8 * corner)
     feats = n * L * 2 * 4
     if kernel == "H1-fwd":
         nbytes = n * 12 + feats * tables + n * L * 6 * 4 \
-            + _gather_bytes(x01, lt, tables)
+            + _gather_bytes(x01, lt, tables, interp)
     elif kernel == "H2":
-        nbytes = n * 12 + feats + _gather_bytes(x01, lt, 1)
+        nbytes = n * 12 + feats + _gather_bytes(x01, lt, 1, interp)
     else:
         cts = feats * tables + (n * L * 6 * 4 if has_j else 0)
         draws = {"exact": 0, "sampled": 3, "sampled_all": 4}[mode] \
@@ -1067,15 +1102,17 @@ def _check_close(name, got, ref, rel=H_REL) -> float:
 
 
 def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
-               modes=("exact", "sampled", "sampled_all")):
+               modes=("exact", "sampled", "sampled_all"),
+               interp: str = "trilinear", fetch: str = "packed"):
     """H1-fwd and H1-bwd (each mode) against their plain versions on these
-    inputs (emb_b None: the single-table call, exact mode only). H1-fwd:
+    inputs (emb_b None: the single-table call, exact mode only), in the
+    instantiation of `interp` and `fetch`. H1-fwd:
     two launches give the same bits, plain within H_REL of the largest
     value. H1-bwd: atomicAdd orders the sums differently each launch, so
     two launches and plain agree within H_REL, not bitwise; the pairs whose
     sampled corner can flip in the last bit carry zero cotangents. Returns
     {kernel: dict(max_abs_err, and when timed ms / plain_ms / bound_ms /
-    bound_by, H1-bwd's in the last mode)}."""
+    bound_by, H1-bwd's in the last mode)}; modes () holds H1-fwd alone."""
     import torch
 
     from holoscene_tpu_torch.ops import hashgrid as hg
@@ -1083,8 +1120,9 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
     n, L, rows = x01.shape[0], lt.n_levels, emb_a.shape[0]
     has_b = emb_b is not None
     res = {}
-    ref = hg.fused_fwd_plain(x01, emb_a, emb_b, lt)
-    out, again = (hg.fused_fwd(x01, emb_a, emb_b, lt) for _ in range(2))
+    fargs = (x01, emb_a, emb_b, lt, interp, fetch)
+    ref = hg.fused_fwd_plain(*fargs)
+    out, again = (hg.fused_fwd(*fargs) for _ in range(2))
     torch.cuda.synchronize()
     if not all(a is b or torch.equal(a, b) for a, b in zip(out, again)):
         raise RuntimeError("H1-fwd: two launches on the same inputs differ")
@@ -1094,11 +1132,10 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
         if o is not None))
     if timed:
         res["H1-fwd"].update(
-            ms=cuda_ms(lambda: hg.fused_fwd(x01, emb_a, emb_b, lt), 20),
-            plain_ms=cuda_ms(lambda: hg.fused_fwd_plain(x01, emb_a, emb_b,
-                                                        lt), 3))
+            ms=cuda_ms(lambda: hg.fused_fwd(*fargs), 20),
+            plain_ms=cuda_ms(lambda: hg.fused_fwd_plain(*fargs), 3))
         res["H1-fwd"]["bound_ms"], res["H1-fwd"]["bound_by"] = hash_bound(
-            "H1-fwd", x01, lt, has_b=has_b)
+            "H1-fwd", x01, lt, has_b=has_b, interp=interp)
     gen = torch.Generator(device=x01.device).manual_seed(seed)
     errs = []
     for mode in modes:
@@ -1116,8 +1153,8 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
             cts[1] = cts[1] * keep.repeat_interleave(2, 0)[:, None, :]
             cts[2] = cts[2] * keep.T.repeat_interleave(2, 1)
         args = (x01, rows, *cts, lt, mode, u_b, u_a)
-        ref = hg.fused_bwd_plain(*args)[:2]
-        got, again = hg.fused_bwd(*args), hg.fused_bwd(*args)
+        ref = hg.fused_bwd_plain(*args, interp=interp)[:2]
+        got, again = (hg.fused_bwd(*args, interp=interp) for _ in range(2))
         for g, a, r, t in zip(got, again, ref, "ab"):
             if g is None:
                 continue
@@ -1125,35 +1162,38 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
             _check_close(f"H1-bwd {mode} table {t}, second launch", a, g)
         if timed and mode == modes[-1]:
             res["H1-bwd"] = dict(
-                ms=cuda_ms(lambda: hg.fused_bwd(*args), 20),
-                plain_ms=cuda_ms(lambda: hg.fused_bwd_plain(*args), 3))
+                ms=cuda_ms(lambda: hg.fused_bwd(*args, interp=interp), 20),
+                plain_ms=cuda_ms(lambda: hg.fused_bwd_plain(
+                    *args, interp=interp), 3))
             res["H1-bwd"]["bound_ms"], res["H1-bwd"]["bound_by"] = \
-                hash_bound("H1-bwd", x01, lt, rows, has_b=has_b, mode=mode)
-    res.setdefault("H1-bwd", {})["max_abs_err"] = max(errs)
+                hash_bound("H1-bwd", x01, lt, rows, has_b=has_b, mode=mode,
+                           interp=interp)
+    if errs:
+        res.setdefault("H1-bwd", {})["max_abs_err"] = max(errs)
     return res
 
 
-def compare_h2(x01, emb, lt, timed: bool = False,
-               packed: bool = False) -> dict:
-    """H2 (packed: its mesh-extraction mode) against its plain version: two
-    launches give the same bits, plain within H_REL of the largest
-    value."""
+def compare_h2(x01, emb, lt, timed: bool = False, packed: bool = False,
+               interp: str = "trilinear") -> dict:
+    """H2 (packed: its mesh-extraction mode, trilinear or tetrahedral)
+    against its plain version: two launches give the same bits, plain
+    within H_REL of the largest value."""
     import torch
 
     from holoscene_tpu_torch.ops import hashgrid as hg
 
-    ref = hg.sampler_fwd_plain(x01, emb, lt, packed)
-    out, again = (hg.sampler_fwd(x01, emb, lt, packed) for _ in range(2))
+    args = (x01, emb, lt, packed, interp)
+    ref = hg.sampler_fwd_plain(*args)
+    out, again = (hg.sampler_fwd(*args) for _ in range(2))
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise RuntimeError("H2: two launches on the same inputs differ")
     res = dict(max_abs_err=_check_close("H2", out, ref))
     if timed:
-        res.update(ms=cuda_ms(lambda: hg.sampler_fwd(x01, emb, lt, packed),
-                              20),
-                   plain_ms=cuda_ms(lambda: hg.sampler_fwd_plain(
-                       x01, emb, lt, packed), 3))
-        res["bound_ms"], res["bound_by"] = hash_bound("H2", x01, lt)
+        res.update(ms=cuda_ms(lambda: hg.sampler_fwd(*args), 20),
+                   plain_ms=cuda_ms(lambda: hg.sampler_fwd_plain(*args), 3))
+        res["bound_ms"], res["bound_by"] = hash_bound("H2", x01, lt,
+                                                      interp=interp)
     return res
 
 
@@ -1195,7 +1235,9 @@ def device_kernels(prof):
 def record_hash(fn, names, keep=lambda name, args: args):
     """fn() with the hash-kernel wrappers `names` of ops/hashgrid.py
     ("fused_fwd", "fused_bwd", "sampler_fwd") wrapped to record keep(name,
-    args) of each call: (fn's result, {name: [records] in call order}).
+    args) of each call, the positional arguments as the caller passed them
+    (the encodes pass interp / fetch after the tables' four): (fn's result,
+    {name: [records] in call order}).
     The wrapped calls still launch, and their launches are counted on the
     kernels' own wrappers."""
     from holoscene_tpu_torch.ops import hashgrid as hg
@@ -1204,9 +1246,9 @@ def record_hash(fn, names, keep=lambda name, args: args):
     records = {k: [] for k in names}
 
     def wrap(name):
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             records[name].append(keep(name, args))
-            return origs[name](*args)
+            return origs[name](*args, **kwargs)
 
         wrapped.launches = 0
         return wrapped
@@ -1243,7 +1285,7 @@ def h1_at_capture(fargs, bargs, reps: int = 20) -> dict:
     bound_by)}, and the call's shape."""
     from holoscene_tpu_torch.ops import hashgrid as hg
 
-    x01, emb_a, emb_b, lt = fargs
+    x01, emb_a, emb_b, lt = fargs[:4]
     emb_a = emb_a.detach()
     emb_b = None if emb_b is None else emb_b.detach()
     out = {"points": x01.shape[0], "levels": lt.n_levels,
@@ -1327,12 +1369,12 @@ def h2_launch_times(fn):
     orig = hg.sampler_fwd
     events = []
 
-    def sampler_fwd(*args):
+    def sampler_fwd(*args, **kwargs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        out = orig(*args)
+        out = orig(*args, **kwargs)
         end.record()
         events.append((start, end))
         return out
@@ -1497,8 +1539,15 @@ def gate_phase(work: Path, card: str) -> dict:
     return launches
 
 
-S2_ITERS = 100        # phase 14: finetune iterations a finetune (conf: 500)
-S2_MESH_RES = 256     # exp_runner_post's --mesh_resolution default
+# phase 14: finetune iterations a finetune (conf: 500; 100 before phase
+# 19 joined the script)
+S2_ITERS = 60
+# phases 14a / 14: exp_runner_post's and mv_predict's --mesh_resolution,
+# half the default 256 since phase 19 joined the script: the room's mesh
+# from this extraction sets the host's work in Stage 2's intersection,
+# Stage 3's OBJ writing and the export, and the chain's Stage-4 gaussians
+# (at 256 those took ~550 s of a 1149 s call on a slow host)
+S2_MESH_RES = 128
 POST_CONF = Path(__file__).resolve().parent / "confs" / "replica_room0_post.conf"
 
 
@@ -1714,8 +1763,8 @@ def stage2_phase(work: Path, dev, card: str, chain: dict) -> dict:
     h2_inv = [a for a in rec["sampler_fwd"]
               if a[0].shape[0] == runner.fcfg.invis_pixels * e]
     out = {k: {"launches": launches[k]} for k in HASH_KERNELS}
-    for tag, (x01, emb_a, emb_b, lt) in (("invisible_render", fwd[2]),
-                                         ("collision", fwd[3])):
+    for tag, (x01, emb_a, emb_b, lt) in (("invisible_render", fwd[2][:4]),
+                                         ("collision", fwd[3][:4])):
         got = compare_h1(x01, emb_a.detach(),
                          None if emb_b is None else emb_b.detach(), lt,
                          40, timed=True, modes=("exact",))
@@ -1730,7 +1779,7 @@ def stage2_phase(work: Path, dev, card: str, chain: dict) -> dict:
                 f"err {got[k]['max_abs_err']:.3g}" for k in ("H1-fwd",
                                                              "H1-bwd"))
             + f"; on {card}")
-    x01, emb, lt, packed = h2_inv[0]
+    x01, emb, lt, packed = h2_inv[0][:4]
     r = compare_h2(x01, emb.detach(), lt, timed=True, packed=packed)
     out["H2"]["stage2_invisible_render"] = r
     log(f"   H2 at the invisible render's first sampler call "
@@ -2001,7 +2050,7 @@ def stage3_phase(work: Path, dev, card: str, gauss_ply: Path,
 
     # H2 (packed) and H1-bwd (no jacobian) against plain at the colour
     # step's captured inputs and at a bake chunk
-    x01, emb, lt, packed = rec["sampler_fwd"][0]
+    x01, emb, lt, packed = rec["sampler_fwd"][0][:4]
     bx01, n_rows, ct = rec["fused_bwd"][0][:3]
     if not packed or bx01.data_ptr() != x01.data_ptr() \
             or lt.n_levels != 16 or rec["fused_bwd"][0][3] is not None:
@@ -2031,10 +2080,10 @@ MV_SEEDS = (42, 3, 7)  # phase 14a: mv_predict's --seeds
 W3D_ATOL = 1e-5       # the Wonder3D+ provider on the card vs the CPU
 # phase 16: the chamfers' samples a mesh and the analytic meshes' grid
 CHAMFER_SAMPLES, GT_MESH_RES = 30000, 64
-# phase 16b's Stage-4 iterations: a third of the CLI's default (200 a
-# mesh, 600 here), cut to keep the script in its time as phases 17 and 18
-# joined it (300 with phase 17)
-CHAIN_S4_ITERS = 200
+# phase 16b's Stage-4 iterations: a fifth of the CLI's default (200 a
+# mesh, 600 here), cut to keep the script in its time as phases 17-19
+# joined it (300 with phase 17, 200 with phase 18)
+CHAIN_S4_ITERS = 120
 
 
 def w3d_stand_in(path: Path) -> str:
@@ -2157,11 +2206,11 @@ def mv_predict_phase(work: Path, dev, card: str, chain: dict) -> dict:
 
     # H1 / H2 against plain at the renders' first chunk (after the counts)
     out = {k: {"launches": launches[k]} for k in HASH_KERNELS}
-    x01, emb_a, emb_b, lt = first["fused_fwd"]
+    x01, emb_a, emb_b, lt = first["fused_fwd"][:4]
     got = compare_h1(x01, emb_a.detach(),
                      None if emb_b is None else emb_b.detach(), lt, 41,
                      timed=True, modes=("exact",))
-    x2, emb2, lt2, packed = first["sampler_fwd"]
+    x2, emb2, lt2, packed = first["sampler_fwd"][:4]
     got["H2"] = compare_h2(x2, emb2.detach(), lt2, timed=True, packed=packed)
     shapes = {"H1-fwd": (x01, lt), "H1-bwd": (x01, lt), "H2": (x2, lt2)}
     for k in HASH_KERNELS:
@@ -2413,9 +2462,15 @@ T1_OPS_PAIR = 65
 
 def free_frame_walks(tr, frame: int, timed: bool) -> dict:
     """K1/K2 against plain on a GSTrainer's training frame as its step
-    hands them over: the trainer's flat plan and bins (_get_bins) over every
-    slot of its capacity, dead slots at opacity 0, the candidates gathered
-    from the current parameters."""
+    hands them over (free_frame_inputs)."""
+    return compare_flat(*free_frame_inputs(tr, frame), 8, timed=timed)
+
+
+def free_frame_inputs(tr, frame: int) -> tuple:
+    """K1's inputs at a GSTrainer's training frame as its step hands them
+    over: the trainer's flat plan and bins (_get_bins) over every slot of
+    its capacity, dead slots at opacity 0, the candidates gathered from the
+    current parameters. Returns (cand, cs, cc, tiles_x, width, height)."""
     import torch
 
     from holoscene_tpu_torch.ops import splat_flat as sf
@@ -2434,9 +2489,8 @@ def free_frame_walks(tr, frame: int, timed: bool) -> dict:
             view_matrix(pose, pose.device), intr, w, h, cfg.sh_degree,
             camera_model=cfg.camera_model, dist=cfg.dist)
         cand = sf.gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
-    return compare_flat(cand, bins["tile_chunk_start"],
-                        bins["tile_chunk_cnt"], -(-w // cfg.tile_size), w, h,
-                        8, timed=timed)
+    return (cand, bins["tile_chunk_start"], bins["tile_chunk_cnt"],
+            -(-w // cfg.tile_size), w, h)
 
 
 def walk_note(walks: dict, card: str) -> str:
@@ -2973,7 +3027,7 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
                        "eval_psnr": runner.plot(S1B_STEPS - 1)["psnr"]}
     del runner
     # H2 at the run's first sampler call (the first step's rays)
-    x01, emb, lt, packed = rec["sampler_fwd"][0]
+    x01, emb, lt, packed = rec["sampler_fwd"][0][:4]
     h2_vjp = compare_h2(x01, emb, lt, timed=True, packed=packed)
     h2_vjp["shape"] = (x01.shape[0], lt.n_levels, packed)
     del rec
@@ -3058,7 +3112,7 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
     if len(captured) != 4 or any(b is None for _, b in captured):
         raise RuntimeError(f"background step: {len(captured)} H1 calls "
                            "captured, expected 4 with their backwards")
-    x01, emb_a, emb_b, lt = captured[0][0]     # the fine tier's call
+    x01, emb_a, emb_b, lt = captured[0][0][:4]     # the fine tier's call
     emb_a, emb_b = emb_a.detach(), emb_b.detach()
     mode = hs.fused_mode(cfg, True)
     timed = compare_h1(x01, emb_a, emb_b, lt, 30, timed=True,
@@ -3630,6 +3684,215 @@ def torchrun_phase(work: Path, card: str) -> None:
                            f"vs the single-process {PHASE10_LOSSES[0]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the Stage-1 network variants
+# ---------------------------------------------------------------------------
+
+S19_EXTRACT_RES = 256
+# the runs of phase 19 at the flagship width on the 512^2 scene: (what,
+# steps, the model section merged into stage1_conf's, the H1 instantiation
+# the run is there for (interp, fetch), or None)
+S19_RUNS = {
+    "a": ("tetrahedral, replica_room0.conf's vjp model", 40,
+          S1_MODEL_DEFAULT + """
+ implicit_network{
+  grid_interp = tetrahedral
+ }
+""", ("tetrahedral", "packed")),
+    "b": ("fused_fetch = raw, replica_room0_tpu.conf's fused model", 40,
+          S1_MODEL_TPU + """
+ implicit_network{
+  fused_fetch = raw
+ }
+""", ("trilinear", "raw")),
+    "c": ("forward_grad_mode = jvp", 20,
+          S1_MODEL_DEFAULT + "\n forward_grad_mode = jvp\n", None),
+    "d": ("color_grid_feature = false, rendering_network.mode = nerf", 20,
+          S1_MODEL_DEFAULT + """
+ implicit_network{
+  color_grid_feature = false
+ }
+ rendering_network{
+  mode = nerf
+  d_in = 3
+ }
+""", None),
+}
+# the kernel table's rows of the new instantiations: (row key, kernel,
+# instantiation key in ops/hashgrid.py's variant_launches, JAX source)
+S19_ROWS = {
+    "H1-fwd tetrahedral": ("H1-fwd", ("tetrahedral", "packed"),
+                           "holoscene_tpu/ops/hashgrid.py:453"),
+    "H1-fwd raw": ("H1-fwd", ("trilinear", "raw"),
+                   "holoscene_tpu/ops/hashgrid.py:877"),
+    "H1-bwd tetrahedral": ("H1-bwd", ("tetrahedral", "exact"),
+                           "holoscene_tpu/ops/hashgrid.py:453"),
+    "H2 packed tetrahedral": ("H2", ("tetrahedral", True),
+                              "holoscene_tpu/ops/hashgrid.py:453"),
+}
+
+
+def _first_calls(n: int):
+    """A record_hash `keep` that keeps the arguments of each wrapper's
+    first n calls (None after)."""
+    seen: dict = {}
+
+    def keep(name, args):
+        seen[name] = seen.get(name, 0) + 1
+        return args if seen[name] <= n else None
+
+    return keep
+
+
+def variant_counts() -> dict:
+    """The per-instantiation launch counts of H1-fwd, H1-bwd and H2:
+    {kernel: {instantiation key: launches}}."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    torch.cuda.synchronize()
+    out = {"H1-fwd": {}, "H1-bwd": {}, "H2": {}}
+    names = {"fused_fwd": "H1-fwd", "fused_bwd": "H1-bwd",
+             "sampler_fwd": "H2"}
+    for (name, key), n in hg.variant_launches.items():
+        out[names[name]][key] = n
+    return out
+
+
+def variants_phase(work: Path, card: str) -> dict:
+    """Phase 19: the Stage-1 network variants at the flagship width through
+    the exp_runner CLI on phase 10's 512^2 scene: (a) tetrahedral, (e) the
+    extraction of (a)'s field at S19_EXTRACT_RES, (b) the raw fetch, (c) the
+    jvp gradient mode, (d) no colour grid with the nerf head. Each run's
+    launch counts are reset before it and read after it; every loss finite,
+    rgb_loss falling over the run's thirds, the new instantiations launched
+    (H1-fwd / H1-bwd tetrahedral on every step of (a), H2 tetrahedral on
+    every grid chunk of (e), H1-fwd raw on every step of (b)). H1-fwd /
+    H1-bwd tetrahedral and H1-fwd raw are held against plain on the first
+    render call of their run, H2 tetrahedral on (e)'s first grid chunk,
+    and timed (CUDA events). Returns the kernel table's rows S19_ROWS."""
+    from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.training import exp_runner
+
+    t_phase = time.perf_counter()
+    found, counts, notes = {}, {}, []
+    for tag in ("a", "b", "c", "d"):
+        what, steps, model, inst = S19_RUNS[tag]
+        conf = stage1_conf(work, f"smoke_s19{tag}", model)
+        reset_counts()
+        t0 = time.perf_counter()
+        runner, rec = record_hash(lambda: exp_runner.main(
+            ["--conf", str(conf), "--exps_folder", str(work / "exps_s19"),
+             "--max_niters", str(steps), "--log_every", "1", "--quiet",
+             "--device", "cuda"]), ("fused_fwd",), keep=_first_calls(1))
+        wall = time.perf_counter() - t0
+        counts[tag] = variant_counts()
+        launches = read_hash_counts()
+        hist = runner.history
+        keys = ("loss", "rgb_loss", "eikonal_loss")
+        if len(hist) != steps or not all(finite(h[k]) for h in hist
+                                         for k in keys):
+            raise RuntimeError(f"19 ({tag}): {len(hist)} logged steps for "
+                               f"{steps}, or a non-finite loss")
+        trend = thirds(hist, ("loss", "rgb_loss"))
+        steady = (steps - 1) / (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
+        cfg = runner.model_cfg
+        log(f"== 19 ({tag}) {what}: {steps} steps in {wall:.1f} s (CLI, "
+            f"process start excluded), steps 2..{steps} {1e3 / steady:.2f} "
+            f"ms/step; loss {hist[0]['loss']:.5f} at step 0, "
+            f"{hist[-1]['loss']:.5f} at step {steps - 1}; first/last third "
+            + ", ".join(f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in
+                        trend.items())
+            + f"; launches {launches}, by instantiation {counts[tag]}; "
+            f"grid_interp {cfg.implicit.grid_interp}, fused_fetch "
+            f"{cfg.implicit.fused_fetch}, forward_grad_mode "
+            f"{cfg.forward_grad_mode}, colour grid "
+            f"{cfg.implicit.color_grid_feature}, rendering "
+            f"{cfg.rendering.mode}; on {card}")
+        notes.append(f"({tag}) {wall:.1f} s")
+        if not trend["rgb_loss"][1] < trend["rgb_loss"][0]:
+            raise RuntimeError(f"19 ({tag}): rgb_loss did not fall: {trend}")
+        if launches["H1-fwd"] < 2 * steps or launches["H1-bwd"] < 2 * steps:
+            raise RuntimeError(f"19 ({tag}): H1 launches {launches}, "
+                               f"expected the render's and the eikonal "
+                               f"call's on every step")
+        if inst is not None:
+            fwd = counts[tag]["H1-fwd"].get(inst, 0)
+            if fwd < steps:
+                raise RuntimeError(f"19 ({tag}): H1-fwd {inst} launched "
+                                   f"{fwd} times in {steps} steps")
+            fargs = next(a for a in rec["fused_fwd"]
+                         if a is not None and a[4:6] == inst)
+            x01, emb_a, emb_b, lt = fargs[:4]
+            found[tag] = compare_h1(
+                x01, emb_a.detach(),
+                None if emb_b is None else emb_b.detach(), lt, 40,
+                timed=True,
+                modes=("exact",) if inst[0] == "tetrahedral" else (),
+                interp=inst[0], fetch=inst[1])
+            found[tag]["points"] = (x01.shape[0], lt.n_levels,
+                                    1 if emb_b is None else 2)
+        if tag == "a":
+            bwd = counts[tag]["H1-bwd"].get(("tetrahedral", "exact"), 0)
+            if bwd < steps or counts[tag]["H1-fwd"].get(
+                    ("trilinear", "packed")):
+                raise RuntimeError(f"19 (a): H1 by instantiation "
+                                   f"{counts[tag]}: every H1 call tetrahedral"
+                                   f", its backward too")
+            # (e) the extraction of (a)'s field
+            reset_counts()
+            t0 = time.perf_counter()
+            meshes, rec_e = record_hash(
+                lambda: runner.extract_meshes(resolution=S19_EXTRACT_RES),
+                ("sampler_fwd",), keep=_first_calls(1))
+            counts["e"] = variant_counts()
+            wall = time.perf_counter() - t0
+            h2 = counts["e"]["H2"].get(("tetrahedral", True), 0)
+            faces = [0 if m is None else len(m.faces) for m in meshes]
+            chunks = 1 + sum(-(-r ** 3 // EXTRACT_CHUNK)
+                             for r in runner.extract_fine_res)
+            log(f"== 19 (e) extraction of (a)'s field at {S19_EXTRACT_RES}: "
+                f"{wall:.1f} s ({ {k: round(v, 3) for k, v in runner.extract_seconds.items()} }), "
+                f"faces by object {faces}, H2 by instantiation "
+                f"{counts['e']['H2']} for {chunks} grid chunks; on {card}")
+            notes.append(f"(e) {wall:.1f} s")
+            if h2 != chunks or len(counts["e"]["H2"]) != 1 \
+                    or not any(faces):
+                raise RuntimeError(f"19 (e): H2 {counts['e']['H2']} for "
+                                   f"{chunks} chunks, faces {faces}")
+            x01, emb, lt, packed, interp = rec_e["sampler_fwd"][0]
+            found["e"] = {"H2": compare_h2(x01, emb, lt, timed=True,
+                                           packed=packed, interp=interp),
+                          "points": (x01.shape[0], lt.n_levels, 1)}
+            del rec_e, meshes
+        del runner, rec
+    rows = {}
+    for key, (kernel, inst, jax_src) in S19_ROWS.items():
+        tag = {"H2": "e"}.get(kernel, "a" if inst[0] == "tetrahedral"
+                              else "b")
+        r = found[tag][kernel]
+        rows[key] = {
+            "name": f"{HASH_KERNELS[kernel]['name']} {key.split(' ', 1)[1]}",
+            "route": "cuda", "source": HASH_KERNELS[kernel]["source"],
+            "replaces": jax_src,
+            "launches": counts[tag][kernel].get(inst, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": found[tag]["points"]}
+        log(f"   {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of it) at "
+            f"{found[tag]['points']} (points, levels, tables) captured from "
+            f"({tag}); max abs err {r['max_abs_err']:.3g} (within {H_REL} "
+            f"of the largest value); launches in ({tag}) "
+            f"{rows[key]['launches']}; on {card}")
+    log(f"   phase 19 in {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(notes))
+    return rows
+
+
 def main() -> int:
     # one process runs every phase: segments that grow in place keep the
     # blocks earlier phases freed from stranding the chain's Stage-4 step
@@ -3674,7 +3937,8 @@ def main() -> int:
     log(f"== 3 kernels vs plain, random {SMALL_RES}^2 scene of {SMALL_N} "
         f"gaussians ({cand.shape[0] // sf.CHUNK} flat chunks, top-K lists of "
         f"{lists[0].shape[1]}): max abs err "
-        + ", ".join(f"{k} {small[k]['max_abs_err']:.3g}" for k in KERNELS)
+        + ", ".join(f"{k} {small[k]['max_abs_err']:.3g}{exact_note(small[k])}"
+                    for k in KERNELS)
         + f" (forward atol {FWD_ATOL}, backward atol {BWD_ATOL} rtol "
         f"{BWD_RTOL})")
 
@@ -3869,7 +4133,7 @@ def main() -> int:
             f"{tuple(lists_o[0].shape)}; gs_render view 0 at its calibrated "
             f"K {k_render}, {tuple(lists_r[0].shape)}: max abs err "
             + ", ".join(f"{path} K3 {r['K3']['max_abs_err']:.3g} K4 "
-                        f"{r['K4']['max_abs_err']:.3g}"
+                        f"{r['K4']['max_abs_err']:.3g}{exact_note(r['K4'])}"
                         for path, r in other.items()))
 
         # the chain record of phases 10b, 14a, 14, 15 and 16
@@ -3889,6 +4153,8 @@ def main() -> int:
         occ_launches = occupancy_phase(work, card)
         ranks = multirank_phase(work, dev, card, runner)
         torchrun_phase(work, card)
+        # 19 the Stage-1 network variants
+        variant_rows = variants_phase(work, card)
         paths["stage4_dp"] = ranks["stage4_dp"]
         for k, row in hash_rows.items():
             row["launches_by_path"]["stage1_occupancy"] = occ_launches[k]
@@ -3916,11 +4182,12 @@ def main() -> int:
                 b[tag] = {key: val for key, val in other[tag][k].items()
                           if key in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "max_abs_err",
-                                     "max_abs_err_exact",
+                                     "max_abs_err_exact", "tolerance_share",
                                      "plain_max_abs_err_exact")}
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
     table.extend(hash_rows.values())
+    table.extend(variant_rows.values())
     table.append(t1_row)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -2,10 +2,17 @@
 // for sm_90a.
 //
 // Replaces the XLA backward of the fused custom VJP of the JAX package,
-// holoscene_tpu/ops/hashgrid.py _hash_fused_bwd (fetch "packed", modes
-// exact / sampled / sampled_all); the original HoloScene wrote it by hand as
+// holoscene_tpu/ops/hashgrid.py _hash_fused_bwd (fetch "packed" or "raw",
+// modes exact / sampled / sampled_all), and the table transpose of the
+// packed hash_encode and its jacobian in the vjp and jvp gradient modes,
+// trilinear or tetrahedral; the original HoloScene wrote it by hand as
 // hashencoder.cu's kernel_grid_backward + kernel_grid_second_backward.
 // Plain PyTorch twin: fused_bwd_plain in holoscene_tpu_torch/ops/hashgrid.py.
+// The table gradients do not depend on the table's values, so the raw
+// fetch needs nothing of its own here. The stencil is a template parameter
+// (interp 0 trilinear, 8 corners / 1 tetrahedral, 4 corners); the
+// tetrahedral stencil runs in exact mode only, as JAX samples the backward
+// only under the fused, packed, trilinear encode (fields.py:532).
 //
 // What it computes. For point n and level l: the corner rows and weights
 // of the forward, and per corner the fused cotangent of table a,
@@ -104,6 +111,7 @@ __device__ __forceinline__ void warp_scatter(float* g, float* gb, int row,
   }
 }
 
+template <bool kTet>
 __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
     hash_fused_bwd_kernel(const float* __restrict__ x01,
                           const float* __restrict__ ct_fa,
@@ -158,10 +166,8 @@ __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
 #ifdef HASH_BWD_NO_HASHED_ATOMICS
     if (hashed) continue;
 #endif
-    int rows[8];
-    float frac[3], w[3], dw[3];
-    corner_rows(lv, x, rows, frac);
-    weights(frac, w, dw);
+    const Stencil<kTet> st(lv, x);
+    constexpr int K = Stencil<kTet>::kCorners;
 
 #ifdef HASH_BWD_NO_CT_READS
     const float cfa0 = x[0], cfa1 = x[1], cfb0 = x[2], cfb1 = x[0];
@@ -180,11 +186,11 @@ __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
       }
     }
 #endif
-    float ca0[8], ca1[8], cw[8];
+    float ca0[K], ca1[K], cw[K];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < K; ++k) {
       float dcw[3];
-      cw[k] = corner_weight(w, dw, lv.scale, k, dcw);
+      cw[k] = st.weight(k, dcw);
       ca0[k] = cw[k] * cfa0;
       ca1[k] = cw[k] * cfa1;
       if (ct_J != nullptr) {
@@ -198,14 +204,14 @@ __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
     }
 
     // every corner of both tables: one grouping a corner serves a and b
-    const bool a_all = !(hashed && mode == 2);
-    const bool b_all = gb != nullptr && !(hashed && mode != 0);
+    const bool a_all = kTet || !(hashed && mode == 2);
+    const bool b_all = gb != nullptr && (kTet || !(hashed && mode != 0));
     if (a_all) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        warp_scatter(ga, b_all ? gb : nullptr, valid ? rows[k] : -1, ca0[k],
-                     ca1[k], cw[k] * cfb0, cw[k] * cfb1, scratch);
-    } else {
+      for (int k = 0; k < K; ++k)
+        warp_scatter(ga, b_all ? gb : nullptr, valid ? st.rows[k] : -1,
+                     ca0[k], ca1[k], cw[k] * cfb0, cw[k] * cfb1, scratch);
+    } else if constexpr (!kTet) {
       // table a, sampled_all: one corner drawn ~ s_k, weighted S / s_k
       float s[8], cum[8], run = 0.f;
 #pragma unroll
@@ -222,61 +228,80 @@ __global__ void __launch_bounds__(kTilePoints * kBwdWarps)
       for (int k = 0; k < 8; ++k) ks += (u2 >= cum[k]) ? 1 : 0;
       ks = min(ks, 7);
       float sk = s[0], v0 = ca0[0], v1 = ca1[0];
-      int row = rows[0];
+      int row = st.rows[0];
 #pragma unroll
       for (int k = 1; k < 8; ++k) {
         if (k == ks) {
           sk = s[k];
           v0 = ca0[k];
           v1 = ca1[k];
-          row = rows[k];
+          row = st.rows[k];
         }
       }
       const float ratio = sk > 0.f ? S / fmaxf(sk, 1e-30f) : 0.f;
       warp_scatter(ga, nullptr, valid ? row : -1, v0 * ratio, v1 * ratio,
                    0.f, 0.f, scratch);
     }
-    if (gb != nullptr && !b_all) {
-      // table b on a hashed level, sampled modes: one corner, bit d set
-      // iff u_b[d] < w_d
-      int ks = 0;
+    if constexpr (!kTet) {
+      if (gb != nullptr && !b_all) {
+        // table b on a hashed level, sampled modes: one corner, bit d set
+        // iff u_b[d] < w_d
+        int ks = 0;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float u =
-            valid ? u_b[(static_cast<int64_t>(d) * (L - n_dense) + lh) * N + n]
+        for (int d = 0; d < 3; ++d) {
+          const float u =
+              valid
+                  ? u_b[(static_cast<int64_t>(d) * (L - n_dense) + lh) * N + n]
                   : 1.f;
-        ks |= (u < w[d] ? 1 : 0) << d;
-      }
-      int row = rows[0];
+          ks |= (u < st.w[d] ? 1 : 0) << d;
+        }
+        int row = st.rows[0];
 #pragma unroll
-      for (int k = 1; k < 8; ++k) row = (k == ks) ? rows[k] : row;
-      warp_scatter(gb, nullptr, valid ? row : -1, cfb0, cfb1, 0.f, 0.f,
-                   scratch);
+        for (int k = 1; k < 8; ++k) row = (k == ks) ? st.rows[k] : row;
+        warp_scatter(gb, nullptr, valid ? row : -1, cfb0, cfb1, 0.f, 0.f,
+                     scratch);
+      }
     }
   }
 }
 
-}  // namespace
-
-// mode: 0 exact, 1 sampled, 2 sampled_all. Returns cudaGetLastError().
-extern "C" int hash_fused_bwd(const void* x01, const void* ct_fa,
-                              const void* ct_J, const void* ct_fb,
-                              const void* u_b, const void* u_a,
-                              const void* scales, const void* ints, void* ga,
-                              void* gb, int n, int n_levels, int mode,
-                              void* stream) {
+template <bool kTet>
+int launch(const void* x01, const void* ct_fa, const void* ct_J,
+           const void* ct_fb, const void* u_b, const void* u_a,
+           const void* scales, const void* ints, void* ga, void* gb, int n,
+           int n_levels, int mode, void* stream) {
   const int warps = tile_warps(n_levels, kBwdWarps);
   const dim3 block(kTilePoints, warps);
   const int blocks = (n + kTilePoints - 1) / kTilePoints;
   const size_t shmem = sizeof(float) * kTilePoints *
                        (4 * warps + 3 + 2 * (2 * n_levels + 1));
   if (shmem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  hash_fused_bwd_kernel<<<blocks, block, shmem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x01), static_cast<const float*>(ct_fa),
-      static_cast<const float*>(ct_J), static_cast<const float*>(ct_fb),
-      static_cast<const float*>(u_b), static_cast<const float*>(u_a),
-      static_cast<const float*>(scales), static_cast<const int*>(ints),
-      static_cast<float*>(ga), static_cast<float*>(gb), n, n_levels, mode);
+  hash_fused_bwd_kernel<kTet>
+      <<<blocks, block, shmem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x01), static_cast<const float*>(ct_fa),
+          static_cast<const float*>(ct_J), static_cast<const float*>(ct_fb),
+          static_cast<const float*>(u_b), static_cast<const float*>(u_a),
+          static_cast<const float*>(scales), static_cast<const int*>(ints),
+          static_cast<float*>(ga), static_cast<float*>(gb), n, n_levels,
+          mode);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// mode: 0 exact, 1 sampled, 2 sampled_all; interp: 0 trilinear, 1
+// tetrahedral (exact mode only). Returns cudaGetLastError().
+extern "C" int hash_fused_bwd(const void* x01, const void* ct_fa,
+                              const void* ct_J, const void* ct_fb,
+                              const void* u_b, const void* u_a,
+                              const void* scales, const void* ints, void* ga,
+                              void* gb, int n, int n_levels, int mode,
+                              int interp, void* stream) {
+  if (interp == 0)
+    return launch<false>(x01, ct_fa, ct_J, ct_fb, u_b, u_a, scales, ints, ga,
+                         gb, n, n_levels, mode, stream);
+  if (interp == 1 && mode == 0)
+    return launch<true>(x01, ct_fa, ct_J, ct_fb, u_b, u_a, scales, ints, ga,
+                        gb, n, n_levels, mode, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

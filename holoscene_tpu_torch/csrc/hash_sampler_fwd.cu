@@ -16,7 +16,11 @@
 // `packed` set the dense levels read bf16-rounded values too: the packed
 // encode of implicit_sdf_raw (clamped cells where it wraps the row, which
 // differ only on zero-weight corners), the encode of mesh extraction's grid
-// evaluation.
+// evaluation. A tetrahedral field's extraction (JAX implicit_sdf_raw ->
+// hash_encode(interp="tetrahedral"), hashgrid.py:453) takes the packed
+// mode with the tetrahedral stencil of hash_grid.cuh: four corners,
+// barycentric weights (interp 1, a template parameter). The sampler and
+// the probe bake stay trilinear, as JAX's do (fields.py:105-108).
 //
 // Bounds on the card. Per (point, level) 8 gathers of 8-byte rows and 8
 // bytes written, ~60 flops: memory. The bound counts each 32-byte sector
@@ -57,8 +61,9 @@ using namespace hash_grid;
 constexpr int kSamplerPoints = 64;
 constexpr int kSamplerGroup = 4;
 
-// feats[n, 2l:2l + 2] of point x at level l: the eight corners' rows, all
-// eight gathers issued before the sums, the sums in corner order
+// feats[n, 2l:2l + 2] of point x at level l: the stencil's corner rows,
+// all gathers issued before the sums, the sums in corner order
+template <bool kTet>
 __device__ __forceinline__ void encode(const float* __restrict__ scales,
                                        const int* __restrict__ ints,
                                        const float2* __restrict__ emb, int L,
@@ -66,16 +71,14 @@ __device__ __forceinline__ void encode(const float* __restrict__ scales,
                                        float& f0, float& f1) {
   const Level lv = load_level(scales, ints, L, l);
   const bool round = packed || !lv.dense;
-  int rows[8];
-  float frac[3], w[3], dw[3];
-  corner_rows(lv, x, rows, frac);
-  weights(frac, w, dw);
-  float2 v[8];
+  const Stencil<kTet> st(lv, x);
+  constexpr int K = Stencil<kTet>::kCorners;
+  float2 v[K];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = emb[rows[k]];
+  for (int k = 0; k < K; ++k) v[k] = emb[st.rows[k]];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float cw = corner_weight(w, dw, lv.scale, k, nullptr);
+  for (int k = 0; k < K; ++k) {
+    const float cw = st.weight(k, nullptr);
     if (round) {
       v[k].x = bf16_round(v[k].x);
       v[k].y = bf16_round(v[k].y);
@@ -85,6 +88,7 @@ __device__ __forceinline__ void encode(const float* __restrict__ scales,
   }
 }
 
+template <bool kTet>
 __global__ void __launch_bounds__(kSamplerPoints)
     hash_sampler_fwd_kernel(const float* __restrict__ x01,
                             const float2* __restrict__ emb,
@@ -106,7 +110,7 @@ __global__ void __launch_bounds__(kSamplerPoints)
     for (int j = 0; j < kSamplerGroup; ++j) {
       float f0 = 0.f, f1 = 0.f;
       if (valid && j < ng)
-        encode(scales, ints, emb, L, l0 + j, x, packed, f0, f1);
+        encode<kTet>(scales, ints, emb, L, l0 + j, x, packed, f0, f1);
       tile[tid * stride + 2 * j] = f0;
       tile[tid * stride + 2 * j + 1] = f1;
     }
@@ -122,18 +126,32 @@ __global__ void __launch_bounds__(kSamplerPoints)
   }
 }
 
+template <bool kTet>
+int launch(const void* x01, const void* emb, const void* scales,
+           const void* ints, void* out, int n, int n_levels, int packed,
+           void* stream) {
+  const int blocks = (n + kSamplerPoints - 1) / kSamplerPoints;
+  hash_sampler_fwd_kernel<kTet>
+      <<<blocks, kSamplerPoints, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x01), static_cast<const float2*>(emb),
+          static_cast<const float*>(scales), static_cast<const int*>(ints),
+          static_cast<float*>(out), n, n_levels, packed);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch.
+// interp: 0 trilinear, 1 tetrahedral (packed only). Returns
+// cudaGetLastError() after the launch.
 extern "C" int hash_sampler_fwd(const void* x01, const void* emb,
                                 const void* scales, const void* ints,
                                 void* out, int n, int n_levels, int packed,
-                                void* stream) {
-  const int blocks = (n + kSamplerPoints - 1) / kSamplerPoints;
-  hash_sampler_fwd_kernel<<<blocks, kSamplerPoints, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x01), static_cast<const float2*>(emb),
-      static_cast<const float*>(scales), static_cast<const int*>(ints),
-      static_cast<float*>(out), n, n_levels, packed);
-  return static_cast<int>(cudaGetLastError());
+                                int interp, void* stream) {
+  if (interp == 0)
+    return launch<false>(x01, emb, scales, ints, out, n, n_levels, packed,
+                         stream);
+  if (interp == 1 && packed)
+    return launch<true>(x01, emb, scales, ints, out, n, n_levels, packed,
+                        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

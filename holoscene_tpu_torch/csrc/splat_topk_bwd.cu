@@ -29,14 +29,14 @@
 // dcand, 67 MB for lists [1024, 1024, 16], of which the walk writes a
 // third), but the time goes to operations as in K2: the alpha of every
 // (candidate, pixel) pair and, for the live ones, a log1p, an exp, a
-// division and ten sums over the tile (the exp, the division and the
-// chain's sums in double: splat_walk.cuh::backprop_chunk says why). The
+// division and ten sums over the tile (everything after the alpha in
+// double: splat_walk.cuh::backprop_chunk says why). The
 // walk is K2's, splat_walk.cuh::backprop_tile: per-warp slabs instead of
 // shared-memory atomics, a 12-shuffle transposing butterfly, alphas in
 // groups of eight with a ballot so that only candidates live in the warp
 // reach the serial part, the next chunk fetched by cp.async meanwhile. One
-// block per tile, one thread per pixel; a 256-thread block takes 52 KB of
-// dynamic shared memory and 80 registers a thread (44 bytes spilled): three
+// block per tile, one thread per pixel; a 256-thread block takes 53 KB of
+// dynamic shared memory and 80 registers a thread (36 bytes spilled): three
 // blocks an SM. Sums are taken in a fixed order, so the result is the same
 // bits from launch to launch.
 

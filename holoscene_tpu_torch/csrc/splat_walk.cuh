@@ -45,9 +45,10 @@
 // hit together (54%); the alpha test of all 128 candidates was 13%, the
 // per-pixel chain 17%. What this one does about it:
 //  - no atomics: within a chunk a warp meets a candidate once, so it STORES
-//    its ten partial sums in a slab of its own ([128][10] floats a warp,
-//    dynamic shared memory) and records in a 128-bit mask which candidates
-//    it reached; after the chunk the block adds the slabs in warp order,
+//    its ten partial sums in a slab of its own ([32][10] doubles a warp for
+//    the 32 candidates of one mask word, two of them in turn, dynamic
+//    shared memory) and records in a 128-bit mask which candidates it
+//    reached; after each word the block adds the slabs in warp order,
 //    skipping slabs whose bit is clear, and writes whole 64-byte rows. The
 //    order of every sum is fixed: two launches give the same bits.
 //  - ten sums in 12 shuffles: a transposing butterfly in which a lane keeps
@@ -60,7 +61,7 @@
 //    (log1p, the exp of the running suffix, the division) and the sums.
 //  - the next chunk in flight: two staging buffers filled by cp.async, the
 //    copy of chunk j+1 issued before chunk j is worked on. Only the 12
-//    floats of a row that the walk reads are staged (52 KB of shared
+//    floats of a row that the walk reads are staged (53 KB of shared
 //    memory a 256-thread block with the slabs).
 
 #pragma once
@@ -313,13 +314,32 @@ __device__ __forceinline__ FwdPixel composite_tile(const float* first, int m,
 // ---------------------------------------------------------------------------
 
 
-// Dynamic shared memory of a backward block with n_warps warps, in floats:
-//   stage [2][kChunk][kStageRows] | slabs [n_warps][kChunk][kGradRows]
-//   | masks [n_warps][4] (unsigned)
+// The precision of the reverse walk after the alphas: the per-pixel chain
+// and the ten gradient terms (term_t), and the terms' sums over the tile
+// (sum_t: the warp reduction, the slabs, the sum of the warps' slabs).
+// Both are double; the defines build the float variants that
+// utils/walk_bench.py --gs_train compares (backprop_chunk says why).
+#ifdef SPLAT_BWD_FLOAT_TERMS
+using term_t = float;
+#else
+using term_t = double;
+#endif
+#ifdef SPLAT_BWD_FLOAT_SUMS
+using sum_t = float;
+#else
+using sum_t = double;
+#endif
+
+constexpr int kWord = 32;  // candidates of one mask word, one slab
+
+// Dynamic shared memory of a backward block with n_warps warps, in bytes:
+//   stage [2][kChunk][kStageRows] float | slabs [2][n_warps][kWord][kGradRows]
+//   sum_t | masks [n_warps][4] unsigned
 inline size_t bwd_smem_bytes(int threads) {
   const size_t n_warps = threads / 32;
-  return sizeof(float) * (2 * kChunk * kStageRows +
-                          n_warps * kChunk * kGradRows + n_warps * 4);
+  return sizeof(float) * 2 * kChunk * kStageRows +
+         sizeof(sum_t) * 2 * n_warps * kWord * kGradRows +
+         sizeof(unsigned) * n_warps * 4;
 }
 
 // Let a backward kernel use that much dynamic shared memory (above 48 KB a
@@ -341,33 +361,33 @@ inline cudaError_t allow_bwd_smem(Kernel kernel, size_t bytes) {
 // its partner, so the sums end spread over the lanes: the lane with
 // grad_row(lane) >= 0 returns that row's sum. The order of the additions is
 // fixed by the lane numbers alone.
-__device__ __forceinline__ float reduce_rows(const float (&g)[kGradRows],
-                                             int lane) {
+template <typename T>
+__device__ __forceinline__ T reduce_rows(const T (&g)[kGradRows], int lane) {
   const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4, u1 = lane & 2;
-  float h[5], m[3], n[2];
+  T h[5], m[3], n[2];
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
-    const float mine = u4 ? g[5 + i] : g[i];
-    const float theirs = u4 ? g[i] : g[5 + i];
+    const T mine = u4 ? g[5 + i] : g[i];
+    const T theirs = u4 ? g[i] : g[5 + i];
     h[i] = mine + __shfl_xor_sync(kFullWarp, theirs, 16);
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const float upper = i < 2 ? h[3 + i] : 0.f;
-    const float mine = u3 ? upper : h[i];
-    const float theirs = u3 ? h[i] : upper;
+    const T upper = i < 2 ? h[3 + i] : T(0);
+    const T mine = u3 ? upper : h[i];
+    const T theirs = u3 ? h[i] : upper;
     m[i] = mine + __shfl_xor_sync(kFullWarp, theirs, 8);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float upper = i < 1 ? m[2] : 0.f;
-    const float mine = u2 ? upper : m[i];
-    const float theirs = u2 ? m[i] : upper;
+    const T upper = i < 1 ? m[2] : T(0);
+    const T mine = u2 ? upper : m[i];
+    const T theirs = u2 ? m[i] : upper;
     n[i] = mine + __shfl_xor_sync(kFullWarp, theirs, 4);
   }
-  const float mine = u1 ? n[1] : n[0];
-  const float theirs = u1 ? n[0] : n[1];
-  float q = mine + __shfl_xor_sync(kFullWarp, theirs, 2);
+  const T mine = u1 ? n[1] : n[0];
+  const T theirs = u1 ? n[0] : n[1];
+  T q = mine + __shfl_xor_sync(kFullWarp, theirs, 2);
   q += __shfl_xor_sync(kFullWarp, q, 1);
   return q;
 }
@@ -381,49 +401,95 @@ __device__ __forceinline__ int grad_row(int lane) {
   return 5 * (lane >> 4) + 3 * b3 + low;
 }
 
-// Reverse walk of the staged chunk `sc` [kChunk][kStageRows] by one warp at
-// its lanes' pixels (px, py): rebuilds
+// Add the warps' slabs of mask word `word` in warp order, a slab only where
+// its warp reached the candidate, and write the word's kWord gradient rows
+// of the chunk at dst whole (columns kGradRows.. are zeros): thread pairs
+// take a row, one its first eight columns, the other the rest.
+__device__ __forceinline__ void store_word_grads(float* dst,
+                                                 const sum_t* slabs,
+                                                 const unsigned* masks,
+                                                 int n_warps, int word, int p,
+                                                 int n_pix) {
+  for (int i = p; i < 2 * kWord; i += n_pix) {
+    const int kw = i >> 1;
+    const int col0 = (i & 1) * 8;
+    const int n_cols = (i & 1) ? kGradRows - 8 : 8;
+    sum_t acc[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[r] = sum_t(0);
+    for (int wp = 0; wp < n_warps; ++wp) {
+      if (!((masks[wp * 4 + word] >> kw) & 1u)) continue;
+      const sum_t* s = slabs + (wp * kWord + kw) * kGradRows + col0;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r < n_cols) acc[r] += s[r];
+      }
+    }
+    float4* out =
+        reinterpret_cast<float4*>(dst + (word * kWord + kw) * kRows + col0);
+    out[0] = make_float4(static_cast<float>(acc[0]), static_cast<float>(acc[1]),
+                         static_cast<float>(acc[2]), static_cast<float>(acc[3]));
+    out[1] = make_float4(static_cast<float>(acc[4]), static_cast<float>(acc[5]),
+                         static_cast<float>(acc[6]), static_cast<float>(acc[7]));
+  }
+}
+
+// Reverse walk of the staged chunk `sc` [kChunk][kStageRows] by the block,
+// each warp at its lanes' pixels (px, py): rebuilds
 //   log T_k = total - sum_{r >= k} log(1 - a_r)
 // from the forward's total and the running `suffix` (never a division by
 // 1 - a), carries s_after = sum_{r > k} w_r s_r, and forms
 //   dL/da_k = T_k s_k - s_after / (1 - a_k),
 // masked to alpha >= 1/255 and a_pre < 0.999 (the clamp), the exponent's
-// gradient masked to power < 0. For every candidate that some lane keeps the
-// warp's ten sums go to slab [kChunk][kGradRows] and the candidate's bit is
-// set in mask [4]; the other entries of the slab are left as they were.
+// gradient masked to power < 0. The candidates go a mask word (kWord) at a
+// time: for every candidate of the word that some lane keeps the warp's ten
+// sums go to its slab of the word [kWord][kGradRows] (`slabs` holds both
+// buffers of all warps) and the candidate's bit is set in its mask [4];
+// then the block adds the word's slabs into dst, the chunk's gradient rows
+// (store_word_grads). Slabs alternate between words, so one barrier a word
+// keeps a slab from being written while it is read.
 // Both sums are kept as the plain version keeps them: a partial over the
 // chunk's later candidates beside the sum over the later chunks, which takes
 // the chunk's partial once, at its end. A single running sum over a tile's
 // thousands of live candidates rounds far from plain's: on an H100, at
 // chip_smoke.py phase 16's frame (tiles of up to 70 chunks), it put K2 up
-// to 1.2e-2 off plain; kept this way K2 is 7.0e-4 off plain, and 1.2e-3 off
-// float64 sums where float32 plain is 9.8e-4 off them.
-// Everything after the alpha (the two sums, T_k, w, s, dL/da and the
-// exponent's gradient) is taken in double; the alphas, log1p and the ten
-// terms stay float, and so do the sums over the tile. At chip_smoke.py
-// phase 17's gs_train frame, opaque gaussians wider than the view sit in
-// front of the camera with their centres far outside it, so a conic
-// gradient sums dpow * dx^2 with dx of hundreds of pixels over the tile,
-// and the sum cancels: with a float32 chain K2 was 41.2 off plain's
-// float64 sums (41 values outside 5e-4 + 5e-3 |exact|; float32 plain 20.1
-// off). The double chain brings the error of dpow down to what that sum
-// can bear.
-__device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
-                                               unsigned* mask, float px,
-                                               float py, bool in_img,
-                                               float total,
+// to 1.2e-2 off plain.
+// Everything after the alpha is taken in double: log(1 - a), the two sums,
+// T_k, w, s, dL/da, the ten terms, their sums over the warp and over the
+// warps. At chip_smoke.py phase 17's gs_train frame, opaque gaussians
+// wider than the view sit in front of the camera with their centres far
+// outside it, so a conic gradient sums dpow * dx^2 with dx of hundreds of
+// pixels over the tile, and the sum cancels: with a float32 chain K2 was
+// 41.2 off plain's float64 sums (float32 plain 20.1 off); with the chain
+// in double and the terms and sums in float, one value of ~133 was still
+// 0.665 off (its tolerance 5e-4 + 5e-3 |exact| = 0.666) in one run of
+// seven. utils/walk_bench.py --gs_train measures each float variant at
+// that frame; on an H100 80GB HBM3 at 700 W, at two such frames, K2's
+// worst value as a share of its tolerance: 0.66 / 0.35 with the terms and
+// sums in float (SPLAT_BWD_FLOAT_TERMS + _SUMS), 0.57 / 0.30 with only
+// the terms in float (they and log1pf carry most of it), 0.05 / 0.17 with
+// only the sums in float, 0.0000 with neither. The double walk costs K2 0.48
+// -> 0.77 ms at that frame and 0.51 -> 0.93 ms at chip_smoke.py phase 8's.
+__device__ __forceinline__ void backprop_chunk(const float* sc, float* dst,
+                                               sum_t* slabs, unsigned* masks,
+                                               float px, float py,
+                                               bool in_img, float total,
                                                const float (&v)[5],
                                                double& suffix,
-                                               double& s_after, int lane,
-                                               int row) {
+                                               double& s_after, int p,
+                                               int n_pix) {
+  const int lane = p & 31, warp = p >> 5, n_warps = n_pix >> 5;
+  const int row = grad_row(lane);
   // log T before this chunk's candidates
   const double head = static_cast<double>(total) - suffix;
   double part = 0.0;    // sum log(1 - a), later in the chunk
   double s_part = 0.0;  // sum w s, later in the chunk
-  for (int word = kChunk / 32 - 1; word >= 0; --word) {
+  for (int word = kChunk / kWord - 1; word >= 0; --word) {
+    sum_t* buf = slabs + (word & 1) * n_warps * kWord * kGradRows;
+    sum_t* slab = buf + warp * kWord * kGradRows;
     unsigned reached = 0;  // bit k % 32: some lane keeps candidate k
-    for (int grp = 32 / kGroup - 1; grp >= 0; --grp) {
-      const int k0 = word * 32 + grp * kGroup;
+    for (int grp = kWord / kGroup - 1; grp >= 0; --grp) {
+      const int k0 = word * kWord + grp * kGroup;
       // the group's alphas, independent of each other and of the chain
       float e[kGroup];
       unsigned negative = 0;  // bit i: power < 0 at this pixel
@@ -453,17 +519,21 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
         const float4 c0 = *reinterpret_cast<const float4*>(c);
         const float4 c1 = *reinterpret_cast<const float4*>(c + 4);
         const float4 c2 = *reinterpret_cast<const float4*>(c + 8);
-        const float dx = px - c0.x;
-        const float dy = py - c0.y;
-        const float ca = c0.z, cb = c0.w, cc = c1.x;
+        const term_t dx = px - c0.x;
+        const term_t dy = py - c0.y;
+        const term_t ca = c0.z, cb = c0.w, cc = c1.x;
         const float a_pre = c1.y * e[i];
         const float a = fminf(0.999f, a_pre);
-        float g[kGradRows];
+        term_t g[kGradRows];
 #pragma unroll
-        for (int r = 0; r < kGradRows; ++r) g[r] = 0.f;
+        for (int r = 0; r < kGradRows; ++r) g[r] = term_t(0);
         if (a >= kAlphaEps) {
           const double ad = a;
+#ifdef SPLAT_BWD_FLOAT_TERMS
           const double incl = part + static_cast<double>(log1pf(-a));
+#else
+          const double incl = part + log1p(-ad);
+#endif
           const double tr = in_img ? exp(head - incl) : 0.0;
           const double w = ad * tr;
           const double s = static_cast<double>(v[0]) * c1.z +
@@ -474,59 +544,35 @@ __device__ __forceinline__ void backprop_chunk(const float* sc, float* slab,
           const double da = a_pre < 0.999f
                                 ? tr * s - (s_part + s_after) / (1.0 - ad)
                                 : 0.0;
-          const float dpow =
-              (negative >> i) & 1u ? static_cast<float>(da * ad) : 0.0f;
+          const term_t dpow = (negative >> i) & 1u
+                                  ? static_cast<term_t>(da * ad)
+                                  : term_t(0);
           g[0] = dpow * (ca * dx + cb * dy);
           g[1] = dpow * (cb * dx + cc * dy);
-          g[2] = dpow * (-0.5f * dx * dx);
+          g[2] = dpow * (term_t(-0.5) * dx * dx);
           g[3] = dpow * (-dx * dy);
-          g[4] = dpow * (-0.5f * dy * dy);
-          g[5] = static_cast<float>(da * e[i]);
-          g[6] = static_cast<float>(v[0] * w);
-          g[7] = static_cast<float>(v[1] * w);
-          g[8] = static_cast<float>(v[2] * w);
-          g[9] = static_cast<float>(v[3] * w);
+          g[4] = dpow * (term_t(-0.5) * dy * dy);
+          g[5] = static_cast<term_t>(da * e[i]);
+          g[6] = static_cast<term_t>(v[0] * w);
+          g[7] = static_cast<term_t>(v[1] * w);
+          g[8] = static_cast<term_t>(v[2] * w);
+          g[9] = static_cast<term_t>(v[3] * w);
           part = incl;
           s_part += w * s;
         }
-        const float sum = reduce_rows(g, lane);
-        if (row >= 0) slab[k * kGradRows + row] = sum;
+        sum_t gs[kGradRows];
+#pragma unroll
+        for (int r = 0; r < kGradRows; ++r) gs[r] = static_cast<sum_t>(g[r]);
+        const sum_t sum = reduce_rows(gs, lane);
+        if (row >= 0) slab[(k - word * kWord) * kGradRows + row] = sum;
       }
     }
-    if (lane == 0) mask[word] = reached;
+    if (lane == 0) masks[warp * 4 + word] = reached;
+    __syncthreads();  // the word's slabs and masks are complete
+    store_word_grads(dst, buf, masks, n_warps, word, p, n_pix);
   }
   suffix += part;
   s_after += s_part;
-}
-
-// Add the warps' slabs of one chunk in warp order, a slab only where its
-// warp reached the candidate, and write the chunk's kChunk gradient rows
-// whole (columns kGradRows.. are zeros): thread pairs take a row, one its
-// first eight columns, the other the rest.
-__device__ __forceinline__ void store_chunk_grads(float* dst,
-                                                  const float* slabs,
-                                                  const unsigned* masks,
-                                                  int n_warps, int p,
-                                                  int n_pix) {
-  for (int i = p; i < 2 * kChunk; i += n_pix) {
-    const int k = i >> 1;
-    const int col0 = (i & 1) * 8;
-    const int n_cols = (i & 1) ? kGradRows - 8 : 8;
-    float acc[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] = 0.f;
-    for (int wp = 0; wp < n_warps; ++wp) {
-      if (!((masks[wp * 4 + (k >> 5)] >> (k & 31)) & 1u)) continue;
-      const float* s = slabs + (wp * kChunk + k) * kGradRows + col0;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (r < n_cols) acc[r] += s[r];
-      }
-    }
-    float4* out = reinterpret_cast<float4*>(dst + k * kRows + col0);
-    out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
 }
 
 // The reverse walk of one tile by its block (one thread per pixel): `used`
@@ -542,14 +588,11 @@ __device__ __forceinline__ void backprop_tile(const float* cand_last,
   extern __shared__ __align__(16) float bwd_smem[];
   const int p = threadIdx.x;
   const int n_pix = blockDim.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
   const int n_warps = n_pix >> 5;
-  const int row = grad_row(lane);
-  constexpr int kSlab = kChunk * kGradRows;
   float* stage = bwd_smem;
-  float* slabs = bwd_smem + 2 * kStage;
-  unsigned* masks = reinterpret_cast<unsigned*>(slabs + n_warps * kSlab);
+  sum_t* slabs = reinterpret_cast<sum_t*>(bwd_smem + 2 * kStage);
+  unsigned* masks =
+      reinterpret_cast<unsigned*>(slabs + 2 * n_warps * kWord * kGradRows);
 
   double suffix = 0.0;   // sum log(1 - a) over later candidates
   double s_after = 0.0;  // sum w s over later candidates
@@ -557,18 +600,15 @@ __device__ __forceinline__ void backprop_tile(const float* cand_last,
   for (int j = 0; j < used; ++j) {
     wait_prefetch();
     // chunk j has landed for everyone, and everyone is done with chunk
-    // j-1: its staging buffer and the slabs are free again
+    // j-1: its staging buffer is free again
     __syncthreads();
     if (j + 1 < used) {
       prefetch_chunk(stage + ((j + 1) & 1) * kStage,
                      cand_last - (j + 1) * kStep, p, n_pix);
     }
-    backprop_chunk(stage + (j & 1) * kStage, slabs + warp * kSlab,
-                   masks + warp * 4, px, py, in_img, total, v, suffix,
-                   s_after, lane, row);
-    __syncthreads();  // the slabs and masks of chunk j are complete
-    store_chunk_grads(dcand_last - j * kStep, slabs, masks, n_warps, p,
-                      n_pix);
+    backprop_chunk(stage + (j & 1) * kStage, dcand_last - j * kStep, slabs,
+                   masks, px, py, in_img, total, v, suffix, s_after, p,
+                   n_pix);
   }
 }
 

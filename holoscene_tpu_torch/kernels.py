@@ -46,14 +46,14 @@ _SIGNATURES = {
     # img_w, img_h, stream
     "splat_topk_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x01, emb_a, emb_b, scales, ints, feats_a, J, feats_b, n, n_levels,
-    # stream
-    "hash_fused_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # interp (0 trilinear, 1 tetrahedral), fetch_raw, stream
+    "hash_fused_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x01, ct_fa, ct_J, ct_fb, u_b, u_a, scales, ints, grad_a, grad_b, n,
-    # n_levels, mode, stream
+    # n_levels, mode, interp, stream
     "hash_fused_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P),
-    # x01, emb, scales, ints, out, n, n_levels, packed, stream
-    "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+                       _I, _P),
+    # x01, emb, scales, ints, out, n, n_levels, packed, interp, stream
+    "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # rays_o, rays_d, g13, spheres, n_rays, n_gauss, k, min_kernel,
     # min_alpha, near, degree, idx, count, stream
     "gs_trace_select": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _P,

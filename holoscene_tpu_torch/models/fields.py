@@ -9,13 +9,24 @@ analytic jacobian and the colour-grid features from one H1 call
 trunk (an inner autograd.grad with create_graph, so the outer backward
 reaches H1-bwd with the second-order cotangent). The vjp gradient mode,
 `implicit_get_outputs` (the JAX default, and the background patch's field),
-is the same construction in H1-bwd's exact mode. The eikonal jacobians of
-`implicit_all_gradients` push three tangents through the trunk by hand
-(forward mode), from the single-table H1 call. `implicit_forward` /
-`implicit_sdf_raw` are the plain forward through H1. The sampler's probes
-go through `implicit_sdf_raw_sampler` (H2, no gradient). Stage 3's colour
-field (`ColorField`, `color_field_forward`) encodes through the packed
-encode with its table gradient (H2 forward, H1-bwd backward)."""
+is the same construction in H1-bwd's exact mode. The jvp gradient mode,
+`implicit_get_outputs_jvp`, pushes three tangents through the trunk from
+H1's J (forward mode, as JAX's three jvps), and so do the eikonal
+jacobians of `implicit_all_gradients`, from the single-table H1 call.
+`implicit_forward` / `implicit_sdf_raw` are the plain forward through H1.
+The sampler's probes go through `implicit_sdf_raw_sampler` (H2, no
+gradient). Stage 3's colour field (`ColorField`, `color_field_forward`)
+encodes through the packed encode with its table gradient (H2 forward,
+H1-bwd backward).
+
+Every network variant of the JAX package runs: `grid_interp` trilinear or
+tetrahedral (H1 / H2's tetrahedral instantiations), the fused encode's
+`fused_fetch` packed or raw, no colour grid (`color_grid_feature = false`:
+the feature vectors are the head's columns after the K SDFs), no grid
+features (`use_grid_feature = false`: zeros in their place, the colour
+grid still encoded), `fused_dual_grid` (H1 fetches both tables in one pass
+whatever it says), and the rendering network's `mode = nerf`.
+`level_dim` other than 2 is refused (`require_ported` says why)."""
 
 from __future__ import annotations
 
@@ -33,6 +44,8 @@ from holoscene_tpu_torch.ops.embedder import (
     positional_encoding_jvp,
 )
 from holoscene_tpu_torch.ops.hashgrid import (
+    FETCHES,
+    INTERPS,
     HashGridMeta,
     hash_encode_fused_dual,
     hash_encode_packed,
@@ -60,6 +73,7 @@ class ImplicitNetworkConfig:
     logmap: int = 19
     num_levels: int = 16
     level_dim: int = 2
+    fused_dual_grid: bool = False
     grid_interp: str = "trilinear"
     dense_max_res: int = 0
     fused_fetch: str = "packed"
@@ -70,6 +84,13 @@ class ImplicitNetworkConfig:
         if self.sdf_bwd_sample and not self.color_bwd_sample:
             raise ValueError("sdf_bwd_sample=True requires "
                              "color_bwd_sample=True")
+
+    @property
+    def fused_ok(self) -> bool:
+        """The fused encode's configs (JAX holoscene.py:358 fused_ok): a
+        colour grid, grid features, trilinear interpolation."""
+        return (self.color_grid_feature and self.use_grid_feature
+                and self.grid_interp == "trilinear")
 
     @property
     def grid_meta(self) -> HashGridMeta:
@@ -110,6 +131,7 @@ class ImplicitNetworkConfig:
             logmap=conf.get_int("logmap", 19),
             num_levels=conf.get_int("num_levels", 16),
             level_dim=conf.get_int("level_dim", 2),
+            fused_dual_grid=conf.get_bool("fused_dual_grid", False),
             grid_interp=conf.get_string("grid_interp", "trilinear"),
             dense_max_res=conf.get_int("dense_max_res", 0),
             fused_fetch=conf.get_string("fused_fetch", "packed"),
@@ -196,22 +218,34 @@ def _kaiming(rng, in_dim: int, out_dim: int) -> PlainLinear:
                        rng.uniform(-bb, bb, out_dim))
 
 
+LEVEL_DIM_REASON = (
+    "level_dim {} is not run: every Stage-1 render of the JAX package "
+    "builds build_dense_block_tables (holoscene_tpu/models/holoscene.py:"
+    "228), which asserts level_dim == 2 (holoscene_tpu/ops/hashgrid.py:586),"
+    " so no JAX configuration trains another; the port's hash-grid kernels "
+    "read two channels a row")
+
+
 def require_ported(cfg: ImplicitNetworkConfig) -> None:
-    """Raise unless the network runs on the fused dual-table encode (H1):
-    colour grid, level_dim 2, grid features, trilinear interpolation."""
-    if not (cfg.color_grid_feature and cfg.level_dim == 2
-            and cfg.use_grid_feature and cfg.grid_interp == "trilinear"):
-        raise NotImplementedError(
-            "the port runs the fused encode only (color_grid_feature, "
-            "level_dim 2, use_grid_feature, trilinear); see ROADMAP.md "
-            "queue A")
+    """Raise on a network the port does not run: level_dim other than 2
+    (LEVEL_DIM_REASON), or an unknown interpolation or fetch."""
+    if cfg.level_dim != 2:
+        raise NotImplementedError(LEVEL_DIM_REASON.format(cfg.level_dim))
+    if cfg.grid_interp not in INTERPS:
+        raise ValueError(f"grid_interp must be one of {INTERPS}, got "
+                         f"{cfg.grid_interp!r}")
+    if cfg.fused_fetch not in FETCHES:
+        raise ValueError(f"fused_fetch must be one of {FETCHES}, got "
+                         f"{cfg.fused_fetch!r}")
 
 
 class ImplicitNetwork(nn.Module):
     """ObjectImplicitNetworkGrid: hash-grid features + sin/cos embedding ->
     weight-norm softplus MLP -> K object SDFs; the colour grid through a
-    two-layer ReLU MLP gives the feature vectors. Geometric init flips the
-    background's sign against the objects."""
+    two-layer ReLU MLP gives the feature vectors (without a colour grid,
+    the MLP's head gives them after the K SDFs, and there is no
+    `color_grid` / `color_map_mlp`). Geometric init flips the background's
+    sign against the objects."""
 
     def __init__(self, cfg: ImplicitNetworkConfig, seed: int = 0):
         super().__init__()
@@ -243,12 +277,14 @@ class ImplicitNetwork(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         self.grid = nn.Parameter(init_hash_embeddings(cfg.grid_meta, gen))
         self.mlp = nn.ModuleDict(layers)
-        self.color_grid = nn.Parameter(init_hash_embeddings(cfg.grid_meta,
-                                                            gen))
-        grid_dim = cfg.num_levels * cfg.level_dim
-        self.color_map_mlp = nn.ModuleDict({
-            "lin0": _kaiming(rng, grid_dim, 256),
-            "lin1": _kaiming(rng, 256, cfg.feature_vector_size)})
+        self.color_grid = self.color_map_mlp = None
+        if cfg.color_grid_feature:
+            self.color_grid = nn.Parameter(
+                init_hash_embeddings(cfg.grid_meta, gen))
+            grid_dim = cfg.num_levels * cfg.level_dim
+            self.color_map_mlp = nn.ModuleDict({
+                "lin0": _kaiming(rng, grid_dim, 256),
+                "lin1": _kaiming(rng, 256, cfg.feature_vector_size)})
 
     def _layers(self):
         return [self.mlp[f"lin{i}"] for i in range(len(self.mlp))]
@@ -292,6 +328,44 @@ class ImplicitNetwork(nn.Module):
         cf = torch.relu(self.color_map_mlp["lin0"](cf))
         return self.color_map_mlp["lin1"](cf)
 
+    def split(self, h: torch.Tensor, cf: torch.Tensor | None):
+        """The trunk's head h -> (sdf_raw [N, K], feature vectors [N, F] or
+        None): with a colour grid the head is the SDFs and the features come
+        from its encode cf (None: none asked for); without one the head's
+        columns after the K SDFs are the features."""
+        if self.cfg.color_grid_feature:
+            return h, None if cf is None else self.color_features(cf)
+        d = self.cfg.d_out
+        return h[:, :d], h[:, d:]
+
+    def encode(self, x01: torch.Tensor, with_color: bool,
+               levels: int | None = None, mode: str = "exact", u_b=None,
+               u_a=None, fetch: str = "packed"):
+        """(grid features [N, 2l], J [2l, 3, N], colour-grid features or
+        None) of x01 [N, 3] at the first `levels` levels (all by default),
+        from one H1 call in the network's stencil. `fetch` is the fused
+        gradient mode's fused_fetch (JAX reads it there alone; every other
+        encode of JAX's is the packed one). Without grid features
+        (use_grid_feature = false) the features and J are zeros, as JAX's
+        render takes them, and the colour grid is encoded alone."""
+        cfg = self.cfg
+        want_b = with_color and cfg.color_grid_feature
+        if cfg.use_grid_feature:
+            out = hash_encode_fused_dual(
+                x01, self.grid, self.color_grid if want_b else None,
+                cfg.grid_meta, levels, mode, u_b, u_a, cfg.grid_interp, fetch)
+            return out[0], out[1], out[2] if want_b else None
+        n = x01.shape[0]
+        width = cfg.level_dim * (levels or cfg.num_levels)
+        feats = x01.new_zeros(n, width)
+        J = x01.new_zeros(width, 3, n)
+        cf = None
+        if want_b:
+            cf = hash_encode_fused_dual(x01, self.color_grid, None,
+                                        cfg.grid_meta, levels,
+                                        interp=cfg.grid_interp)[0]
+        return feats, J, cf
+
 
 def semantic_from_sdf(sdf_raw: torch.Tensor, k: float) -> torch.Tensor:
     return k * torch.sigmoid(-k * sdf_raw)
@@ -304,28 +378,32 @@ def _x01(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
 def implicit_get_outputs_fused(net: ImplicitNetwork, x: torch.Tensor,
                                mode: str = "exact", u_b=None, u_a=None,
                                coarse_levels: int | None = None,
-                               create_graph: bool = True):
+                               create_graph: bool = True,
+                               fetch: str | None = None):
     """x [N, 3] -> (sdf [N], feature_vectors [N, F], gradients [N, 3],
     semantic [N, K], sdf_raw [N, K]); gradients = d scene-SDF / dx from one
     H1 call. coarse_levels encodes only that prefix (fine features and J
     zero-padded). mode / u_b / u_a select H1-bwd's hashed-level scatter
-    (ops/hashgrid.py). create_graph=False (eval) keeps no graph for the
-    outer backward."""
+    (ops/hashgrid.py); fetch defaults to the config's fused_fetch.
+    create_graph=False (eval) keeps no graph for the outer backward."""
     cfg = net.cfg
     L = cfg.num_levels
     levels = coarse_levels if coarse_levels and coarse_levels < L else None
-    feats, J, cf = hash_encode_fused_dual(
-        _x01(net, x.detach()), net.grid, net.color_grid, cfg.grid_meta,
-        levels, mode, u_b, u_a)
+    feats, J, cf = net.encode(
+        _x01(net, x.detach()), True, levels, mode, u_b, u_a,
+        cfg.fused_fetch if fetch is None else fetch)
     miss = L * cfg.level_dim - feats.shape[-1]
     if miss:
         feats = F.pad(feats, (0, miss))
-        cf = F.pad(cf, (0, miss))
+        cf = None if cf is None else F.pad(cf, (0, miss))
         J = F.pad(J, (0, 0, 0, 0, 0, miss))
     with torch.enable_grad():
-        f_in = feats if create_graph else feats.detach().requires_grad_(True)
+        # the features carry the outer graph when they have one (not the
+        # zeros of a network without grid features)
+        f_in = (feats if create_graph and feats.requires_grad
+                else feats.detach().requires_grad_(True))
         p_in = x.detach().requires_grad_(True)
-        sdf_raw = net.trunk(p_in, f_in)
+        sdf_raw, feature_vectors = net.split(net.trunk(p_in, f_in), cf)
         sdf = torch.amin(sdf_raw, -1)
         eq = (sdf_raw == sdf[:, None]).to(sdf_raw.dtype).detach()
         ct_sdf = eq / eq.sum(-1, keepdim=True)
@@ -334,7 +412,7 @@ def implicit_get_outputs_fused(net: ImplicitNetwork, x: torch.Tensor,
     gradients = (torch.einsum("nf,fdn->nd", ct_feat, J)
                  * (1.0 / (2.0 * cfg.divide_factor)) + ct_x)
     semantic = semantic_from_sdf(sdf_raw, cfg.sigmoid)
-    return sdf, net.color_features(cf), gradients, semantic, sdf_raw
+    return sdf, feature_vectors, gradients, semantic, sdf_raw
 
 
 def implicit_get_outputs(net: ImplicitNetwork, x: torch.Tensor,
@@ -342,7 +420,8 @@ def implicit_get_outputs(net: ImplicitNetwork, x: torch.Tensor,
     """The vjp gradient mode (JAX implicit_get_outputs, fields.py:449):
     (sdf, feature_vectors, gradients, semantic, sdf_raw) as
     implicit_get_outputs_fused returns them, with H1-bwd in exact mode
-    (JAX's vjp mode has no sampled backward).
+    (JAX's vjp mode has no sampled backward) and the packed fetch (JAX's
+    vjp mode reads the packed hash_encode whatever fused_fetch says).
 
     JAX builds the scene-SDF gradient as the pullback of the tie-sharing
     min cotangent eq / eq.sum(-1) through one forward of the packed
@@ -354,9 +433,46 @@ def implicit_get_outputs(net: ImplicitNetwork, x: torch.Tensor,
     coordinate at exactly x01 = 1 on a level whose scale * 1 is an integer,
     and there the corners they disagree on carry zero weight, so features,
     J and table gradients agree to rounding (tests/test_torch_fields.py
-    pins this)."""
+    pins this). The tetrahedral stencil wraps as JAX's does: its J does
+    not vanish at a face (csrc/hash_grid.cuh::tet_rows)."""
     return implicit_get_outputs_fused(net, x, "exact",
-                                      create_graph=create_graph)
+                                      create_graph=create_graph,
+                                      fetch="packed")
+
+
+def _min_tangent(raw: torch.Tensor, traw: torch.Tensor) -> torch.Tensor:
+    """The tangent of the min over the last axis: ties share it equally, as
+    JAX's reduce_min jvp does. raw [N, K], traw [T, N, K] -> [T, N]."""
+    eq = (raw == torch.amin(raw, -1, keepdim=True)).to(raw.dtype).detach()
+    return (traw * eq).sum(-1) / eq.sum(-1)
+
+
+def _tangents(net: ImplicitNetwork, x: torch.Tensor, J: torch.Tensor):
+    """The three basis tangents of the points and of the grid features
+    (J [F, 3, N] scaled by d x01 / dx): ([3, N, 3], [3, N, F])."""
+    n = x.shape[0]
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    tx = eye[:, None, :].expand(3, n, 3)
+    return tx, J.permute(1, 2, 0) * (0.5 / net.cfg.divide_factor)
+
+
+def implicit_get_outputs_jvp(net: ImplicitNetwork, x: torch.Tensor):
+    """The jvp gradient mode (JAX implicit_get_outputs_jvp, fields.py:479):
+    the outputs of implicit_get_outputs, the scene-SDF gradient from three
+    forward-mode tangents through the trunk (trunk_jvp), whose grid-feature
+    tangents are H1's J (one H1 call, both tables, exact backward: the
+    outer backward reaches H1-bwd through J, as JAX's reverse pass through
+    its jvp-augmented graph does). The min's tangent shares ties as JAX's
+    reduce_min jvp does."""
+    feats, J, cf = net.encode(_x01(net, x.detach()), True)
+    tx, tfeat = _tangents(net, x, J)
+    h, th = net.trunk_jvp(x.detach(), feats, tx, tfeat)
+    sdf_raw, feature_vectors = net.split(h, cf)
+    traw = th[..., :sdf_raw.shape[-1]]
+    gradients = _min_tangent(sdf_raw, traw).T
+    sdf = torch.amin(sdf_raw, -1)
+    semantic = semantic_from_sdf(sdf_raw, net.cfg.sigmoid)
+    return sdf, feature_vectors, gradients, semantic, sdf_raw
 
 
 def implicit_forward(net: ImplicitNetwork, x: torch.Tensor,
@@ -366,14 +482,9 @@ def implicit_forward(net: ImplicitNetwork, x: torch.Tensor,
     from one H1 call (its jacobian unused); with_features=False encodes the
     SDF table alone. Differentiable in the parameters (H1-bwd, exact); the
     points' cotangent is computed on the CPU only (ops/hashgrid.py)."""
-    cfg = net.cfg
-    out = hash_encode_fused_dual(_x01(net, x), net.grid,
-                                 net.color_grid if with_features else None,
-                                 cfg.grid_meta)
-    sdf_raw = net.trunk(x, out[0])
-    if not with_features:
-        return sdf_raw, None
-    return sdf_raw, net.color_features(out[2])
+    feats, _, cf = net.encode(_x01(net, x), with_features)
+    sdf_raw, feature_vectors = net.split(net.trunk(x, feats), cf)
+    return sdf_raw, feature_vectors if with_features else None
 
 
 def implicit_sdf_raw(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
@@ -409,11 +520,18 @@ def implicit_sdf_raw_grid(net: ImplicitNetwork,
     The packed encode wraps a dense level's row where H2 clamps the cell;
     they name different rows only at x01 = 1 on a level of integer scale,
     and those corners carry zero weight (tests/test_torch_extract.py, on
-    the boundary planes of an extraction grid at every dense level)."""
+    the boundary planes of an extraction grid at every dense level). A
+    tetrahedral field's grid goes through H2's tetrahedral stencil, which
+    wraps as JAX's does; without grid features the grid reads zeros, as
+    JAX's implicit_sdf_raw does."""
+    cfg = net.cfg
     with torch.no_grad():
-        feats = hash_encode_sampler(_x01(net, x), net.grid, net.cfg.grid_meta,
-                                    packed=True)
-        return net.trunk(x, feats)
+        if cfg.use_grid_feature:
+            feats = hash_encode_sampler(_x01(net, x), net.grid, cfg.grid_meta,
+                                        packed=True, interp=cfg.grid_interp)
+        else:
+            feats = x.new_zeros(x.shape[0], cfg.num_levels * cfg.level_dim)
+        return net.split(net.trunk(x, feats), None)[0]
 
 
 def implicit_shift_sdf_raw(net: ImplicitNetwork,
@@ -435,24 +553,23 @@ def implicit_all_gradients(net: ImplicitNetwork, x: torch.Tensor):
     [N, K+1, 3], by three forward-mode tangents through the trunk from one
     single-table H1 call (features + J of the SDF grid); also returns the
     raw SDFs [N, K] of the same evaluation."""
-    cfg = net.cfg
-    n = x.shape[0]
-    feats, J = hash_encode_fused_dual(_x01(net, x.detach()), net.grid, None,
-                                      cfg.grid_meta)
-    eye = torch.eye(3, dtype=x.dtype, device=x.device)
-    tx = eye[:, None, :].expand(3, n, 3)
-    tfeat = J.permute(1, 2, 0) * (0.5 / cfg.divide_factor)   # [3, N, F]
-    raw, traw = net.trunk_jvp(x.detach(), feats, tx, tfeat)
-    # min's tangent shares ties equally, as JAX's reduce_min jvp does
-    eq = (raw == torch.amin(raw, -1, keepdim=True)).to(raw.dtype).detach()
-    tmin = (traw * eq).sum(-1) / eq.sum(-1)
-    grads = torch.cat([traw, tmin[..., None]], -1)          # [3, N, K+1]
+    feats, J, _ = net.encode(_x01(net, x.detach()), False)
+    tx, tfeat = _tangents(net, x, J)
+    h, th = net.trunk_jvp(x.detach(), feats, tx, tfeat)
+    raw = net.split(h, None)[0]
+    traw = th[..., :raw.shape[-1]]
+    grads = torch.cat([traw, _min_tangent(raw, traw)[..., None]], -1)
     return grads.permute(1, 2, 0), raw
 
 
 def implicit_sdf_raw_sampler(net: ImplicitNetwork, x: torch.Tensor,
                              grid_levels: int | None = None) -> torch.Tensor:
-    """SDF-only forward for the sampler's probes (H2, no gradient)."""
+    """SDF-only forward for the sampler's probes (H2, no gradient). As
+    JAX's (fields.py:375), it reads the SDF grid trilinearly whatever the
+    network's grid_interp, and even without grid features
+    (use_grid_feature = false), where the render reads zeros: the JAX
+    package's sampler and render then see different fields (ROADMAP.md
+    queue C), and the port keeps the JAX package's behaviour."""
     cfg = net.cfg
     with torch.no_grad():
         feats = hash_encode_sampler(_x01(net, x), net.grid, cfg.grid_meta,
@@ -460,16 +577,20 @@ def implicit_sdf_raw_sampler(net: ImplicitNetwork, x: torch.Tensor,
         miss = cfg.num_levels * cfg.level_dim - feats.shape[-1]
         if miss:
             feats = F.pad(feats, (0, miss))
-        return net.trunk(x, feats)
+        return net.split(net.trunk(x, feats), None)[0]
 
 
 class RenderingNetwork(nn.Module):
     """IDR rendering MLP on (points, view dirs, normals, features); points
     and normals are embedded with the view embedder, as the reference
-    does."""
+    does. mode = nerf reads the view dirs and the features alone (JAX
+    rendering_forward, fields.py:678)."""
 
     def __init__(self, cfg: RenderingNetworkConfig, seed: int = 0):
         super().__init__()
+        if cfg.mode not in ("idr", "nerf"):
+            raise NotImplementedError(f"rendering mode {cfg.mode!r}: JAX "
+                                      f"knows idr and nerf")
         self.cfg = cfg
         rng = np.random.default_rng(seed)
         dims = cfg.layer_dims
@@ -486,13 +607,14 @@ class RenderingNetwork(nn.Module):
         cfg = self.cfg
         if cfg.multires_view > 0:
             view_dirs = positional_encoding(view_dirs, cfg.multires_view)
-        if cfg.mode != "idr":
-            raise NotImplementedError(cfg.mode)
-        if cfg.multires_point > 0:
-            points = positional_encoding(points, cfg.multires_view)
-        if cfg.multires_normal > 0:
-            normals = positional_encoding(normals, cfg.multires_view)
-        h = torch.cat([points, view_dirs, normals, feature_vectors], -1)
+        if cfg.mode == "nerf":
+            h = torch.cat([view_dirs, feature_vectors], -1)
+        else:
+            if cfg.multires_point > 0:
+                points = positional_encoding(points, cfg.multires_view)
+            if cfg.multires_normal > 0:
+                normals = positional_encoding(normals, cfg.multires_view)
+            h = torch.cat([points, view_dirs, normals, feature_vectors], -1)
         n_layers = len(self.mlp)
         for i in range(n_layers):
             h = self.mlp[f"lin{i}"](h)

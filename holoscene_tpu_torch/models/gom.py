@@ -67,6 +67,9 @@ class GoMConfig:
     # only used + trim_slack chunks per tile
     trim_flat: bool = True
     trim_slack: int = 2
+    # JAX's switch between its Pallas tile kernels and plain XLA, kept so a
+    # JAX config builds; read nowhere: the port composites with K1-K4
+    use_pallas: bool | None = None
 
 
 # ---------------------------------------------------------------------------

@@ -7,16 +7,19 @@ render_rays keeps the shipped fast path of the JAX package: sample
 placement from the error-bound sampler (probe grid or H2 probes), top-M
 pruning by the sampler's estimated weights, tiered fine levels (the F
 highest-weight samples of a ray get every hash level, the tail the coarse
-prefix), the fused encode-with-jacobian (H1), and the eikonal block from
-one single-table H1 call. The vjp gradient mode (the JAX default) renders
-untiered through `implicit_get_outputs` (H1, exact backward). Every random
+prefix), the fused encode-with-jacobian (H1, packed or raw fetch), and
+the eikonal block from one single-table H1 call. The vjp gradient mode
+(the JAX default) renders untiered through `implicit_get_outputs` (H1,
+exact backward), the jvp mode through `implicit_get_outputs_jvp` (three
+tangents from H1's J); the fused mode on a network the fused encode does
+not take (no colour grid, no grid features, tetrahedral) falls back to the
+vjp mode, as JAX's does. Every random
 number is an argument (`RenderDraws`). Stage 2 renders objects in isolation
 with render_rays_only_multi_obj (H2 sampler over the subset's SDF, H1
 exact); render_rays_multi_obj renders a subset inside the scene. With
 the occupancy grid (use_occupancy) each ray's sampling interval is
 restricted to its occupied span on the steps that do not update the grid,
-and the update steps fold the sampler's probe buffer back into it. Not
-ported (ROADMAP.md A.17): the jvp gradient mode and the raw fetch."""
+and the update steps fold the sampler's probe buffer back into it."""
 
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from holoscene_tpu_torch.models.fields import (
     implicit_all_gradients,
     implicit_get_outputs,
     implicit_get_outputs_fused,
+    implicit_get_outputs_jvp,
     implicit_sdf_raw_sampler,
 )
 from holoscene_tpu_torch.ops.density import laplace_beta, laplace_density
@@ -57,8 +61,7 @@ from holoscene_tpu_torch.ops.volrend import (
     volume_render_weights,
 )
 
-_NOT_PORTED = "not ported yet, see ROADMAP.md queue A"
-GRAD_MODES = ("vjp", "fused")
+GRAD_MODES = ("vjp", "jvp", "fused")
 BG_PATCH = 32     # the background patch's side in pixels (JAX make_train_step)
 
 
@@ -86,13 +89,8 @@ class HoloSceneConfig:
 
     def __post_init__(self):
         if self.forward_grad_mode not in GRAD_MODES:
-            raise NotImplementedError(
-                f"forward_grad_mode={self.forward_grad_mode!r}: the port "
-                f"runs {GRAD_MODES}; jvp is {_NOT_PORTED} (A.17)")
-        if self.implicit.fused_fetch != "packed":
-            raise NotImplementedError(
-                f"fused_fetch={self.implicit.fused_fetch!r}: the port runs "
-                f"the packed fetch only; raw is {_NOT_PORTED}")
+            raise ValueError(f"forward_grad_mode must be one of "
+                             f"{GRAD_MODES}, got {self.forward_grad_mode!r}")
         if not (self.render_top_m == 0 or self.render_top_m >= 2):
             raise ValueError(f"render_top_m must be 0 or >= 2, got "
                              f"{self.render_top_m}")
@@ -108,6 +106,11 @@ class HoloSceneConfig:
             if self.forward_grad_mode != "fused":
                 raise ValueError("render_fine_top_f requires "
                                  "forward_grad_mode='fused'")
+            if not self.implicit.fused_ok:
+                raise ValueError(
+                    "render_fine_top_f requires the fused-encode-eligible "
+                    "implicit config (color_grid_feature, use_grid_feature, "
+                    "trilinear interp)")
 
     @property
     def num_semantic(self) -> int:
@@ -169,13 +172,21 @@ def get_beta(model: HoloSceneModel) -> torch.Tensor:
     return laplace_beta(model.density["beta"], model.cfg.beta_min)
 
 
+def fused_path(cfg: HoloSceneConfig) -> bool:
+    """The render runs the fused encode: the fused gradient mode on a
+    network it takes (JAX holoscene.py:380); the fused mode on any other
+    network renders in the vjp mode, as JAX's does."""
+    return cfg.forward_grad_mode == "fused" and cfg.implicit.fused_ok
+
+
 def fused_mode(cfg: HoloSceneConfig, training: bool) -> str:
     """H1-bwd's mode of the render calls: the sampled backward in training
-    when the config asks for it in the fused gradient mode, else exact
-    (the vjp mode has no sampled backward)."""
+    when the config asks for it on the fused path with the packed fetch,
+    else exact (the vjp and jvp modes and the raw fetch have no sampled
+    backward, JAX fields.py:532)."""
     ic = cfg.implicit
-    if not (training and ic.color_bwd_sample
-            and cfg.forward_grad_mode == "fused"):
+    if not (training and ic.color_bwd_sample and fused_path(cfg)
+            and ic.fused_fetch == "packed"):
         return "exact"
     return "sampled_all" if ic.sdf_bwd_sample else "sampled"
 
@@ -339,7 +350,9 @@ def render_rays(model: HoloSceneModel, rays_o, rays_d, depth_scale, w2c_rot,
     fused = draws.fused if training else [None, None]
 
     def outputs(pts, u, coarse_levels=None):
-        if cfg.forward_grad_mode == "vjp":
+        if cfg.forward_grad_mode == "jvp":
+            return implicit_get_outputs_jvp(model.implicit, pts)
+        if not fused_path(cfg):
             return implicit_get_outputs(model.implicit, pts,
                                         create_graph=training)
         u_b, u_a = u if u is not None else (None, None)

@@ -17,17 +17,22 @@ at x01 == 1 and in rounding):
     gradient (Stage 3's colour field): H2 packed forward, H1-bwd without
     the jacobian term backward, the dense cell clamped (a zero-weight
     corner apart at x01 == 1).
-  * `hash_encode_fused_dual` (fused, packed fetch): both tables' values
-    rounded to bf16 at every level, the dense cell clamped to [0, r-2];
+  * `hash_encode_fused_dual` (fused): both tables' values rounded to bf16
+    at every level (fetch "packed") or read as they are (fetch "raw", JAX's
+    _fused_core with fetch="raw"), the dense cell clamped to [0, r-2];
     features of tables a and b and J_a = d feats_a / d x01. Forward H1-fwd
     (csrc/hash_fused_fwd.cu), backward H1-bwd (csrc/hash_fused_bwd.cu) in
     the modes exact / sampled / sampled_all. With emb_b=None it is the
     single-table mode (features + J of table a) the eikonal jacobians use.
+    interp="tetrahedral" takes JAX's _encode_core_tet stencil (4 corners,
+    barycentric weights; packed fetch, exact backward): the packed
+    hash_encode(interp="tetrahedral") of the vjp and jvp gradient modes.
   * `hash_encode_sampler`: the first `grid_levels` levels, dense levels
     from exact float32 rows with clamped cells, hashed levels as the packed
     encode; no gradient. H2 (csrc/hash_sampler_fwd.cu). With packed=True
     the dense levels' values are rounded to bf16 too: the packed encode
-    with clamped cells, which mesh extraction evaluates its grids with.
+    with clamped cells, which mesh extraction evaluates its grids with
+    (trilinear or, for a tetrahedral field, tetrahedral).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (and counts
 the launch on itself, `fused_fwd.launches` ...) and runs its plain PyTorch
@@ -52,6 +57,8 @@ _PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
 MODES = ("exact", "sampled", "sampled_all")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
+INTERPS = ("trilinear", "tetrahedral")
+FETCHES = ("packed", "raw")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,25 +267,57 @@ def hash_encode(inputs: torch.Tensor, embeddings: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _fused_rows_frac(x01: torch.Tensor, lt: LevelTables):
-    """(rows [L, 8, N] int64, frac [L, 3, N] f32) of the fused semantics:
-    dense cells clamped to [0, r-2], hashed levels unclamped."""
+def _fused_cells(x01: torch.Tensor, lt: LevelTables):
+    """(cell [L, 3, N] int64 lower corners, frac [L, 3, N] f32) of the
+    fused semantics: dense cells clamped to [0, r-2], hashed levels
+    unclamped."""
     dev = x01.device
-    res, sizes, offsets = (torch.as_tensor(a, device=dev)
-                           for a in (lt.res, lt.sizes, lt.offsets))
+    res = torch.as_tensor(lt.res, device=dev)
     pos = torch.as_tensor(lt.scales, device=dev)[:, None, None] * x01.T[None]
     ld = lt.n_dense
-    rows, fracs = [], []
+    cells, fracs = [], []
     if ld:
         top = (res[:ld] - 2).to(torch.float32)[:, None, None]
         cf = torch.minimum(torch.clamp(torch.floor(pos[:ld]), min=0.0), top)
         fracs.append(pos[:ld] - cf)
-        rows.append(_dense_rows(cf.long(), res[:ld], offsets[:ld]))
+        cells.append(cf)
     if lt.n_hashed:
         pf = torch.floor(pos[ld:])
         fracs.append(pos[ld:] - pf)
-        rows.append(_hash_rows(pf.long(), sizes[ld:], offsets[ld:]))
-    return torch.cat(rows), torch.cat(fracs)
+        cells.append(pf)
+    return torch.cat(cells).long(), torch.cat(fracs)
+
+
+def _grid_rows(cg: torch.Tensor, lt: LevelTables,
+               wrap: bool = False) -> torch.Tensor:
+    """Grid points cg [L, K, 3, N] int64 -> rows [L, K, N]: row-major with
+    stride res on the dense levels (modulo the level's size with wrap, as
+    JAX's packed encode takes it), the xor-prime hash % size on the
+    others, plus the level's offset."""
+    dev = cg.device
+    res, sizes, offsets = (torch.as_tensor(a, device=dev)[:, None, None]
+                           for a in (lt.res, lt.sizes, lt.offsets))
+    ld = lt.n_dense
+    rows = []
+    if ld:
+        c, r = cg[:ld], res[:ld]
+        idx = c[:, :, 0] + r * (c[:, :, 1] + r * c[:, :, 2])
+        rows.append(idx % sizes[:ld] if wrap else idx)
+    if lt.n_hashed:
+        c = cg[ld:]
+        h = (c[:, :, 0] * _PRIMES[0]) & _MASK32
+        for d in (1, 2):
+            h = h ^ ((c[:, :, d] * _PRIMES[d]) & _MASK32)
+        rows.append(h % sizes[ld:])
+    return torch.cat(rows) + offsets
+
+
+def _fused_rows_frac(x01: torch.Tensor, lt: LevelTables):
+    """(rows [L, 8, N] int64, frac [L, 3, N] f32) of the fused semantics
+    (trilinear corners of _fused_cells)."""
+    cell, frac = _fused_cells(x01, lt)
+    cg = cell[:, None] + _corner_bits(x01.device)[None, :, :, None]
+    return _grid_rows(cg, lt), frac
 
 
 def _fused_weights(frac, scales):
@@ -304,21 +343,70 @@ def _fused_weights(frac, scales):
     return ws, cw, dcw, dws, dds
 
 
-def fused_fwd_plain(x01, emb_a, emb_b, lt: LevelTables):
+def _tet_stencil(x01: torch.Tensor, lt: LevelTables):
+    """JAX's _encode_core_tet: (rows [L, 4, N], cw [L, 4, N], dcw 3 x
+    [L, 4, N]). The cell is floor(pos) on every level and a dense level's
+    row index wraps modulo its size, as JAX's does (the clamped cell of the
+    trilinear stencil gives the same features at x01 = 1 but another,
+    one-sided J: csrc/hash_grid.cuh::tet_rows). rank_d (descending order of
+    the fractions; a tie puts the higher dimension first) from JAX's strict
+    comparisons; vertex k adds e_d where rank_d < k; weights [1 - g0,
+    g0 - g1, g1 - g2, g2] of the sorted fractions; d cw_k / d x01_d =
+    scale ([rank_d == k - 1] - [rank_d == k]), piecewise constant."""
+    pos = torch.as_tensor(lt.scales, device=x01.device)[:, None, None] \
+        * x01.T[None]
+    pf = torch.floor(pos)
+    cell, f = pf.long(), pos - pf
+    gt01, gt02, gt12 = f[:, 0] > f[:, 1], f[:, 0] > f[:, 2], f[:, 1] > f[:, 2]
+    rank = torch.stack([(~gt01).long() + (~gt02).long(),
+                        gt01.long() + (~gt12).long(),
+                        gt02.long() + gt12.long()], 1)       # [L, 3, N]
+    ks = torch.arange(4, device=x01.device)[None, :, None, None]
+    cg = cell[:, None] + (rank[:, None] < ks).long()         # [L, 4, 3, N]
+    g = torch.gather(f, 1, torch.argsort(rank, 1))            # descending
+    cw = torch.stack([1.0 - g[:, 0], g[:, 0] - g[:, 1], g[:, 1] - g[:, 2],
+                      g[:, 2]], 1)
+    sc = torch.as_tensor(lt.scales, device=x01.device)[:, None, None]
+    k4 = torch.arange(4, device=x01.device)[None, :, None]
+    dcw = [torch.where(rank[:, None, d] == k4 - 1, sc, 0.0)
+           - torch.where(rank[:, None, d] == k4, sc, 0.0) for d in range(3)]
+    return _grid_rows(cg, lt, wrap=True), cw, dcw
+
+
+def _check_interp(interp: str, fetch: str = "packed") -> None:
+    if interp not in INTERPS:
+        raise ValueError(f"interp must be one of {INTERPS}, got {interp!r}")
+    if fetch not in FETCHES:
+        raise ValueError(f"fetch must be one of {FETCHES}, got {fetch!r}")
+    if interp == "tetrahedral" and fetch == "raw":
+        raise ValueError("the raw fetch is the fused encode's, which is "
+                         "trilinear only (JAX fields.py:527)")
+
+
+def _values(emb: torch.Tensor, fetch: str) -> torch.Tensor:
+    return emb.to(torch.bfloat16).float() if fetch == "packed" else emb
+
+
+def fused_fwd_plain(x01, emb_a, emb_b, lt: LevelTables,
+                    interp: str = "trilinear", fetch: str = "packed"):
     """H1-fwd's plain version: (feats_a [N, L*2], J_a [L*2, 3, N],
     feats_b [N, L*2] or None)."""
+    _check_interp(interp, fetch)
     n, L = x01.shape[0], lt.n_levels
-    rows, frac = _fused_rows_frac(x01, lt)
-    _, cw, dcw, _, _ = _fused_weights(frac, torch.as_tensor(lt.scales,
-                                                            device=x01.device))
+    if interp == "tetrahedral":
+        rows, cw, dcw = _tet_stencil(x01, lt)
+    else:
+        rows, frac = _fused_rows_frac(x01, lt)
+        _, cw, dcw, _, _ = _fused_weights(
+            frac, torch.as_tensor(lt.scales, device=x01.device))
     valid = (~_oob(x01)).float()
-    va = emb_a.to(torch.bfloat16).float()[rows]           # [L, 8, N, 2]
+    va = _values(emb_a, fetch)[rows]                      # [L, K, N, 2]
     fa = torch.stack([(cw * va[..., c]).sum(1) * valid for c in (0, 1)], 1)
     J = torch.stack([torch.stack([(dcw[d] * va[..., c]).sum(1) * valid
                                   for d in range(3)], 1) for c in (0, 1)], 1)
     fb = None
     if emb_b is not None:
-        vb = emb_b.to(torch.bfloat16).float()[rows]
+        vb = _values(emb_b, fetch)[rows]
         fb = torch.stack([(cw * vb[..., c]).sum(1) * valid for c in (0, 1)], 1)
         fb = fb.reshape(L * 2, n).T.contiguous()
     return fa.reshape(L * 2, n).T.contiguous(), J.reshape(L * 2, 3, n), fb
@@ -334,14 +422,23 @@ def _scatter(grad_flat, rows, vals):
 
 def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
                     mode: str, u_b=None, u_a=None, emb_a=None, emb_b=None,
-                    need_x=False):
+                    need_x=False, interp: str = "trilinear",
+                    fetch: str = "packed"):
     """H1-bwd's plain version: (grad_a [n_rows, 2], grad_b [n_rows, 2] or
     None, ct_x01 [N, 3] or None). The fused per-corner cotangent of table a
     is cw ct_f + sum_d dcw_d ct_J[d] (cw ct_f with ct_J None: no jacobian
     term); table b's is cw ct_f. Dense levels
     scatter every corner in every mode; hashed levels follow `mode`
-    (JAX hashgrid.py _hash_fused_bwd). need_x also returns the cotangent of
-    x01 from the gathered values (emb_a / emb_b needed)."""
+    (JAX hashgrid.py _hash_fused_bwd; the tetrahedral stencil in exact mode
+    only). need_x also returns the cotangent of x01 from the gathered
+    values (emb_a / emb_b needed, fetched as `fetch` fetches them)."""
+    _check_interp(interp, fetch)
+    if interp == "tetrahedral":
+        if mode != "exact":
+            raise ValueError("the tetrahedral stencil's backward is exact "
+                             "only (JAX samples the fused trilinear one)")
+        return _tet_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt, emb_a,
+                              emb_b, need_x)
     n, L, ld = x01.shape[0], lt.n_levels, lt.n_dense
     scales = torch.as_tensor(lt.scales, device=x01.device)
     rows, frac = _fused_rows_frac(x01, lt)
@@ -393,10 +490,10 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
                               for c in ch])
     ct_x = None
     if need_x:
-        va = emb_a.to(torch.bfloat16).float()[rows]
+        va = _values(emb_a, fetch)[rows]
         v_dot_f = va[..., 0] * cfa[:, 0, None] + va[..., 1] * cfa[:, 1, None]
         if has_b:
-            vb = emb_b.to(torch.bfloat16).float()[rows]
+            vb = _values(emb_b, fetch)[rows]
             v_dot_f = v_dot_f + vb[..., 0] * cfb[:, 0, None] \
                 + vb[..., 1] * cfb[:, 1, None]
         v_dot_J = [va[..., 0] * cJa[:, 0, e, None] + va[..., 1] * cJa[:, 1, e, None]
@@ -414,6 +511,42 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
         ct_x = torch.stack(cols, -1)
     return (ga.reshape(n_rows, 2), gb.reshape(n_rows, 2) if has_b else None,
             ct_x)
+
+
+def _tet_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
+                   emb_a=None, emb_b=None, need_x=False):
+    """fused_bwd_plain of the tetrahedral stencil, exact mode: every corner
+    of both tables. Its weights are linear in x01 and J piecewise constant,
+    so the points' cotangent has no term through J."""
+    n, L = x01.shape[0], lt.n_levels
+    rows, cw, dcw = _tet_stencil(x01, lt)
+    valid = (~_oob(x01)).float()
+    cfa = ct_fa.T.reshape(L, 2, n) * valid
+    if ct_J is None:
+        ca = [cw * cfa[:, c, None] for c in (0, 1)]
+    else:
+        cJa = ct_J.reshape(L, 2, 3, n) * valid
+        ca = [cw * cfa[:, c, None] + sum(dcw[d] * cJa[:, c, d, None]
+                                         for d in range(3)) for c in (0, 1)]
+    ga = torch.zeros(n_rows * 2, device=x01.device)
+    _scatter(ga, rows, ca)
+    gb = None
+    if ct_fb is not None:
+        cfb = ct_fb.T.reshape(L, 2, n) * valid
+        gb = torch.zeros(n_rows * 2, device=x01.device)
+        _scatter(gb, rows, [cw * cfb[:, c, None] for c in (0, 1)])
+    ct_x = None
+    if need_x:
+        va = _values(emb_a, "packed")[rows]
+        v_dot_f = va[..., 0] * cfa[:, 0, None] + va[..., 1] * cfa[:, 1, None]
+        if ct_fb is not None:
+            vb = _values(emb_b, "packed")[rows]
+            v_dot_f = v_dot_f + vb[..., 0] * cfb[:, 0, None] \
+                + vb[..., 1] * cfb[:, 1, None]
+        ct_x = torch.stack([(v_dot_f * dcw[d]).sum((0, 1)) for d in range(3)],
+                           -1)
+    return (ga.reshape(n_rows, 2),
+            gb.reshape(n_rows, 2) if gb is not None else None, ct_x)
 
 
 # ---------------------------------------------------------------------------
@@ -460,12 +593,16 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def fused_fwd(x01, emb_a, emb_b, lt: LevelTables):
+def fused_fwd(x01, emb_a, emb_b, lt: LevelTables,
+              interp: str = "trilinear", fetch: str = "packed"):
     """H1-fwd. CUDA tensors: launches `hash_fused_fwd` of
-    csrc/hash_fused_fwd.cu (a block a tile of 32 points x all levels) and
-    counts it in `fused_fwd.launches`; CPU tensors: fused_fwd_plain."""
+    csrc/hash_fused_fwd.cu (a block a tile of 32 points x all levels; the
+    instantiation of `interp` and `fetch`) and counts it in
+    `fused_fwd.launches` and in `variant_launches`; CPU tensors:
+    fused_fwd_plain."""
+    _check_interp(interp, fetch)
     if not x01.is_cuda:
-        return fused_fwd_plain(x01, emb_a, emb_b, lt)
+        return fused_fwd_plain(x01, emb_a, emb_b, lt, interp, fetch)
     from holoscene_tpu_torch import kernels
 
     n, L, dev = x01.shape[0], lt.n_levels, x01.device
@@ -485,26 +622,47 @@ def fused_fwd(x01, emb_a, emb_b, lt: LevelTables):
         st = kernels.library().hash_fused_fwd(
             x01.data_ptr(), emb_a.data_ptr(), _ptr(emb_b), scales.data_ptr(),
             ints.data_ptr(), fa.data_ptr(), J.data_ptr(), _ptr(fb), n, L,
+            INTERPS.index(interp), FETCHES.index(fetch),
             torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(st, "hash_fused_fwd")
         fused_fwd.launches += 1
+        _count("fused_fwd", (interp, fetch))
     return fa, J, fb
+
+
+# Launches by kernel instantiation: {(wrapper name, instantiation key):
+# count}, the keys (interp, fetch) of fused_fwd, (interp, mode) of
+# fused_bwd and (interp, packed) of sampler_fwd. A module dict rather than
+# an attribute of the wrapper, so that it survives a caller's wrapping of
+# the wrapper; the totals stay on the wrappers (`.launches`).
+variant_launches: dict = {}
+
+
+def _count(name: str, key) -> None:
+    variant_launches[name, key] = variant_launches.get((name, key), 0) + 1
+
+
+def reset_variant_counts() -> None:
+    variant_launches.clear()
 
 
 fused_fwd.launches = 0
 
 
 def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
-              u_b=None, u_a=None):
+              u_b=None, u_a=None, interp: str = "trilinear"):
     """H1-bwd. CUDA tensors: launches `hash_fused_bwd` of
     csrc/hash_fused_bwd.cu (point tiles, warp-aggregated atomics into
-    zero-initialised [n_rows, 2] grads) and counts it in
-    `fused_bwd.launches`; CPU tensors: fused_bwd_plain. ct_J None: no
-    jacobian term (the packed encode's transpose). Returns (grad_a, grad_b
-    or None)."""
+    zero-initialised [n_rows, 2] grads; the instantiation of `interp`) and
+    counts it in `fused_bwd.launches` and in `variant_launches`; CPU
+    tensors: fused_bwd_plain. ct_J None: no jacobian term (the packed
+    encode's transpose). Returns (grad_a, grad_b or None)."""
+    _check_interp(interp)
+    if interp == "tetrahedral" and mode != "exact":
+        raise ValueError("the tetrahedral stencil's backward is exact only")
     if not x01.is_cuda:
         return fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt, mode,
-                               u_b, u_a)[:2]
+                               u_b, u_a, interp=interp)[:2]
     from holoscene_tpu_torch import kernels
 
     n, L, dev = x01.shape[0], lt.n_levels, x01.device
@@ -532,9 +690,11 @@ def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
             _ptr(u_b) if mode != "exact" else 0,
             _ptr(u_a) if mode == "sampled_all" else 0,
             scales.data_ptr(), ints.data_ptr(), ga.data_ptr(), _ptr(gb), n, L,
-            _MODE_ID[mode], torch.cuda.current_stream(dev).cuda_stream)
+            _MODE_ID[mode], INTERPS.index(interp),
+            torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(st, "hash_fused_bwd")
         fused_bwd.launches += 1
+        _count("fused_bwd", (interp, mode))
     return ga, gb
 
 
@@ -547,9 +707,10 @@ class _FusedEncode(torch.autograd.Function):
     (training points are leaves); on the card asking for it raises."""
 
     @staticmethod
-    def forward(ctx, x01, emb_a, emb_b, lt, mode, u_b, u_a):
-        fa, J, fb = fused_fwd(x01, emb_a, emb_b, lt)
+    def forward(ctx, x01, emb_a, emb_b, lt, mode, u_b, u_a, interp, fetch):
+        fa, J, fb = fused_fwd(x01, emb_a, emb_b, lt, interp, fetch)
         ctx.lt, ctx.mode, ctx.has_b = lt, mode, emb_b is not None
+        ctx.interp, ctx.fetch = interp, fetch
         ctx.save_for_backward(x01, emb_a, emb_b, u_b, u_a)
         return (fa, J, fb) if emb_b is not None else (fa, J)
 
@@ -566,17 +727,21 @@ class _FusedEncode(torch.autograd.Function):
                     "hash_encode_fused_dual: the cotangent of the points is "
                     "not computed on the card (training points are leaves)")
             ct_x = fused_bwd_plain(x01, emb_a.shape[0], *cts, ctx.lt,
-                                   ctx.mode, u_b, u_a, emb_a, emb_b, True)[2]
+                                   ctx.mode, u_b, u_a, emb_a, emb_b, True,
+                                   ctx.interp, ctx.fetch)[2]
         ga, gb = fused_bwd(x01, emb_a.shape[0], *cts, ctx.lt, ctx.mode, u_b,
-                           u_a)
-        return ct_x, ga, gb, None, None, None, None
+                           u_a, ctx.interp)
+        return ct_x, ga, gb, None, None, None, None, None, None
 
 
 def hash_encode_fused_dual(x01, emb_a, emb_b, meta: HashGridMeta,
                            levels: int | None = None, mode: str = "exact",
-                           u_b=None, u_a=None):
-    """Dual-table encode + analytic jacobian of table a (fused, packed
-    fetch semantics). x01 [N, 3]; emb_a / emb_b [rows, 2] (the full tables:
+                           u_b=None, u_a=None, interp: str = "trilinear",
+                           fetch: str = "packed"):
+    """Dual-table encode + analytic jacobian of table a (fused semantics;
+    fetch "packed" rounds the values to bf16, "raw" reads them as they are;
+    interp "tetrahedral" takes the 4-corner stencil, exact mode only).
+    x01 [N, 3]; emb_a / emb_b [rows, 2] (the full tables:
     `levels` < L encodes the coarse prefix, as JAX's prefix_meta with a
     table_rows slice does, and the gradients land in the same rows).
 
@@ -590,6 +755,10 @@ def hash_encode_fused_dual(x01, emb_a, emb_b, meta: HashGridMeta,
     hashed levels among `levels`."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _check_interp(interp, fetch)
+    if mode != "exact" and (interp != "trilinear" or fetch != "packed"):
+        raise ValueError("the sampled backward needs the trilinear, packed "
+                         "encode (JAX fields.py:532)")
     lt = level_tables(meta, levels)
     n = x01.shape[0]
     if mode != "exact":
@@ -606,7 +775,7 @@ def hash_encode_fused_dual(x01, emb_a, emb_b, meta: HashGridMeta,
     if mode == "exact":
         u_b = None
     return _FusedEncode.apply(x01.contiguous(), emb_a, emb_b, lt, mode, u_b,
-                              u_a)
+                              u_a, interp, fetch)
 
 
 # ---------------------------------------------------------------------------
@@ -614,11 +783,16 @@ def hash_encode_fused_dual(x01, emb_a, emb_b, meta: HashGridMeta,
 # ---------------------------------------------------------------------------
 
 
-def sampler_fwd_plain(x01, emb, lt: LevelTables,
-                      packed: bool = False) -> torch.Tensor:
+def sampler_fwd_plain(x01, emb, lt: LevelTables, packed: bool = False,
+                      interp: str = "trilinear") -> torch.Tensor:
     """H2's plain version: [N, L*2] for the first L = lt.n_levels levels;
     dense levels exact float32 (bf16 when packed) with clamped cells,
-    hashed levels bf16 with the wrapped hash; out-of-range points zero."""
+    hashed levels bf16 with the wrapped hash; out-of-range points zero.
+    interp "tetrahedral" (packed only): fused_fwd_plain's features of the
+    tetrahedral stencil, table a alone."""
+    _check_sampler_interp(interp, packed)
+    if interp == "tetrahedral":
+        return fused_fwd_plain(x01, emb, None, lt, interp)[0]
     n, L, ld = x01.shape[0], lt.n_levels, lt.n_dense
     dev = x01.device
     res, sizes, offsets = (torch.as_tensor(a, device=dev)
@@ -649,14 +823,24 @@ def sampler_fwd_plain(x01, emb, lt: LevelTables,
     return out.permute(1, 0, 2).reshape(n, L * 2)
 
 
-def sampler_fwd(x01, emb, lt: LevelTables,
-                packed: bool = False) -> torch.Tensor:
+def _check_sampler_interp(interp: str, packed: bool) -> None:
+    _check_interp(interp)
+    if interp == "tetrahedral" and not packed:
+        raise ValueError("H2 takes the tetrahedral stencil in its packed "
+                         "mode only (the sampler's probes stay trilinear, "
+                         "as JAX's do)")
+
+
+def sampler_fwd(x01, emb, lt: LevelTables, packed: bool = False,
+                interp: str = "trilinear") -> torch.Tensor:
     """H2. CUDA tensors: launches `hash_sampler_fwd` of
     csrc/hash_sampler_fwd.cu (a thread a point, the levels in groups of 4
-    staged in shared memory) and counts it in `sampler_fwd.launches`; CPU
-    tensors: sampler_fwd_plain."""
+    staged in shared memory; the instantiation of `interp`) and counts it
+    in `sampler_fwd.launches` and in `variant_launches`; CPU tensors:
+    sampler_fwd_plain."""
+    _check_sampler_interp(interp, packed)
     if not x01.is_cuda:
-        return sampler_fwd_plain(x01, emb, lt, packed)
+        return sampler_fwd_plain(x01, emb, lt, packed, interp)
     from holoscene_tpu_torch import kernels
 
     n, L, dev = x01.shape[0], lt.n_levels, x01.device
@@ -667,10 +851,11 @@ def sampler_fwd(x01, emb, lt: LevelTables,
         scales, ints = lt.device_arrays(dev)
         st = kernels.library().hash_sampler_fwd(
             x01.data_ptr(), emb.data_ptr(), scales.data_ptr(), ints.data_ptr(),
-            out.data_ptr(), n, L, int(packed),
+            out.data_ptr(), n, L, int(packed), INTERPS.index(interp),
             torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(st, "hash_sampler_fwd")
         sampler_fwd.launches += 1
+        _count("sampler_fwd", (interp, bool(packed)))
     return out
 
 
@@ -724,11 +909,13 @@ def hash_encode_world(x, embeddings, meta: HashGridMeta,
 
 def hash_encode_sampler(inputs, embeddings, meta: HashGridMeta,
                         grid_levels: int | None = None,
-                        packed: bool = False) -> torch.Tensor:
+                        packed: bool = False,
+                        interp: str = "trilinear") -> torch.Tensor:
     """SDF-probe encode of the error-bound sampler, no gradient: [N,
     grid_levels*2] (the caller zero-pads the fine levels); packed rounds
-    the dense levels' values to bf16 as well."""
+    the dense levels' values to bf16 as well (and may take the tetrahedral
+    stencil: a tetrahedral field's grid evaluation)."""
     lt = level_tables(meta, grid_levels)
     with torch.no_grad():
         return sampler_fwd(inputs.contiguous(), embeddings.detach(), lt,
-                           packed)
+                           packed, interp)

@@ -39,6 +39,10 @@ def main(argv=None):
     parser.add_argument("--area_to_subdivide", type=float, default=1e-5)
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument(
+        "--use_pallas", default=None, action="store_true",
+        help="accepted so that the JAX package's command line runs; a "
+             "no-op: the kernels K1-K4 are the port's one compositor")
+    parser.add_argument(
         "--max_per_tile", type=int, default=0,
         help="top-K compositing depth per tile; 0 = auto-pick (p99 tile "
              "overlap + saturation calibration; 256 for the invisible-view "
@@ -86,7 +90,8 @@ def main(argv=None):
 
     runner = Stage4Runner(
         meshes, dataset,
-        cfg=GoMConfig(max_per_tile=args.max_per_tile,
+        cfg=GoMConfig(use_pallas=args.use_pallas,
+                      max_per_tile=args.max_per_tile,
                       rebin_every=args.rebin_every,
                       rebin_drift_px=args.rebin_drift_px),
         area_to_subdivide=args.area_to_subdivide,

@@ -97,7 +97,7 @@ def captured_calls(cs_, dev):
                            f"{len(CALLS)} with their backwards")
     out = {}
     for name, (f, b) in zip(CALLS, calls):
-        x01, ea, eb, lt = f
+        x01, ea, eb, lt = f[:4]
         out[name] = ((x01, ea.detach(), None if eb is None else eb.detach(),
                       lt), b)
     return out
@@ -131,7 +131,7 @@ def h2_calls(cs_, dev) -> dict:
             ["--conf", str(conf), "--exps_folder", str(Path(tmp) / "exps"),
              "--max_niters", "1", "--quiet", "--device", "cuda"]),
             ("sampler_fwd",))
-    vjp = sampled["sampler_fwd"][0]
+    vjp = sampled["sampler_fwd"][0][:4]
     if vjp[2].n_levels != full.n_levels or vjp[3]:
         raise RuntimeError(f"the vjp step's sampler call: {vjp[2].n_levels} "
                            f"levels, packed {vjp[3]}")

@@ -26,6 +26,21 @@ sources with one part compiled out under a define. A variant library may
 export `splat_flat_bwd_set_order(order, n)` / `splat_topk_bwd_set_order`; it
 is then given the tiles sorted by `used`, longest first. The last line is
 one JSON object with all of it.
+
+With --gs_train STEPS it measures K2 at chip_smoke.py phase 17 (a)'s frame
+instead: for each --seed, gs_train (splatfacto, capacity 100,000, SH 3) for
+STEPS steps on the generated 512^2 scene, then K1's inputs at training
+frame 0 as the trainer's step hands them over (saved with torch.save to
+--capture DIR/k2_gs_train_seed{S}.pt when given); for the tree and every
+variant, K2's worst deviation from plain's float64 sums as a share of
+chip_smoke's tolerance (BWD_ATOL + BWD_RTOL |exact|), its largest absolute
+deviation, and K1/K2 ms. --frame FILE reads such a capture instead of
+training. The precision variants of the reverse walk are defines of the
+tree's own sources:
+
+    python -m holoscene_tpu_torch.utils.walk_bench --gs_train 700 \
+        --variant terms=holoscene_tpu_torch/csrc:SPLAT_BWD_FLOAT_TERMS \
+        --variant sums=holoscene_tpu_torch/csrc:SPLAT_BWD_FLOAT_SUMS
 """
 
 from __future__ import annotations
@@ -113,10 +128,112 @@ def channel_dev(a, b) -> list:
     return d.amax(0).tolist()
 
 
+def compact_frame(cand, cs, cc, tiles_x, w, h) -> tuple:
+    """The same frame with only each tile's own chunks [cs, cs + cc) kept,
+    in tile order (the flat plan's buffer holds spare chunks beyond them):
+    K1 and K2 give the same results on it, and it is the size a capture
+    has to be."""
+    chunks = cand.reshape(-1, sf.CHUNK, sf.CAND_ROWS)
+    cs64, cc64 = cs.long(), cc.long()
+    idx = torch.repeat_interleave(cs64, cc64) + (
+        torch.arange(int(cc64.sum()), device=cand.device)
+        - torch.repeat_interleave(torch.cumsum(cc64, 0) - cc64, cc64))
+    new_cs = (torch.cumsum(cc64, 0) - cc64).int()
+    return (chunks[idx].reshape(-1, sf.CAND_ROWS).contiguous(), new_cs,
+            cc.clone(), tiles_x, w, h)
+
+
+def gs_train_frames(cs_, steps: int, seeds, capture) -> list:
+    """[(name, (cand, cs, cc, tiles_x, w, h))]: training frame 0 of a
+    gs_train run of `steps` steps for each seed (chip_smoke phase 17 (a)'s
+    settings)."""
+    from holoscene_tpu_torch.datasets.synthetic import generate_scene
+    from holoscene_tpu_torch.training import gs_train
+
+    frames = []
+    with tempfile.TemporaryDirectory(prefix="holoscene_walk_") as tmp:
+        scene = Path(tmp) / "scene_0"
+        generate_scene(str(scene), n_images=cs_.S1_IMAGES,
+                       img_res=(cs_.S1_RES, cs_.S1_RES))
+        for seed in seeds:
+            tr = gs_train.main([
+                "--dataset", "ns", "--data_root", str(scene), "--out",
+                str(Path(tmp) / f"gs_{seed}"), "--capacity",
+                str(cs_.FREE_CAPACITY), "--sh_degree", "3", "--warmup",
+                str(cs_.FREE_WARMUP), "--refine_every", str(cs_.FREE_REFINE),
+                "--iters", str(steps), "--export", "scene.ply", "--seed",
+                str(seed), "--quiet", "--device", "cuda"])
+            inputs = compact_frame(*cs_.free_frame_inputs(tr, 0))
+            name = f"gs_train_seed{seed}"
+            if capture:
+                Path(capture).mkdir(parents=True, exist_ok=True)
+                torch.save(inputs, Path(capture) / f"k2_{name}.pt")
+            frames.append((name, inputs))
+            del tr
+    return frames
+
+
+def k2_precision(cs_, frames, libs, ptxas, card) -> dict:
+    """For each frame and each variant library: K2's worst deviation from
+    plain's float64 sums as a share of chip_smoke's tolerance, its largest
+    absolute deviation, and K1 / K2 ms (CUDA events)."""
+    out = {}
+    for fname, (cand, cs, cc, tiles_x, w, h) in frames:
+        geom = (tiles_x, 16, w, h)
+        kernels.library = lambda: libs["tree"]
+        fwd = sf.flat_fwd(cand, cs, cc, *geom)
+        gen = torch.Generator(device=cand.device).manual_seed(8)
+        v = torch.randn(fwd.shape, generator=gen, device=cand.device)
+        v[..., 5:] = 0.0
+        exact = sf.flat_bwd_plain(cand, cs, fwd, v, *geom,
+                                  acc=torch.float64)
+        plain = sf.flat_bwd_plain(cand, cs, fwd, v, *geom)
+        tol = cs_.BWD_ATOL + cs_.BWD_RTOL * exact.abs()
+        res = {"chunks": cand.shape[0] // sf.CHUNK,
+               "walked_chunks": int(fwd[:, 0, 5].sum()),
+               "float32_plain": {
+                   "tolerance_share": float(((plain.double() - exact).abs()
+                                             / tol).max()),
+                   "max_abs_err_exact": float((plain.double() - exact)
+                                              .abs().max())}}
+        for name, lib in libs.items():
+            kernels.library = lambda lib=lib: lib
+            got = sf.flat_bwd(cand, cs, fwd, v, *geom)
+            x = (got.double() - exact).abs()
+            res[name] = {
+                "tolerance_share": float((x / tol).max()),
+                "max_abs_err_exact": float(x.max()),
+                "values_over": int((x > tol).sum()),
+                "K1_ms": cs_.cuda_ms(lambda: sf.flat_fwd(cand, cs, cc, *geom),
+                                     REPS),
+                "K2_ms": cs_.cuda_ms(lambda: sf.flat_bwd(cand, cs, fwd, v,
+                                                         *geom), REPS)}
+            print(f"{fname} {name}: K2 worst {res[name]['tolerance_share']:.4f}"
+                  f" of its tolerance, max abs err "
+                  f"{res[name]['max_abs_err_exact']:.4g} vs exact sums, "
+                  f"{res[name]['values_over']} values over; K1 "
+                  f"{res[name]['K1_ms']:.4f} ms, K2 {res[name]['K2_ms']:.4f} "
+                  f"ms", flush=True)
+        print(f"{fname}: float32 plain worst "
+              f"{res['float32_plain']['tolerance_share']:.4f} of the "
+              f"tolerance; {res['walked_chunks']} chunks walked; on {card}",
+              flush=True)
+        out[fname] = res
+    return {"card": card, "reps": REPS, "ptxas": ptxas, "frames": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=DIR[:DEFINE,...]")
+    ap.add_argument("--gs_train", type=int, default=0, metavar="STEPS",
+                    help="K2's precision at gs_train's frame after STEPS")
+    ap.add_argument("--seed", type=int, action="append", default=[],
+                    help="gs_train seeds (default 0)")
+    ap.add_argument("--frame", action="append", default=[],
+                    help="a frame saved by --capture, instead of training")
+    ap.add_argument("--capture", default="",
+                    help="directory to save the gs_train frames in")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("walk_bench: needs an NVIDIA GPU", file=sys.stderr)
@@ -145,6 +262,16 @@ def main(argv=None) -> int:
         print(f"built {name} ({path}, {defs}): {ptxas[name]}", flush=True)
     tree_library = kernels.library
     kernels.library = lambda: libs["tree"]
+    if args.gs_train or args.frame:
+        frames = [(Path(f).stem, torch.load(f, map_location="cuda"))
+                  for f in args.frame]
+        if args.gs_train:
+            frames += gs_train_frames(cs_, args.gs_train, args.seed or [0],
+                                      args.capture)
+        result = k2_precision(cs_, frames, libs, ptxas, card)
+        kernels.library = tree_library
+        print(json.dumps(result), flush=True)
+        return 0
 
     with tempfile.TemporaryDirectory(prefix="holoscene_walk_") as tmp:
         work = Path(tmp)

@@ -86,9 +86,11 @@ def test_cli_chain(workdir, monkeypatch):  # noqa: F811
 
     from holoscene_tpu_torch.training import exp_runner_gaussian
 
+    # --use_pallas: JAX's flag, accepted as a no-op
     r4 = exp_runner_gaussian.main(["--conf", "micro.conf", "--max_niters",
                                    "8", "--area_to_subdivide", "0.01",
-                                   "--quiet", *CPU])
+                                   "--quiet", "--use_pallas", *CPU])
+    assert r4.cfg.use_pallas is True
     assert os.path.exists(os.path.join(plots, "gauss_scene.ply"))
     assert np.isfinite(r4.history[-1]["loss"])
     assert len(r4.meshes) == len(r3.meshes)     # Stage 3's surfaces

@@ -446,6 +446,88 @@ def test_hash_fused_fwd_many_levels(cuda, levels):
     _bwd_vs_plain(cuda, x, meta.table_rows, meta, "sampled_all")
 
 
+@pytest.mark.parametrize("levels", [None, 3])
+@pytest.mark.parametrize("dmr", [0, 64])
+@pytest.mark.parametrize("interp,fetch", [("tetrahedral", "packed"),
+                                          ("trilinear", "raw")])
+def test_hash_fused_fwd_variants_match_plain(cuda, interp, fetch, dmr,
+                                             levels):
+    """H1-fwd's tetrahedral (4 corners, JAX's wrapped dense rows) and raw
+    (float32 values) instantiations, both tables and one, against plain;
+    bitwise repeatable; counted under their own key."""
+    meta, ea, eb, x = _hash_case(dmr)
+    x[3:40, 2] = 1.0                             # points on the x01 = 1 face
+    lt = thash.level_tables(meta, levels)
+    key = ("fused_fwd", (interp, fetch))
+    n0 = thash.variant_launches.get(key, 0)
+    for b in (eb, None):
+        ref = thash.fused_fwd_plain(x, ea, b, lt, interp, fetch)
+        args = (x.to(cuda), ea.to(cuda), None if b is None else b.to(cuda), lt,
+                interp, fetch)
+        first, second = thash.fused_fwd(*args), thash.fused_fwd(*args)
+        torch.cuda.synchronize()
+        for r, g, g2 in zip(ref, first, second):
+            if r is None:
+                assert g is None
+                continue
+            assert torch.equal(g, g2)
+            _close(g, r)
+    assert thash.variant_launches[key] == n0 + 4
+
+
+@pytest.mark.parametrize("dmr", [0, 64])
+def test_hash_fused_bwd_tetrahedral_matches_plain(cuda, dmr):
+    """H1-bwd's tetrahedral instantiation (exact mode, the second-order
+    term through J included), uniform and clustered points, against
+    plain; the sampled modes are refused."""
+    meta, ea, eb, x = _hash_case(dmr)
+    lt = thash.level_tables(meta)
+    n, L = x.shape[0], lt.n_levels
+    for pts in (x, _clustered_points(32, 16)):
+        n = pts.shape[0]
+        gen = torch.Generator().manual_seed(2)
+        cts = [torch.randn(n, 2 * L, generator=gen),
+               torch.randn(2 * L, 3, n, generator=gen),
+               torch.randn(n, 2 * L, generator=gen)]
+        ref = thash.fused_bwd_plain(pts, ea.shape[0], *cts, lt, "exact",
+                                    interp="tetrahedral")[:2]
+        dev = [t.to(cuda) for t in (pts, *cts)]
+        key = ("fused_bwd", ("tetrahedral", "exact"))
+        n0 = thash.variant_launches.get(key, 0)
+        got = thash.fused_bwd(dev[0], ea.shape[0], *dev[1:], lt, "exact",
+                              interp="tetrahedral")
+        torch.cuda.synchronize()
+        assert thash.variant_launches[key] == n0 + 1
+        for r, g in zip(ref, got):
+            _close(g, r)
+    with pytest.raises(ValueError, match="exact"):
+        thash.fused_bwd(dev[0], ea.shape[0], *dev[1:], lt, "sampled",
+                        interp="tetrahedral")
+
+
+def test_hash_sampler_packed_tetrahedral_matches_plain(cuda):
+    """H2's packed tetrahedral mode (a tetrahedral field's extraction) at
+    the flagship meta on points of an extraction chunk's boundary face and
+    uniform points, against plain and bitwise repeatable."""
+    meta = thash.HashGridMeta(num_levels=16, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=19, desired_resolution=2048)
+    rng = np.random.default_rng(4)
+    emb = torch.as_tensor(rng.uniform(-0.5, 0.5, (meta.table_rows, 2)),
+                          dtype=torch.float32)
+    x = rng.uniform(0.0, 1.0, (20000, 3))
+    x[:5000, 0] = 1.0
+    x = torch.as_tensor(x, dtype=torch.float32)
+    lt = thash.level_tables(meta)
+    ref = thash.sampler_fwd_plain(x, emb, lt, True, "tetrahedral")
+    a = thash.sampler_fwd(x.to(cuda), emb.to(cuda), lt, True, "tetrahedral")
+    b = thash.sampler_fwd(x.to(cuda), emb.to(cuda), lt, True, "tetrahedral")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, ref)
+    h1 = thash.fused_fwd(x.to(cuda), emb.to(cuda), None, lt, "tetrahedral")[0]
+    _close(h1, ref)
+
+
 @pytest.mark.parametrize("dmr", [0, 16])
 def test_hash_sampler_matches_plain(cuda, dmr):
     meta, ea, _, x = _hash_case(dmr, levels=16, end=128, logmap=10)

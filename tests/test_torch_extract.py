@@ -594,9 +594,9 @@ def test_runner_extracts_and_writes_meshes_on_the_plot_cadence(
     calls = []
     orig = th.sampler_fwd
     monkeypatch.setattr(th, "sampler_fwd",
-                        lambda x01, emb, lt, packed=False:
+                        lambda x01, emb, lt, packed=False, *rest:
                         calls.append((x01.shape[0], packed))
-                        or orig(x01, emb, lt, packed))
+                        or orig(x01, emb, lt, packed, *rest))
     runner.run(n_iters=2, log_every=1, plot_freq=2,
                extract_meshes_on_plot=True)
     plots = runner.plots_dir

@@ -272,12 +272,20 @@ def test_sampler_sdf_matches_jax():
 
 
 def test_config_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.ImplicitNetwork(implicit_cfgs(color_grid_feature=False)[1])
+    """level_dim other than 2 is refused with its reason (no JAX Stage-1
+    render runs it); an unknown gradient mode, tiers outside the fused
+    mode and tiers on a network the fused encode does not take raise, as
+    JAX's config does."""
+    with pytest.raises(NotImplementedError, match="build_dense_block_tables"):
+        tf.ImplicitNetwork(implicit_cfgs(level_dim=4)[1])
     with pytest.raises(ValueError, match="sdf_bwd_sample"):
         tf.ImplicitNetworkConfig(color_bwd_sample=False, sdf_bwd_sample=True)
     _, tc = cfgs("exact")
-    with pytest.raises(NotImplementedError, match="jvp"):
-        dataclasses.replace(tc, forward_grad_mode="jvp", render_fine_top_f=0)
+    with pytest.raises(ValueError, match="forward_grad_mode"):
+        dataclasses.replace(tc, forward_grad_mode="reverse",
+                            render_fine_top_f=0)
     with pytest.raises(ValueError, match="fused"):
         dataclasses.replace(tc, forward_grad_mode="vjp")
+    with pytest.raises(ValueError, match="trilinear"):
+        dataclasses.replace(tc, implicit=dataclasses.replace(
+            tc.implicit, grid_interp="tetrahedral"))

@@ -63,15 +63,17 @@ def cfgs(mode: str = "exact", probe: bool = False, grad_mode: str = "fused",
 
 
 def jax_params(jc, seed: int = 1):
-    """JAX init_holoscene params with uniform(-0.1, 0.1) hash tables and a
-    random first SDF layer (the geometric init zeroes the grid inputs, so
-    the tables would get no gradient on a first step)."""
+    """JAX init_holoscene params with uniform(-0.1, 0.1) hash tables (the
+    colour grid where the network has one) and a random first SDF layer
+    (the geometric init zeroes the grid inputs, so the tables would get no
+    gradient on a first step)."""
     params = jhs.init_holoscene(jax.random.PRNGKey(seed), jc)
     rng = np.random.default_rng(seed + 2)
     imp = params["implicit"]
     for k in ("grid", "color_grid"):
-        imp[k] = jnp.asarray(rng.uniform(-0.1, 0.1, imp[k].shape)
-                             .astype(np.float32))
+        if k in imp:
+            imp[k] = jnp.asarray(rng.uniform(-0.1, 0.1, imp[k].shape)
+                                 .astype(np.float32))
     v = imp["mlp"]["lin0"]["v"]
     imp["mlp"]["lin0"]["v"] = jnp.asarray(
         rng.normal(0, 0.3, v.shape).astype(np.float32))

@@ -17,7 +17,9 @@ the physics grid and LPIPS against the CPU, the Stage-1 occupancy grid
 through the CLI, and Stage 1 and Stage 4 over torch.distributed ranks
 against the single-process steps; and the Stage-1 network variants (the
 tetrahedral stencil and its extraction, the raw fetch, the jvp gradient
-mode, no colour grid with the nerf head) through the CLI.
+mode, no colour grid with the nerf head) through the CLI; and last that
+two runs of Stage 1 and of a Stage-2 finetune from one seed give the same
+bits.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -271,12 +273,22 @@ Phases, one '== ' line each:
                  H1-bwd tetrahedral, H1-fwd raw and H2 packed tetrahedral
                  against plain on inputs captured from those runs (kernel
                  ms, plain ms, bound)
+ 20 repeatability two runs from one seed, each pair bitwise equal (the
+                 largest absolute difference printed; any nonzero one
+                 fails): (a) phase 10b's conf, 10 steps twice through
+                 exp_runner.main, every parameter after every step and
+                 both checkpoints; (b) object 1's Stage-2 finetune, 20
+                 iterations twice from phase 10b's checkpoint on fresh
+                 runners, then its extraction at 128 twice (vertices and
+                 faces); (c) H1-bwd at phase 11's fine-tier call, twice
+                 and with the points, cotangents and uniforms permuted,
+                 beside the difference float atomics make over the same
+                 contributions (the noise the fixed point removed)
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
 15, 16, 17 and 19) it is
 launched twice on the same inputs and the two results must be the same bits
-(K1-K4, H1-fwd, H2, T1); H1-bwd adds with atomicAdd, whose order changes
-from launch to launch, so its two launches must agree within its tolerance
-to plain (1e-5 of the largest gradient), not bitwise.
+(K1-K4, H1-fwd, H1-bwd, H2, T1; H1-bwd sums in fixed point, so the order
+of its atomics does not change its bits).
 The launch counts are set to 0 just before each of the paths 4-7, 10,
 10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run), 16
 (its Stage-4 run), 17 (each gs_train run, each gs_render run, the
@@ -302,8 +314,10 @@ functions, so library_ms is null.
 
 The bound of a hash-grid kernel, from the same launch's inputs. Bytes: the
 inputs read once (points, cotangents, uniforms), the outputs written once
-(H1-bwd: each whole gradient table, as its zero-fill writes it; the atomics
-that add into it are the kernel's cost, not the function's), and for
+(H1-bwd: each whole gradient table written once; its fixed-point
+accumulation's int64 buffer, zero-filled, added into by atomics and read
+by the conversion, is the implementation's cost, not the function's, and
+phase 11 prints that traffic's own time beside the bound), and for
 H1-fwd and H2 per level the lesser of its table's bytes and the 32-byte
 sectors its corner gathers touch (8-byte rows, per table); over 3.35 TB/s.
 Operations: per (in-range point, level) 18 for the smoothstep weights and their derivatives plus per corner 31
@@ -846,6 +860,8 @@ OPS_CORNER_NO_J = 2 + 2
 # and (H2_EARLIER_EXTRACT_MS) at phase 12's chunk of the x01 = 1 plane
 HASH_EARLIER_MS = {"H1-fwd": 0.0820, "H1-bwd": 0.3737, "H2": 0.0564}
 H2_EARLIER_EXTRACT_MS = 0.2782
+# phase 11's fine-tier H1-bwd call (its arguments), for phase 20 (c)
+FINE_BWD: list = []
 HASH_KERNELS = {
     "H1-fwd": dict(name="H1-fwd hash_fused_fwd", route="cuda",
                    source="holoscene_tpu_torch/csrc/hash_fused_fwd.cu",
@@ -1089,6 +1105,27 @@ def hash_bound(kernel: str, x01, lt, n_rows: int = 0, has_b: bool = True,
     return bound_ms(nbytes, ops)
 
 
+def same_bits(a, b) -> bool:
+    """Two float32 tensors hold the same bits (NaN payloads included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def h1_bwd_accumulation_ms(x01, lt, n_rows: int, has_b: bool = True,
+                           has_j: bool = True) -> float:
+    """The time at the memory rate of what H1-bwd's fixed-point
+    accumulation moves beyond the function's bound (hash_bound): the int64
+    [tables, n_rows, 2] buffer written by the zero-fill and read by the
+    conversion (32 bytes a row and table), and the maxima pass's read of
+    the cotangents."""
+    n, L = x01.shape[0], lt.n_levels
+    tables = 2 if has_b else 1
+    cts = n * L * 2 * 4 * tables + (n * L * 6 * 4 if has_j else 0)
+    return (32 * n_rows * tables + cts) / MEM_BYTES_S * 1e3
+
+
 def _check_close(name, got, ref, rel=H_REL) -> float:
     import torch
 
@@ -1106,10 +1143,9 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
                interp: str = "trilinear", fetch: str = "packed"):
     """H1-fwd and H1-bwd (each mode) against their plain versions on these
     inputs (emb_b None: the single-table call, exact mode only), in the
-    instantiation of `interp` and `fetch`. H1-fwd:
-    two launches give the same bits, plain within H_REL of the largest
-    value. H1-bwd: atomicAdd orders the sums differently each launch, so
-    two launches and plain agree within H_REL, not bitwise; the pairs whose
+    instantiation of `interp` and `fetch`. Each kernel: two launches give
+    the same bits (H1-bwd's fixed-point sums do not depend on the order of
+    its atomics), plain within H_REL of the largest value; the pairs whose
     sampled corner can flip in the last bit carry zero cotangents. Returns
     {kernel: dict(max_abs_err, and when timed ms / plain_ms / bound_ms /
     bound_by, H1-bwd's in the last mode)}; modes () holds H1-fwd alone."""
@@ -1159,7 +1195,9 @@ def compare_h1(x01, emb_a, emb_b, lt, seed: int, timed: bool = False,
             if g is None:
                 continue
             errs.append(_check_close(f"H1-bwd {mode} table {t}", g, r))
-            _check_close(f"H1-bwd {mode} table {t}, second launch", a, g)
+            if not same_bits(a, g):
+                raise RuntimeError(f"H1-bwd {mode} table {t}: two launches "
+                                   "on the same inputs differ")
         if timed and mode == modes[-1]:
             res["H1-bwd"] = dict(
                 ms=cuda_ms(lambda: hg.fused_bwd(*args, interp=interp), 20),
@@ -1821,8 +1859,8 @@ def stage3_conf(work: Path, test_split: bool = False) -> Path:
 def compare_h1_bwd_no_j(x01, n_rows, lt, seed: int) -> dict:
     """H1-bwd with no jacobian term (one table, exact mode: the packed
     encode's table gradient) against plain on a random cotangent: two
-    launches agree with each other and with plain within H_REL of the
-    largest gradient (atomics); kernel ms, plain ms, bound."""
+    launches give the same bits, plain within H_REL of the largest
+    gradient; kernel ms, plain ms, bound."""
     import torch
 
     from holoscene_tpu_torch.ops import hashgrid as hg
@@ -1833,7 +1871,9 @@ def compare_h1_bwd_no_j(x01, n_rows, lt, seed: int) -> dict:
     ref = hg.fused_bwd_plain(*args)[0]
     got, again = hg.fused_bwd(*args)[0], hg.fused_bwd(*args)[0]
     res = dict(max_abs_err=_check_close("H1-bwd (no jacobian)", got, ref))
-    _check_close("H1-bwd (no jacobian), second launch", again, got)
+    if not same_bits(again, got):
+        raise RuntimeError("H1-bwd (no jacobian): two launches on the same "
+                           "inputs differ")
     res.update(ms=cuda_ms(lambda: hg.fused_bwd(*args), 20),
                plain_ms=cuda_ms(lambda: hg.fused_bwd_plain(*args), 3))
     res["bound_ms"], res["bound_by"] = hash_bound(
@@ -2950,8 +2990,8 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
         f"H2 at 4 / 8 levels; H1 exact at the background patch's {n_patch} "
         f"points) in {time.perf_counter() - t0:.1f} s: max abs err "
         + ", ".join(f"{k} {max(v):.3g}" for k, v in errs.items())
-        + f" (within {H_REL} of the largest value; H1-fwd and H2 two "
-        "launches bitwise equal, H1-bwd within the same tolerance: atomics)")
+        + f" (within {H_REL} of the largest value; each kernel's two "
+        "launches bitwise equal)")
 
     # 10 the Stage-1 CLI at the flagship width on a generated 512^2 scene
     t0 = time.perf_counter()
@@ -3114,6 +3154,7 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
                            "captured, expected 4 with their backwards")
     x01, emb_a, emb_b, lt = captured[0][0][:4]     # the fine tier's call
     emb_a, emb_b = emb_a.detach(), emb_b.detach()
+    FINE_BWD[:] = captured[0][1]                   # phase 20 (c)'s inputs
     mode = hs.fused_mode(cfg, True)
     timed = compare_h1(x01, emb_a, emb_b, lt, 30, timed=True,
                        modes=("exact", mode))
@@ -3141,10 +3182,20 @@ def stage1_phases(work: Path, dev, card: str, chain: dict) -> dict:
             f"({100 * r['bound_ms'] / r['ms']:.1f}% of it); max abs err "
             f"{r['max_abs_err']:.3g}; launches on the Stage-1 path "
             f"{launches[k]}{earlier}")
+        if k == "H1-bwd":
+            r["accumulation_ms"] = h1_bwd_accumulation_ms(
+                x01, lt, emb_a.shape[0])
+            log(f"   H1-bwd's fixed-point accumulation moves more than the "
+                f"function must: int64 zero-fill, conversion read, maxima "
+                f"pass {r['accumulation_ms']:.4f} ms at the memory rate "
+                f"(bound + that: {r['bound_ms'] + r['accumulation_ms']:.4f}"
+                f" ms, {100 * (r['bound_ms'] + r['accumulation_ms']) / r['ms']:.1f}% of the kernel)")
         rows[k] = {**meta, "launches": launches[k],
                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": None,
+                   **({"accumulation_ms": r["accumulation_ms"]}
+                      if "accumulation_ms" in r else {}),
                    "launches_by_path": {"stage1": launches[k],
                                         "stage1_eval": eval_launches[k],
                                         "stage1_vjp": launches_b[k]}}
@@ -3893,6 +3944,141 @@ def variants_phase(work: Path, card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 20: repeatability
+# ---------------------------------------------------------------------------
+
+# phase 20's depths: Stage-1 steps of phase 10b's conf, and finetune
+# iterations of object 1 on phase 10b's checkpoint (its extraction at
+# S2_MESH_RES); a run of holoscene_tpu_torch/utils/repeat_check.py checks
+# phase 10b's 40 steps and phase 14's 60 iterations and whole Stage 2
+REPEAT_S1_STEPS = 10
+REPEAT_FT_ITERS = 20
+REPEAT_OBJ = 1
+
+
+def float_sum_noise(bargs) -> float:
+    """The largest difference between float32 sums of H1-bwd's own
+    contributions at this call (the plain twin's per-corner values, as the
+    kernel computes them) added by index_add_'s float atomics on the card:
+    twice, and once with the contributions in a permuted order. The
+    order-dependence that the fixed-point accumulation removed."""
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+
+    recorded = []
+    scatter = hg._scatter
+
+    def record(acc, rows, vals, scale):
+        recorded.append((acc.numel(), rows.reshape(-1).clone(),
+                         [v.expand(rows.shape).reshape(-1).clone()
+                          for v in vals]))
+        return scatter(acc, rows, vals, scale)
+
+    hg._scatter = record
+    try:
+        hg.fused_bwd_plain(*bargs[:9], interp=(
+            bargs[9] if len(bargs) > 9 else "trilinear"))
+    finally:
+        hg._scatter = scatter
+    worst = 0.0
+    for size, rows, vals in recorded:
+        perm = torch.randperm(rows.numel(), device=rows.device)
+        sums = []
+        for order in (None, None, perm):
+            g = torch.zeros(size, device=rows.device)
+            for c, v in enumerate(vals):
+                r, x = (rows, v) if order is None else (rows[order], v[order])
+                g.index_add_(0, 2 * r + c, x)
+            sums.append(g)
+        worst = max(worst, *(float((a - sums[0]).abs().max())
+                             for a in sums[1:]))
+    return worst
+
+
+def repeat_phase(work: Path, card: str) -> dict:
+    """Phase 20: the same bits twice from one seed. (a) phase 10b's conf for
+    REPEAT_S1_STEPS steps twice through exp_runner.main: every parameter
+    after every step and both checkpoints; (b) object REPEAT_OBJ's
+    finetune for REPEAT_FT_ITERS iterations twice from phase 10b's
+    checkpoint, each on a fresh Stage2Runner, then its extraction at
+    S2_MESH_RES twice; (c) H1-bwd at phase 11's fine-tier call: two
+    launches and one on the points, cotangents and uniforms permuted,
+    beside the float-atomic sums' difference on the same contributions.
+    Any nonzero difference fails. Returns the largest differences."""
+    import argparse
+
+    import torch
+
+    from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.training.exp_runner_post import (
+        add_run_args,
+        build_stage2_runner,
+    )
+    from holoscene_tpu_torch.utils import repeat_check as rc
+
+    t0 = time.perf_counter()
+    conf = stage1_conf(work, "smoke_s1_vjp", S1_MODEL_DEFAULT)
+    a = rc.stage1_twice(conf, work / "exps_repeat", REPEAT_S1_STEPS)
+    parser = argparse.ArgumentParser()
+    add_run_args(parser, mesh_resolution=S2_MESH_RES)
+    args = parser.parse_args(rc.stage2_args(stage2_conf(work),
+                                            work / "exps_s1b", S2_MESH_RES))
+
+    def make_runner():
+        return build_stage2_runner(args)[0]
+
+    setup = rc.object_setup(make_runner(), REPEAT_OBJ)
+    b, runner = rc.finetune_twice(make_runner, setup, REPEAT_OBJ,
+                                  REPEAT_FT_ITERS)
+    c = rc.extract_twice(runner)
+    del runner
+    # (c) H1-bwd: twice, then permuted
+    x01, n_rows, ct_fa, ct_J, ct_fb, lt, mode, u_b, u_a = FINE_BWD[:9]
+    first, second = hg.fused_bwd(*FINE_BWD), hg.fused_bwd(*FINE_BWD)
+    perm = torch.randperm(x01.shape[0], device=x01.device)
+    third = hg.fused_bwd(x01[perm].contiguous(), n_rows,
+                         ct_fa[perm].contiguous(),
+                         ct_J[..., perm].contiguous(),
+                         ct_fb[perm].contiguous(), lt, mode,
+                         None if u_b is None else u_b[..., perm].contiguous(),
+                         None if u_a is None else u_a[..., perm].contiguous())
+    torch.cuda.synchronize()
+    h1 = max(float((x - y).abs().max()) for g in (second, third)
+             for x, y in zip(g, first) if x is not None)
+    h1_bits = all(same_bits(x, y) for g in (second, third)
+                  for x, y in zip(g, first) if x is not None)
+    noise = float_sum_noise(FINE_BWD)
+    res = {"stage1": a["max_abs_diff"], "finetune": b["max_abs_diff"],
+           "extraction": max((o["vertex_max_abs_diff"] or 0.0)
+                             for o in c["objects"]),
+           "h1_bwd": h1, "float_atomics_noise": noise,
+           "seconds": time.perf_counter() - t0}
+    log(f"== 20 repeatability in {res['seconds']:.1f} s on {card}: largest "
+        f"absolute difference between two runs from one seed: (a) Stage 1, "
+        f"{REPEAT_S1_STEPS} steps of phase 10b's conf, every parameter after "
+        f"every step {a['max_abs_diff']:.3g} (checkpoints bitwise equal "
+        f"{a['checkpoints_bitwise_equal']}); (b) object {REPEAT_OBJ}'s "
+        f"finetune, {REPEAT_FT_ITERS} iterations from phase 10b's checkpoint "
+        f"({setup['faces']} faces, {len(setup['gen_views'])} packs) "
+        f"{b['max_abs_diff']:.3g}, its extraction at {S2_MESH_RES} twice "
+        f"{res['extraction']:.3g} (faces "
+        + ", ".join(str(o["faces"]) for o in c["objects"])
+        + f"); (c) H1-bwd at phase 11's fine tier ({x01.shape[0]} points x "
+        f"{lt.n_levels} levels, {mode}), two launches and permuted points "
+        f"{h1:.3g}, where float atomics over the same contributions "
+        f"differ by {noise:.3g}")
+    bad = [k for k, ok in (
+        ("(a)", a["bitwise_equal"] and a["checkpoints_bitwise_equal"]),
+        ("(b)", b["bitwise_equal"]), ("(b) extraction", c["bitwise_equal"]),
+        ("(c)", h1_bits)) if not ok]
+    if bad:
+        raise RuntimeError(f"phase 20: not bitwise repeatable: {bad}; "
+                           f"(a) {a}, (b) {b}, extraction {c}")
+    return res
+
+
 def main() -> int:
     # one process runs every phase: segments that grow in place keep the
     # blocks earlier phases freed from stranding the chain's Stage-4 step
@@ -4155,6 +4341,9 @@ def main() -> int:
         torchrun_phase(work, card)
         # 19 the Stage-1 network variants
         variant_rows = variants_phase(work, card)
+        # 20 repeatability
+        repeat = repeat_phase(work, card)
+        hash_rows["H1-bwd"]["repeatability"] = repeat
         paths["stage4_dp"] = ranks["stage4_dp"]
         for k, row in hash_rows.items():
             row["launches_by_path"]["stage1_occupancy"] = occ_launches[k]

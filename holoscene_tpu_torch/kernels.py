@@ -48,10 +48,10 @@ _SIGNATURES = {
     # x01, emb_a, emb_b, scales, ints, feats_a, J, feats_b, n, n_levels,
     # interp (0 trilinear, 1 tetrahedral), fetch_raw, stream
     "hash_fused_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x01, ct_fa, ct_J, ct_fb, u_b, u_a, scales, ints, grad_a, grad_b, n,
-    # n_levels, mode, interp, stream
-    "hash_fused_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _P),
+    # x01, ct_fa, ct_J, ct_fb, u_b, u_a, scales, ints, acc (the int64 work
+    # buffer), grad_a, grad_b, n, n_rows, n_levels, mode, interp, stream
+    "hash_fused_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _P),
     # x01, emb, scales, ints, out, n, n_levels, packed, interp, stream
     "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # rays_o, rays_d, g13, spheres, n_rays, n_gauss, k, min_kernel,

@@ -412,12 +412,59 @@ def fused_fwd_plain(x01, emb_a, emb_b, lt: LevelTables,
     return fa.reshape(L * 2, n).T.contiguous(), J.reshape(L * 2, 3, n), fb
 
 
-def _scatter(grad_flat, rows, vals):
-    """grad_flat [rows*2] += vals (2 x [...]) at rows [...] (channels 0,
-    1)."""
+def fixed_point(ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str):
+    """H1-bwd's fixed point (csrc/hash_fused_bwd.cu's header note):
+    (scale [T, L], inv [T, L]) float32 for tables a and b (T = 2), level by
+    level. A contribution v of table t at level l is added as the int64
+    round(v * scale[t, l]) and a row's sum s read back as float32(s) *
+    inv[t, l]; the exponent keeps any row of 8 N contributions below 2^63.
+    inv is NaN where a cotangent's maximum is not finite."""
+    n, L = ct_fa.shape[0], lt.n_levels
+    dev = ct_fa.device
+
+    def amax(t, shape):
+        if t is None or not n:
+            return torch.zeros(L, device=dev)
+        return t.detach().abs().reshape(shape).amax(1)
+
+    a = amax(ct_fa.reshape(n, L, 2).transpose(0, 1), (L, -1))
+    bound_a = a
+    if ct_J is not None:
+        j = amax(ct_J, (L, -1))
+        s45 = torch.as_tensor(lt.scales, device=dev) * 4.5
+        bound_a = a + s45 * j
+    bound_b = amax(None if ct_fb is None
+                   else ct_fb.reshape(n, L, 2).transpose(0, 1), (L, -1))
+    clog2 = (8 * n - 1).bit_length() if n else 0
+    bounds = torch.stack([bound_a, bound_b])
+    x = torch.frexp(bounds)[1].to(torch.int64)
+    extra = torch.tensor([[4 if mode == "sampled_all" else 0], [0]],
+                         device=dev)
+    e = torch.clamp(62 - clog2 - x - extra, -126, 126).to(torch.float64)
+    scale = torch.pow(2.0, e).to(torch.float32)
+    inv = torch.pow(2.0, -e).to(torch.float32)
+    inv = torch.where(torch.isfinite(bounds), inv, float("nan"))
+    return scale, inv
+
+
+def _scatter(acc, rows, vals, scale):
+    """acc [rows*2] int64 += round(vals * scale) (2 x [...]) at rows [...]
+    (channels 0, 1); scale broadcasts against vals (a level's own)."""
     r = rows.reshape(-1) * 2
-    grad_flat.index_add_(0, r, vals[0].reshape(-1))
-    grad_flat.index_add_(0, r + 1, vals[1].reshape(-1))
+    for c in (0, 1):
+        q = torch.round(vals[c] * scale).to(torch.int64)
+        acc.index_add_(0, r + c, q.reshape(-1))
+
+
+def _from_fixed(acc, inv, lt: LevelTables, n_rows: int) -> torch.Tensor:
+    """float32 [n_rows, 2] of the int64 sums acc [n_rows*2]: each level's
+    rows times its inv; rows past the last level are zeros."""
+    out = torch.zeros(n_rows * 2, device=acc.device)
+    for lvl in range(lt.n_levels):
+        a = 2 * int(lt.offsets[lvl])
+        b = a + 2 * int(lt.sizes[lvl])
+        out[a:b] = acc[a:b].to(torch.float32) * inv[lvl]
+    return out.reshape(n_rows, 2)
 
 
 def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
@@ -427,7 +474,9 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
     """H1-bwd's plain version: (grad_a [n_rows, 2], grad_b [n_rows, 2] or
     None, ct_x01 [N, 3] or None). The fused per-corner cotangent of table a
     is cw ct_f + sum_d dcw_d ct_J[d] (cw ct_f with ct_J None: no jacobian
-    term); table b's is cw ct_f. Dense levels
+    term); table b's is cw ct_f. They are summed as the kernel sums them:
+    in fixed point (fixed_point), int64 index_add_, the same conversion, so
+    any order of the points gives the same bits. Dense levels
     scatter every corner in every mode; hashed levels follow `mode`
     (JAX hashgrid.py _hash_fused_bwd; the tetrahedral stencil in exact mode
     only). need_x also returns the cotangent of x01 from the gathered
@@ -452,18 +501,20 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
         cJa = ct_J.reshape(L, 2, 3, n) * valid
         ca = [cw * cfa[:, c, None] + sum(dcw[d] * cJa[:, c, d, None]
                                          for d in range(3)) for c in (0, 1)]
-    ga = torch.zeros(n_rows * 2, device=x01.device)
-    gb = torch.zeros(n_rows * 2, device=x01.device) if has_b else None
+    scale, inv = fixed_point(ct_fa, ct_J, ct_fb, lt, mode)
+    pa, pb = scale[0][:, None, None], scale[1][:, None, None]
+    ga = torch.zeros(n_rows * 2, dtype=torch.int64, device=x01.device)
+    gb = torch.zeros_like(ga) if has_b else None
     if has_b:
         cfb = ct_fb.T.reshape(L, 2, n) * valid
         cb = [cw * cfb[:, c, None] for c in (0, 1)]
     # every corner: dense levels always, hashed levels of table a unless
     # sampled_all and of table b only in exact mode
     a_to = ld if mode == "sampled_all" else L
-    _scatter(ga, rows[:a_to], [c[:a_to] for c in ca])
+    _scatter(ga, rows[:a_to], [c[:a_to] for c in ca], pa[:a_to])
     if has_b:
         b_to = L if mode == "exact" else ld
-        _scatter(gb, rows[:b_to], [c[:b_to] for c in cb])
+        _scatter(gb, rows[:b_to], [c[:b_to] for c in cb], pb[:b_to])
     if mode != "exact" and lt.n_hashed:
         rh = rows[ld:]
         if has_b:
@@ -473,7 +524,7 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
             wh = _smoothstep(frac[ld:])
             ksel = sum((u_b[d] < wh[:, d]).long() << d for d in range(3))
             rs = torch.gather(rh, 1, ksel[:, None])[:, 0]
-            _scatter(gb, rs, [cfb[ld:, 0], cfb[ld:, 1]])
+            _scatter(gb, rs, [cfb[ld:, 0], cfb[ld:, 1]], pb[ld:, 0])
         if mode == "sampled_all":
             # one corner drawn ~ |ca0| + |ca1|, scaled by S / s_k
             ch = [c[ld:] for c in ca]
@@ -487,7 +538,7 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
                                 0.0)
             rs = torch.gather(rh, 1, ksel[:, None])[:, 0]
             _scatter(ga, rs, [torch.gather(c, 1, ksel[:, None])[:, 0] * ratio
-                              for c in ch])
+                              for c in ch], pa[ld:, 0])
     ct_x = None
     if need_x:
         va = _values(emb_a, fetch)[rows]
@@ -509,8 +560,8 @@ def fused_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
                 acc = acc + v_dot_J[e] * (sc2 * dws[d] * dws[e] * ws[third])
             cols.append(acc.sum((0, 1)))
         ct_x = torch.stack(cols, -1)
-    return (ga.reshape(n_rows, 2), gb.reshape(n_rows, 2) if has_b else None,
-            ct_x)
+    return (_from_fixed(ga, inv[0], lt, n_rows),
+            _from_fixed(gb, inv[1], lt, n_rows) if has_b else None, ct_x)
 
 
 def _tet_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
@@ -528,13 +579,15 @@ def _tet_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
         cJa = ct_J.reshape(L, 2, 3, n) * valid
         ca = [cw * cfa[:, c, None] + sum(dcw[d] * cJa[:, c, d, None]
                                          for d in range(3)) for c in (0, 1)]
-    ga = torch.zeros(n_rows * 2, device=x01.device)
-    _scatter(ga, rows, ca)
+    scale, inv = fixed_point(ct_fa, ct_J, ct_fb, lt, "exact")
+    ga = torch.zeros(n_rows * 2, dtype=torch.int64, device=x01.device)
+    _scatter(ga, rows, ca, scale[0][:, None, None])
     gb = None
     if ct_fb is not None:
         cfb = ct_fb.T.reshape(L, 2, n) * valid
-        gb = torch.zeros(n_rows * 2, device=x01.device)
-        _scatter(gb, rows, [cw * cfb[:, c, None] for c in (0, 1)])
+        gb = torch.zeros_like(ga)
+        _scatter(gb, rows, [cw * cfb[:, c, None] for c in (0, 1)],
+                 scale[1][:, None, None])
     ct_x = None
     if need_x:
         va = _values(emb_a, "packed")[rows]
@@ -545,8 +598,9 @@ def _tet_bwd_plain(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables,
                 + vb[..., 1] * cfb[:, 1, None]
         ct_x = torch.stack([(v_dot_f * dcw[d]).sum((0, 1)) for d in range(3)],
                            -1)
-    return (ga.reshape(n_rows, 2),
-            gb.reshape(n_rows, 2) if gb is not None else None, ct_x)
+    return (_from_fixed(ga, inv[0], lt, n_rows),
+            _from_fixed(gb, inv[1], lt, n_rows) if gb is not None else None,
+            ct_x)
 
 
 # ---------------------------------------------------------------------------
@@ -652,11 +706,13 @@ fused_fwd.launches = 0
 def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
               u_b=None, u_a=None, interp: str = "trilinear"):
     """H1-bwd. CUDA tensors: launches `hash_fused_bwd` of
-    csrc/hash_fused_bwd.cu (point tiles, warp-aggregated atomics into
-    zero-initialised [n_rows, 2] grads; the instantiation of `interp`) and
-    counts it in `fused_bwd.launches` and in `variant_launches`; CPU
-    tensors: fused_bwd_plain. ct_J None: no jacobian term (the packed
-    encode's transpose). Returns (grad_a, grad_b or None)."""
+    csrc/hash_fused_bwd.cu (the cotangents' maxima, then point tiles with
+    warp-aggregated int64 atomics into a zero-filled fixed-point buffer,
+    then its conversion to the float32 [n_rows, 2] grads; the
+    instantiation of `interp`) and counts it in `fused_bwd.launches` and
+    in `variant_launches`; CPU tensors: fused_bwd_plain. Either gives the
+    same bits for any order of the points. ct_J None: no jacobian term
+    (the packed encode's transpose). Returns (grad_a, grad_b or None)."""
     _check_interp(interp)
     if interp == "tetrahedral" and mode != "exact":
         raise ValueError("the tetrahedral stencil's backward is exact only")
@@ -681,20 +737,27 @@ def fused_bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt: LevelTables, mode: str,
         _check("u_b", u_b, (3, lh, n), device=dev)
     if mode == "sampled_all":
         _check("u_a", u_a, (lh, n), device=dev)
-    ga = torch.zeros(n_rows, 2, device=dev)
-    gb = torch.zeros(n_rows, 2, device=dev) if ct_fb is not None else None
-    if n:
-        scales, ints = lt.device_arrays(dev)
-        st = kernels.library().hash_fused_bwd(
-            x01.data_ptr(), ct_fa.data_ptr(), _ptr(ct_J), _ptr(ct_fb),
-            _ptr(u_b) if mode != "exact" else 0,
-            _ptr(u_a) if mode == "sampled_all" else 0,
-            scales.data_ptr(), ints.data_ptr(), ga.data_ptr(), _ptr(gb), n, L,
-            _MODE_ID[mode], INTERPS.index(interp),
-            torch.cuda.current_stream(dev).cuda_stream)
-        kernels.check(st, "hash_fused_bwd")
-        fused_bwd.launches += 1
-        _count("fused_bwd", (interp, mode))
+    tables = 2 if ct_fb is not None else 1
+    if not n:
+        return (torch.zeros(n_rows, 2, device=dev),
+                torch.zeros(n_rows, 2, device=dev) if tables == 2 else None)
+    # the fixed-point sums of each table, then the cotangents' maxima (3 L
+    # uint32), zero-filled in one allocation
+    acc = torch.zeros(tables * n_rows * 2 + (3 * L + 1) // 2,
+                      dtype=torch.int64, device=dev)
+    ga = torch.empty(n_rows, 2, device=dev)
+    gb = torch.empty(n_rows, 2, device=dev) if tables == 2 else None
+    scales, ints = lt.device_arrays(dev)
+    st = kernels.library().hash_fused_bwd(
+        x01.data_ptr(), ct_fa.data_ptr(), _ptr(ct_J), _ptr(ct_fb),
+        _ptr(u_b) if mode != "exact" else 0,
+        _ptr(u_a) if mode == "sampled_all" else 0,
+        scales.data_ptr(), ints.data_ptr(), acc.data_ptr(), ga.data_ptr(),
+        _ptr(gb), n, n_rows, L, _MODE_ID[mode], INTERPS.index(interp),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(st, "hash_fused_bwd")
+    fused_bwd.launches += 1
+    _count("fused_bwd", (interp, mode))
     return ga, gb
 
 

@@ -34,10 +34,14 @@ built with -DDEFINE ...): what ptxas reports for the kernels (registers,
 spills) and each kernel's ms at each call (CUDA events, REPS launches back
 to back, taken in two rounds over all variants so that the spread between
 rounds shows). H1: H1-bwd's time includes the wrapper's
-zero-fill; the largest deviation of each output from the tree's (H1-fwd:
+zero-fill (and, since the fixed-point accumulation, the maxima and the
+conversion); the largest deviation of each output from the tree's (H1-fwd:
 whether it is bitwise the tree's; H1-bwd: relative to the largest
-gradient) and whether two launches agree (H1-fwd bitwise, H1-bwd within
-chip_smoke.H_REL: atomics). H2: also the ms of a launch that finds the L2
+gradient) and whether two launches are bitwise equal (H1-fwd, and H1-bwd
+since its fixed-point accumulation; an older csrc/'s float-atomic H1-bwd
+is recognised by its C signature and called through float_atomic_bwd,
+e.g. `git archive 124e6ee holoscene_tpu_torch/csrc`). H2: also the ms of a
+launch that finds the L2
 cold (a 128 MB buffer written before each launch, as the trunk's
 activations between two chunks of an extraction write it), whether the
 output is bitwise the tree's and two launches bitwise equal, and for the
@@ -53,6 +57,7 @@ passed as a variant. The last line is one JSON object with all of it.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import shutil
 import sys
@@ -161,7 +166,34 @@ def cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return total / reps
 
 
-def bench_h1(cs_, libs, reps: int, dev) -> dict:
+def float_atomic_bwd(lib):
+    """H1-bwd of a csrc/ from before the fixed-point accumulation (commit
+    124e6ee and earlier): float atomics into the wrapper's zero-filled
+    float32 gradients, the C signature without the int64 work buffer."""
+    fn = lib.hash_fused_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+
+    def bwd(x01, n_rows, ct_fa, ct_J, ct_fb, lt, mode, u_b=None, u_a=None,
+            interp="trilinear"):
+        dev = x01.device
+        ga = torch.zeros(n_rows, 2, device=dev)
+        gb = torch.zeros(n_rows, 2, device=dev) if ct_fb is not None \
+            else None
+        scales, ints = lt.device_arrays(dev)
+        kernels.check(fn(
+            x01.data_ptr(), ct_fa.data_ptr(), hg._ptr(ct_J), hg._ptr(ct_fb),
+            hg._ptr(u_b) if mode != "exact" else 0,
+            hg._ptr(u_a) if mode == "sampled_all" else 0, scales.data_ptr(),
+            ints.data_ptr(), ga.data_ptr(), hg._ptr(gb), x01.shape[0],
+            lt.n_levels, hg._MODE_ID[mode], hg.INTERPS.index(interp),
+            torch.cuda.current_stream(dev).cuda_stream), "hash_fused_bwd")
+        return ga, gb
+
+    return bwd
+
+
+def bench_h1(cs_, libs, reps: int, dev, bwds: dict) -> dict:
     calls = captured_calls(cs_, dev)
     bounds = {}
     for name, ((x01, _, eb, lt), b) in calls.items():
@@ -184,11 +216,11 @@ def bench_h1(cs_, libs, reps: int, dev) -> dict:
                 r["H1-fwd_ms"].append(cs_.cuda_ms(
                     lambda: hg.fused_fwd(*fargs), reps))
                 r["H1-bwd_ms"].append(cs_.cuda_ms(
-                    lambda: hg.fused_bwd(*bargs), reps))
+                    lambda: bwds[name](*bargs), reps))
                 if rnd:
                     continue
                 first, second = hg.fused_fwd(*fargs), hg.fused_fwd(*fargs)
-                g1, g2 = hg.fused_bwd(*bargs), hg.fused_bwd(*bargs)
+                g1, g2 = bwds[name](*bargs), bwds[name](*bargs)
                 torch.cuda.synchronize()
                 ref_f = base.setdefault((call, "fwd"), first)
                 ref_b = base.setdefault((call, "bwd"), g1)
@@ -208,8 +240,9 @@ def bench_h1(cs_, libs, reps: int, dev) -> dict:
                 r["H1-bwd_rel_dev_from_tree"] = max(
                     float((a - c).abs().max() / c.abs().max().clamp(1e-30))
                     for a, _, c in grads)
-                r["H1-bwd_two_launches_within_tolerance"] = \
-                    r["H1-bwd_rel_dev_two_launches"] <= cs_.H_REL
+                r["H1-bwd_two_launches_bitwise"] = all(
+                    torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b, _ in grads)
     for name, res in results.items():
         for call in calls:
             r = res[call]
@@ -295,9 +328,11 @@ def main(argv=None) -> int:
         path, _, defs = rest.partition(":")
         specs.append((name, Path(path).resolve(),
                       [d for d in defs.split(",") if d]))
-    libs, ptxas = {}, {}
+    libs, ptxas, bwds = {}, {}, {}
     for name, path, defs in specs:
         libs[name], report = load_variant(name, path, defs)
+        fixed = "void* acc" in (path / "hash_fused_bwd.cu").read_text()
+        bwds[name] = hg.fused_bwd if fixed else float_atomic_bwd(libs[name])
         ptxas[name] = [r for r in report if "hash_" in r]
         print(f"{name}: {path} {defs}: " + " | ".join(ptxas[name]),
               flush=True)
@@ -307,7 +342,7 @@ def main(argv=None) -> int:
            "ncu": shutil.which("ncu")}
     try:
         if "H1" in which:
-            out["H1"] = bench_h1(cs_, libs, args.reps, dev)
+            out["H1"] = bench_h1(cs_, libs, args.reps, dev, bwds)
         if "H2" in which:
             out["H2"] = bench_h2(cs_, libs, args.reps, dev)
     finally:

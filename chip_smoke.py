@@ -18,8 +18,8 @@ through the CLI, and Stage 1 and Stage 4 over torch.distributed ranks
 against the single-process steps; and the Stage-1 network variants (the
 tetrahedral stencil and its extraction, the raw fetch, the jvp gradient
 mode, no colour grid with the nerf head) through the CLI; and last that
-two runs of Stage 1 and of a Stage-2 finetune from one seed give the same
-bits.
+two runs of Stage 1, of a Stage-2 finetune, of Stage 4 and of gs_train
+from one seed give the same bits.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -50,7 +50,11 @@ Phases, one '== ' line each:
                  paths that launch them: one orthographic pack view as the
                  invisible-view step renders it (one object's gaussians
                  visible) and one gs_render view of the exported ply at its
-                 calibrated K
+                 calibrated K; H4 (the payload gather's transpose) against
+                 its plain twin, bitwise, on K2's d cand at the flat bins
+                 (kernel ms, plain ms, bound, index_add_ ms of the live
+                 slots and of every slot) and on the top-K lists' plan;
+                 select_topk's ms and peak memory and its lists' plan's ms
   9 hash kernels H1-fwd, H1-bwd (exact / sampled / sampled_all) and H2 vs
                  their plain versions on random tables at a 6-level meta
                  and at the flagship meta (16 levels, 2^19 rows); H1 in
@@ -177,13 +181,16 @@ Phases, one '== ' line each:
                  surface_{i}.obj: the room and both spheres, never cut)
                  with the dataset's test split, --max_niters 120 (a fifth
                  of the CLI's default of 200 a mesh, cut for time): every loss
-                 finite, K1 and K2 launched on every step, gauss_scene.ply
-                 and .usdz written, the test PSNR and SSIM finite; the
-                 gaussians by object, steps/s, splats/s, the l1 in thirds
-                 (whether it falls is printed, not checked) and the
-                 export's wall time; K1 / K2 against plain on the run's
-                 training frame 0 (its flat bins, tiles far longer than
-                 phase 8's): kernel ms, plain ms, bound. (c) the chain record as one JSON line
+                 finite, K1, K2 and H4 launched on every step,
+                 gauss_scene.ply and .usdz written, the test PSNR and SSIM
+                 finite; the gaussians by object, steps/s, splats/s, the
+                 l1 in thirds (whether it falls is printed, not checked),
+                 the trim and the plan's capacity, and the export's wall
+                 time; K1 / K2 against plain on the run's training frame 0
+                 (its flat bins, tiles far longer than phase 8's): kernel
+                 ms, plain ms, bound; H4 there against plain (bitwise) and
+                 index_add_ (ms); select_topk at its gaussians (ms, peak
+                 memory) and its lists' plan (ms). (c) the chain record as one JSON line
                  (CHAIN_r05.json's shape: each stage's wall s, Stage 1's
                  eval PSNR at the end of phase 10b, Stage 2's meshes and
                  failed objects, Stage 3's textured count, Stage 4's PSNR,
@@ -283,12 +290,24 @@ Phases, one '== ' line each:
                  faces); (c) H1-bwd at phase 11's fine-tier call, twice
                  and with the points, cotangents and uniforms permuted,
                  beside the difference float atomics make over the same
-                 contributions (the noise the fixed point removed)
+                 contributions (the noise the fixed point removed); (d) a
+                 flat Stage4Runner on phase 4's meshes and scene, 10 flat
+                 steps with bins refreshed every second visit of a frame,
+                 then 5 iterations that add an invisible-view step (top-K)
+                 on phase 6's packs, twice: every parameter after every
+                 step; (e) gs_train (MCMC) on phase 4's scene, 60 steps
+                 with a relocation after step 39, twice: every parameter
+                 after every step; (f) H4 at phase 8's flat bins, two
+                 launches and the plain twin, beside two index_add_ of the
+                 same rows (the noise H4 removed); the phase's seconds
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
 15, 16, 17 and 19) it is
 launched twice on the same inputs and the two results must be the same bits
-(K1-K4, H1-fwd, H1-bwd, H2, T1; H1-bwd sums in fixed point, so the order
-of its atomics does not change its bits).
+(K1-K4, H1-fwd, H1-bwd, H2, T1, H4; H1-bwd sums in fixed point, so the
+order of its atomics does not change its bits; H4 sums each row's run in
+order, with no atomics). H4 launches once a step on every training path
+(the backward of the payload gather, flat and top-K alike); phases 4, 5,
+16 and 17 (a) fail where it did not.
 The launch counts are set to 0 just before each of the paths 4-7, 10,
 10b, 12, 13, 14a, 14, 15 (its CLI run and its invisible-view run), 16
 (its Stage-4 run), 17 (each gs_train run, each gs_render run, the
@@ -326,6 +345,17 @@ Operations: per (in-range point, level) 18 for the smoothstep weights and their 
 jacobian term, whose [L*2, 3, N] cotangent is then not read either) or 6
 (H2), over 67 TFLOP/s. No single PyTorch call computes a hash-grid encode: library_ms
 is null.
+
+The bound of H4, from the plan of the bins it sums over (data-dependent:
+the dead slots' run is not summed). Bytes: each live slot's cotangent row
+(64 B) and its perm entry (4 B), bounds (4 B a row) and the [n + 1, 16]
+float32 result written once, over 3.35 TB/s; no operations to speak of.
+library_ms is index_add_ of the live slots' cotangent rows (gathered
+beforehand, all 16 columns) by their rows into a buffer made beforehand:
+one call that computes the function H4 computes. H4's entry also gives
+library_all_slots_ms, index_add_ of every slot (the dead slots' run into
+the trash row included), the call the port's first version reached
+through autograd.
 
 The bound of T1, from phase 17 (f)'s selection (tile order). The work
 depends on the data, so it counts what these inputs need. Operations: per
@@ -425,6 +455,7 @@ def reset_counts() -> None:
     from holoscene_tpu_torch.ops import splat_topk as st
 
     sf.flat_fwd.launches = sf.flat_bwd.launches = 0
+    sf.planned_take_bwd.launches = 0
     st.composite_fwd.launches = st.composite_bwd.launches = 0
     hg.fused_fwd.launches = hg.fused_bwd.launches = 0
     hg.sampler_fwd.launches = 0
@@ -440,7 +471,8 @@ def read_counts() -> dict:
 
     torch.cuda.synchronize()
     return {"K1": sf.flat_fwd.launches, "K2": sf.flat_bwd.launches,
-            "K3": st.composite_fwd.launches, "K4": st.composite_bwd.launches}
+            "K3": st.composite_fwd.launches, "K4": st.composite_bwd.launches,
+            "H4": sf.planned_take_bwd.launches}
 
 
 def read_hash_counts() -> dict:
@@ -649,6 +681,127 @@ def topk_lists(xy, depth, conic, radius, valid, opac, rgb, width, height, k):
                              top_idx.reshape(-1)).reshape(-1, k, sf.CAND_ROWS)
     return (gate_and_pad(cand, live.float()), origins,
             live.sum(1).to(torch.int32))
+
+
+# phase 8's H4 inputs (K2's d cand at training frame 0 and the bins'
+# plan), for phase 20
+H4_ARGS: list = []
+
+
+def h4_cotangent(cand, cs, cc, tiles_x, width, height, seed):
+    """The gather's cotangent as a flat step hands it to H4: K2's d cand
+    for a random cotangent of K1's output (diagnostics channels zero)."""
+    import torch
+
+    from holoscene_tpu_torch.ops import splat_flat as sf
+
+    geom = (tiles_x, 16, width, height)
+    out = sf.flat_fwd(cand, cs, cc, *geom)
+    gen = torch.Generator(device=cand.device).manual_seed(seed)
+    v = torch.randn(out.shape, generator=gen, device=cand.device)
+    v[..., 5:] = 0.0
+    return sf.flat_bwd(cand, cs, out, v, *geom)
+
+
+def compare_h4(ct, perm, bounds, gidx, timed):
+    """H4 on the card: two launches and the plain twin, all the same bits
+    (raises otherwise); beside them the largest difference between two
+    index_add_ of the same cotangent rows (float atomics: the order-
+    dependence H4 removed) and between index_add_ and H4. Timed (CUDA
+    events): kernel and plain ms; library_ms, index_add_ of the live
+    slots' cotangent rows (those of rows < n, in slot order, gathered
+    beforehand) into a buffer made beforehand, the one call that computes
+    the function H4 computes (the trash row is not summed); and
+    library_all_slots_ms, index_add_ of every slot, the dead slots' run
+    into the trash row included. The bound counts the bytes the function
+    needs: each live slot's 64-byte cotangent row and its perm entry,
+    bounds, and the [n + 1, 16] result written once."""
+    import torch
+
+    from holoscene_tpu_torch.ops import splat_flat as sf
+
+    n = bounds.shape[0] - 2
+    first = sf.planned_take_bwd(ct, perm, bounds)
+    second = sf.planned_take_bwd(ct, perm, bounds)
+    plain = sf.planned_take_bwd_plain(ct, perm, bounds)
+    sums = [torch.zeros(n + 1, sf.CAND_ROWS, device=ct.device).index_add_(
+        0, gidx, ct) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not same_bits(first, second):
+        raise RuntimeError("H4: two launches on the same inputs differ (max "
+                           f"abs {float((first - second).abs().max())})")
+    if not same_bits(first, plain):
+        raise RuntimeError("H4 disagrees with its plain twin: max abs "
+                           f"{float((first - plain).abs().max())}")
+    cols = slice(0, sf.BWD_COLS)
+    noise = float((sums[0][:n, cols] - sums[1][:n, cols]).abs().max())
+    vs_lib = float((sums[0][:n, cols] - first[:n, cols]).abs().max())
+    runs = (bounds[1:n + 1] - bounds[:n]).long()
+    live = int(bounds[n])
+    nbytes = (live * (ct.shape[1] * 4 + perm.element_size())
+              + bounds.numel() * 4 + first.numel() * 4)
+    res = dict(max_abs_err=0.0, index_add_noise=noise,
+               index_add_vs_h4=vs_lib, rows=n, slots=ct.shape[0],
+               live_slots=live, longest_run=int(runs.max()) if n else 0,
+               ms=None, plain_ms=None, library_ms=None,
+               library_all_slots_ms=None)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0)
+    if timed:
+        dst = sums[0]
+        alive = torch.nonzero(gidx < n).squeeze(1)
+        gidx_live, ct_live = gidx[alive], ct[alive]
+        res["ms"] = cuda_ms(lambda: sf.planned_take_bwd(ct, perm, bounds), 20)
+        res["plain_ms"] = cuda_ms(
+            lambda: sf.planned_take_bwd_plain(ct, perm, bounds), 3)
+        res["library_ms"] = cuda_ms(
+            lambda: dst.index_add_(0, gidx_live, ct_live), 20)
+        res["library_all_slots_ms"] = cuda_ms(
+            lambda: dst.index_add_(0, gidx, ct), 20)
+    return res
+
+
+def h4_note(r) -> str:
+    times = (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+             f"index_add_ of the live slots {r['library_ms']:.4f} ms (of "
+             f"every slot {r['library_all_slots_ms']:.4f} ms), "
+             if r["ms"] else "")
+    return (f"{r['rows']} rows, {r['live_slots']} of {r['slots']} slots "
+            f"live, runs up to {r['longest_run']}: two launches and plain "
+            f"bitwise equal; {times}bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; two index_add_ differ by "
+            f"{r['index_add_noise']:.3g}, index_add_ vs H4 "
+            f"{r['index_add_vs_h4']:.3g}")
+
+
+def topk_selection_cost(xy, depth, radius, valid, width, height, k):
+    """select_topk on these projected gaussians and take_plan of its lists
+    (the top-K path's transpose plan, built when the backward runs) on the
+    card: ms each (CUDA events), and the selection's peak device memory
+    above what was allocated before it."""
+    import torch
+
+    from holoscene_tpu_torch.ops import splat_flat as sf
+    from holoscene_tpu_torch.ops.splat import select_topk
+
+    args = (xy.detach(), depth.detach(), radius.detach(), valid, width,
+            height, 16, k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gidx = select_topk(*args)[0].reshape(-1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"n": xy.shape[0], "k": k, "slots": gidx.shape[0],
+            "select_ms": cuda_ms(lambda: select_topk(*args), 5),
+            "plan_ms": cuda_ms(lambda: sf.take_plan(gidx, xy.shape[0]), 20),
+            "select_peak_gib": peak / 2**30}
+
+
+def topk_selection_note(r) -> str:
+    return (f"select_topk at {r['n']} gaussians, k {r['k']}: "
+            f"{r['select_ms']:.3f} ms, peak {r['select_peak_gib']:.3f} GiB "
+            f"above what was allocated before it; its transpose plan "
+            f"(take_plan of {r['slots']} slots) {r['plan_ms']:.4f} ms")
 
 
 def random_scene(dev):
@@ -2394,7 +2547,9 @@ def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
         f" {steps_s:.3f} steps/s, {n_gauss * steps_s:.6g} splats/s (first "
         f"step included); steps 2..{iters}: {steady_s:.3f} steps/s, "
         f"{1e3 / steady_s:.2f} ms/step, {n_gauss * steady_s:.6g} splats/s; "
-        f"rebins {runner.rebin_count}, stale steps {runner.stale_steps}; "
+        f"rebins {runner.rebin_count}, stale steps {runner.stale_steps}, "
+        f"trim {runner._trim_active}, flat plan c_max "
+        f"{runner.flat_plan.c_max} (full {runner.flat_plan_full.c_max}); "
         f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}; "
         f"on {card}")
     log("   first/last third means: " + ", ".join(
@@ -2411,6 +2566,9 @@ def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
                                           for k1, k2 in step_launches):
         raise RuntimeError(f"Stage 4 on the chain: K1/K2 not launched every "
                            f"step ({len(step_launches)} steps counted)")
+    if launches["H4"] < iters:
+        raise RuntimeError(f"Stage 4 on the chain: H4 not on every step: "
+                           f"{launches}")
     missing = [n for n in ("gauss_scene.ply", "gauss_scene.usdz")
                if not (plots / n).exists()]
     if missing or not (finite(test["psnr"]) and finite(test["ssim"])):
@@ -2420,13 +2578,26 @@ def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
     # counts), at the tile lengths of its gaussians
     h, w = runner.dataset.img_res
     pose, intr = runner._pose_intr(0)
-    xy, depth, conic, _, _, opac, rgb = gom_projection(runner, pose, intr,
-                                                       w, h)
+    xy, depth, conic, radius, valid, opac, rgb = gom_projection(
+        runner, pose, intr, w, h)
     bins = runner._get_bins(0, pose, intr)
     cand = sf.gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
     walks = compare_flat(cand, bins["tile_chunk_start"],
                          bins["tile_chunk_cnt"], -(-w // 16), w, h, 7,
                          timed=True)
+    walks["H4"] = compare_h4(
+        h4_cotangent(cand, bins["tile_chunk_start"], bins["tile_chunk_cnt"],
+                     -(-w // 16), w, h, 14),
+        bins["perm"], bins["bounds"], bins["gidx"], timed=True)
+    log(f"   H4 at the chain's training frame 0 (K2's d cand): "
+        f"{h4_note(walks['H4'])}; on {card}")
+    # the top-K selection at the most gaussians a top-K render of this
+    # scene gets (an invisible-view step or an eval off the dataset's
+    # resolution, at the runner's K)
+    sel = topk_selection_cost(xy, depth, radius, valid, w, h,
+                              runner.cfg.max_per_tile)
+    log(f"   at the chain's training frame 0: {topk_selection_note(sel)}; "
+        f"on {card}")
     longest = max(walks["K1"]["tiles_by_walked_chunks"])
     log(f"   K1/K2 vs plain, the chain's training frame 0 "
         f"({cand.shape[0] // sf.CHUNK} flat chunks, "
@@ -2437,7 +2608,8 @@ def chain_phase(work: Path, dev, card: str, chain: dict) -> dict:
                     f"{exact_note(r)}, kernel "
                     f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
                     f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
-                    for k, r in walks.items()) + f"; on {card}")
+                    for k, r in walks.items() if k != "H4")
+        + f"; on {card}")
     chain["stage4"] = {
         "wall_s": wall, "psnr": test["psnr"], "ssim": test["ssim"],
         "lpips": test["lpips"] if finite(test["lpips"]) else None,
@@ -2772,8 +2944,9 @@ def free_gaussian_phase(work: Path, dev, card: str, gauss_ply: Path,
                            "non-finite loss")
     if not trend["psnr"][1] > trend["psnr"][0]:
         raise RuntimeError(f"gs_train: PSNR did not rise: {trend}")
-    if launches["K1"] < FREE_ITERS or launches["K2"] < FREE_ITERS:
-        raise RuntimeError(f"gs_train: K1/K2 not on every step: {launches}")
+    if min(launches["K1"], launches["K2"], launches["H4"]) < FREE_ITERS:
+        raise RuntimeError(f"gs_train: K1/K2/H4 not on every step: "
+                           f"{launches}")
     events = [it for it in range(FREE_WARMUP, FREE_ITERS)
               if (it + 1) % FREE_REFINE == 0]
     if [r["iter"] for r in tr.refines] != events or any(
@@ -3997,7 +4170,7 @@ def float_sum_noise(bargs) -> float:
     return worst
 
 
-def repeat_phase(work: Path, card: str) -> dict:
+def repeat_phase(work: Path, card: str, s4runner, plots: Path) -> dict:
     """Phase 20: the same bits twice from one seed. (a) phase 10b's conf for
     REPEAT_S1_STEPS steps twice through exp_runner.main: every parameter
     after every step and both checkpoints; (b) object REPEAT_OBJ's
@@ -4005,7 +4178,14 @@ def repeat_phase(work: Path, card: str) -> dict:
     checkpoint, each on a fresh Stage2Runner, then its extraction at
     S2_MESH_RES twice; (c) H1-bwd at phase 11's fine-tier call: two
     launches and one on the points, cotangents and uniforms permuted,
-    beside the float-atomic sums' difference on the same contributions.
+    beside the float-atomic sums' difference on the same contributions;
+    (d) a flat Stage4Runner on phase 4's meshes and scene twice:
+    repeat_check.S4_FLAT_STEPS flat steps with bins refreshed, then
+    S4_INVIS_STEPS iterations with an invisible-view step on phase 6's
+    packs, every parameter after every step; (e) gs_train (MCMC) on phase
+    4's scene, repeat_check.GS_STEPS steps twice through one relocation,
+    every parameter after every step; (f) H4 at phase 8's flat bins: two
+    launches and the plain twin, beside two index_add_ of the same rows.
     Any nonzero difference fails. Returns the largest differences."""
     import argparse
 
@@ -4050,10 +4230,19 @@ def repeat_phase(work: Path, card: str) -> dict:
     h1_bits = all(same_bits(x, y) for g in (second, third)
                   for x, y in zip(g, first) if x is not None)
     noise = float_sum_noise(FINE_BWD)
+    t_de = time.perf_counter()
+    d = rc.stage4_twice(rc.stage4_factory(s4runner.meshes, s4runner.dataset,
+                                          work / "repeat_s4", AREA), plots)
+    e = rc.gs_train_twice(rc.gs_args(work / "data" / "scene_0",
+                                     work / "repeat_gs"))
+    f = compare_h4(*H4_ARGS, timed=False)
     res = {"stage1": a["max_abs_diff"], "finetune": b["max_abs_diff"],
            "extraction": max((o["vertex_max_abs_diff"] or 0.0)
                              for o in c["objects"]),
            "h1_bwd": h1, "float_atomics_noise": noise,
+           "stage4": d["max_abs_diff"], "gs_train": e["max_abs_diff"],
+           "h4": f["max_abs_err"], "h4_index_add_noise": f["index_add_noise"],
+           "stage4_gs_train_h4_seconds": time.perf_counter() - t_de,
            "seconds": time.perf_counter() - t0}
     log(f"== 20 repeatability in {res['seconds']:.1f} s on {card}: largest "
         f"absolute difference between two runs from one seed: (a) Stage 1, "
@@ -4068,14 +4257,26 @@ def repeat_phase(work: Path, card: str) -> dict:
         + f"); (c) H1-bwd at phase 11's fine tier ({x01.shape[0]} points x "
         f"{lt.n_levels} levels, {mode}), two launches and permuted points "
         f"{h1:.3g}, where float atomics over the same contributions "
-        f"differ by {noise:.3g}")
+        f"differ by {noise:.3g}; (d) Stage 4, {rc.S4_FLAT_STEPS} flat steps "
+        f"and {rc.S4_INVIS_STEPS} iterations with an invisible-view step "
+        f"({d['steps']} steps, {d['bin_builds']} bin builds over "
+        f"{d['frames']} frames, trim {d['trim_active']}) "
+        f"{d['max_abs_diff']:.3g}; (e) gs_train, {rc.GS_STEPS} MCMC "
+        f"steps (relocations {[r['iter'] for r in e['refines']]}) "
+        f"{e['max_abs_diff']:.3g}; (f) H4 at phase 8's flat bins: "
+        f"{h4_note(f)}; (d)-(f) in {res['stage4_gs_train_h4_seconds']:.1f} s")
     bad = [k for k, ok in (
         ("(a)", a["bitwise_equal"] and a["checkpoints_bitwise_equal"]),
         ("(b)", b["bitwise_equal"]), ("(b) extraction", c["bitwise_equal"]),
-        ("(c)", h1_bits)) if not ok]
+        ("(c)", h1_bits), ("(d)", d["bitwise_equal"]),
+        ("(d) rebins", d["bin_builds"] > d["frames"]
+         and d["invis_steps"] == rc.S4_INVIS_STEPS),
+        ("(e)", e["bitwise_equal"] and e["refines_equal"]),
+        ("(e) relocation", len(e["refines"]) > 0)) if not ok]
     if bad:
         raise RuntimeError(f"phase 20: not bitwise repeatable: {bad}; "
-                           f"(a) {a}, (b) {b}, extraction {c}")
+                           f"(a) {a}, (b) {b}, extraction {c}, (d) {d}, "
+                           f"(e) {e}")
     return res
 
 
@@ -4149,7 +4350,7 @@ def main() -> int:
              "--log_every", "1", "--quiet", "--device", "cuda"])
         paths["flat"] = read_counts()
         check_training("flat slice", runner, runner.history, STEPS,
-                       paths["flat"], ("K1", "K2"), card)
+                       paths["flat"], ("K1", "K2", "H4"), card)
         if not finite(runner.test_metrics["psnr"]):
             raise RuntimeError(f"eval PSNR not finite: {runner.test_metrics}")
         outs = [plots / "gauss_scene.ply", plots / "gauss_scene.usdz"] + [
@@ -4181,7 +4382,7 @@ def main() -> int:
         topk.run(log_every=1)
         paths["topk"] = read_counts()
         check_training("top-K slice", topk, topk.history, TOPK_STEPS,
-                       paths["topk"], ("K3", "K4"), card)
+                       paths["topk"], ("K3", "K4", "H4"), card)
         log(f"   launches {paths['topk']}")
 
         # 6 the invisible-view path on a fresh flat runner
@@ -4255,21 +4456,34 @@ def main() -> int:
         k_top = topk.cfg.max_per_tile
         lists = topk_lists(*proj, w, h, k_top)
         big.update(compare_topk(*lists, w, h, 4, timed=True))
+        # H4 at the flat bins (K2's d cand) and at the top-K lists' plan
+        H4_ARGS[:] = (h4_cotangent(cand, bins["tile_chunk_start"],
+                                   bins["tile_chunk_cnt"], -(-w // 16), w, h,
+                                   12), bins["perm"], bins["bounds"],
+                      bins["gidx"])
+        h4 = {"flat": compare_h4(*H4_ARGS, timed=True)}
         # what surrounds the walks in a step: binning / selection, gathers
         from holoscene_tpu_torch.ops.splat import select_topk
 
         top_idx = select_topk(*proj[:2], *proj[3:5], w, h, 16, k_top)[0]
+        gidx_t = top_idx.reshape(-1)
+        ct_t = torch.randn(gidx_t.shape[0], sf.CAND_ROWS, device=dev,
+                           generator=torch.Generator(dev).manual_seed(13))
+        ct_t[:, sf.GRAD_ROWS:] = 0.0
+        plan_t = sf.take_plan(gidx_t, proj[0].shape[0])
+        h4["topk"] = compare_h4(ct_t, *plan_t, gidx_t, timed=False)
         around = {
             "flat rebin (build_flat_bins, full plan)": cuda_ms(
                 lambda: runner._rebin(pose, intr, None), 5),
             "flat payload gather": cuda_ms(lambda: sf.gather_payload(
                 xy, depth, conic, opac, rgb, bins["gidx"]), 20),
-            f"top-K selection (select_topk, k={k_top})": cuda_ms(
-                lambda: select_topk(*proj[:2], *proj[3:5], w, h, 16, k_top),
-                5),
             "top-K payload gather": cuda_ms(lambda: sf.gather_payload(
                 *proj[:3], *proj[5:7], top_idx.reshape(-1)), 20),
         }
+        sel = topk_selection_cost(*proj[:2], *proj[3:5], w, h, k_top)
+        around[f"top-K selection (select_topk, k={k_top})"] = \
+            sel["select_ms"]
+        around["top-K transpose plan (take_plan)"] = sel["plan_ms"]
         log(f"== 8 kernels vs plain, training frame 0 "
             f"({cand.shape[0] // sf.CHUNK} flat chunks; top-K lists "
             f"{tuple(lists[0].shape)}) on {card}:")
@@ -4288,7 +4502,12 @@ def main() -> int:
             log(f"   tiles by chunks walked, {name}: "
                 f"{big[k]['tiles_by_walked_chunks']}")
         log("   around the walks (forward only, CUDA events): " + ", ".join(
-            f"{k} {v:.3f} ms" for k, v in around.items()))
+            f"{k} {v:.4f} ms" for k, v in around.items()))
+        log(f"   {topk_selection_note(sel)}; on {card}")
+        log(f"   H4 (the payload gather's transpose) at the flat bins, on "
+            f"K2's d cand: {h4_note(h4['flat'])}; at the top-K lists' plan "
+            f"({tuple(top_idx.shape)}, random cotangent): "
+            f"{h4_note(h4['topk'])}; on {card}")
 
         # K3/K4 vs plain on the lists of the other two paths that launch them
         from holoscene_tpu_torch import as_tensor
@@ -4342,7 +4561,7 @@ def main() -> int:
         # 19 the Stage-1 network variants
         variant_rows = variants_phase(work, card)
         # 20 repeatability
-        repeat = repeat_phase(work, card)
+        repeat = repeat_phase(work, card, runner, plots)
         hash_rows["H1-bwd"]["repeatability"] = repeat
         paths["stage4_dp"] = ranks["stage4_dp"]
         for k, row in hash_rows.items():
@@ -4375,6 +4594,24 @@ def main() -> int:
                                      "plain_max_abs_err_exact")}
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
+    h4_row = {
+        "name": "H4 planned_take_bwd", "route": "cuda",
+        "source": "holoscene_tpu_torch/csrc/planned_take_bwd.cu",
+        "replaces": "holoscene_tpu/ops/splat_flat.py:482",
+        "launches": paths["flat"]["H4"],
+        **{key: h4["flat"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_all_slots_ms", "index_add_noise", "rows",
+            "live_slots")},
+        "chain_stage4": {key: other["chain_stage4"]["H4"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_all_slots_ms", "index_add_noise", "rows",
+            "live_slots")},
+        "repeatability": {key: repeat[key] for key in (
+            "stage4", "gs_train", "h4", "h4_index_add_noise")},
+        "launches_by_path": {p: c["H4"] for p, c in paths.items()
+                             if "H4" in c}}
+    table.append(h4_row)
     table.extend(hash_rows.values())
     table.extend(variant_rows.values())
     table.append(t1_row)

@@ -54,6 +54,8 @@ _SIGNATURES = {
                        _I, _I, _I, _P),
     # x01, emb, scales, ints, out, n, n_levels, packed, interp, stream
     "hash_sampler_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ct, perm, bounds, out, n, stream
+    "planned_take_bwd": (_P, _P, _P, _P, _I, _P),
     # rays_o, rays_d, g13, spheres, n_rays, n_gauss, k, min_kernel,
     # min_alpha, near, degree, idx, count, stream
     "gs_trace_select": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _P,

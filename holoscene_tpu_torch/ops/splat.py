@@ -7,8 +7,9 @@ Projection (EWA) and view-dependent colour are shared. Compositing is either
     ops/splat_flat.py, kernels K1/K2): exact, no per-tile truncation, or
   * the top-K pipeline (no `flat_plan`; ops/splat_topk.py, kernels K3/K4):
     per tile the `max_per_tile` nearest overlapping gaussians, selected here
-    with `torch.topk` over -depth in chunks of 64 tiles, gathered as packed
-    width-16 payload rows and walked front to back.
+    with `torch.topk` over -depth (ties to the smaller index) in chunks of
+    64 tiles, gathered as packed width-16 payload rows (the gather's
+    transpose H4) and walked front to back.
 `tile_overlap_counts`, `auto_max_per_tile` and `calibrate_max_per_tile` pick
 the top-K depth from a scene. Non-pinhole cameras (opencv / fisheye with
 their distortion coefficients) and a rolling shutter (`viewmat_end`) project
@@ -120,32 +121,47 @@ def calibrate_max_per_tile(render_k, lo: int = 64, hi: int = 1024,
     return hi
 
 
+def _ordered_bits(x):
+    """int64 [n] of float32 x [n], ordered as the values (-0.0 as +0.0)."""
+    bits = (x + 0.0).view(torch.int32)
+    return (bits ^ ((bits >> 31) & 0x7FFFFFFF)).long()
+
+
 @torch.no_grad()
 def select_topk(xy, depth, radius, valid, width: int, height: int,
                 tile_size: int, k: int):
     """Per-tile selection: the k nearest overlapping gaussians of every
-    tile, front to back, dead entries last. Returns (top_idx [T, k] int64,
-    live [T, k] bool, origins [T, 2] float). `torch.topk` over -depth with
-    -inf for misses is exact; equal depths come out in no fixed order.
+    tile, front to back, equal depths to the smaller index, dead entries
+    last and pointing at the payload's trash row N. Returns (top_idx
+    [T, k] int64, live [T, k] bool, origins [T, 2] float).
 
-    The selection is exact on purpose. The reference selects with
-    jax.lax.approx_max_k (holoscene_tpu/ops/splat.py:304), which is exact
-    on the CPU but has a recall of ~0.95 on a TPU, so on its own hardware
-    it could composite a slightly different set of gaussians. The port
-    keeps the set the reference computes where it is exact (the CPU);
-    tests/test_torch_splat.py pins the port's sets to that result."""
+    `torch.topk` runs over int64 keys that are all distinct: the bits of
+    -depth (-inf for misses and invalid gaussians) ordered as the floats,
+    above the complement of the index. So the set, the order and the
+    indices are one function of the inputs, whatever order topk breaks
+    ties in; on the CPU they are the reference's (jax.lax.approx_max_k,
+    holoscene_tpu/ops/splat.py:304, exact there, keeps the smaller index
+    of equal values). The reference's recall on a TPU is ~0.95, so on its
+    own hardware it could composite a slightly different set; the port
+    keeps the set it computes where it is exact. tests/test_torch_splat.py
+    and tests/test_torch_planned_take.py pin the port's lists to it."""
+    n = xy.shape[0]
     x0, y0 = _tile_origins(width, height, tile_size, xy.device)
+    low = (1 << 32) - 1 - torch.arange(n, device=xy.device)
     inf = torch.full_like(depth, float("inf"))
-    neg_depth = -torch.where(valid, depth, inf)
-    miss = torch.full_like(depth, float("-inf"))[None, :]
+    key = _ordered_bits(-torch.where(valid, depth, inf)) * (1 << 32) + low
+    miss_bits = _ordered_bits(torch.full_like(depth[:1], float("-inf")))
+    miss = miss_bits * (1 << 32) + low                     # [n]
     idx, live = [], []
     for i in range(0, x0.shape[0], TILE_CHUNK):
         hit = _overlap(xy, radius, x0[i:i + TILE_CHUNK],
                        y0[i:i + TILE_CHUNK], tile_size)
-        vals, top = torch.topk(torch.where(hit, neg_depth[None, :], miss), k,
-                               dim=1, sorted=True)
-        idx.append(top)
-        live.append(torch.isfinite(vals))
+        top = torch.topk(torch.where(hit, key[None, :], miss[None, :]), k,
+                         dim=1, sorted=True).values
+        ok = top > miss_bits * (1 << 32) + ((1 << 32) - 1)
+        idx.append(torch.where(ok, (1 << 32) - 1 - (top & ((1 << 32) - 1)),
+                               n))
+        live.append(ok)
     return (torch.cat(idx), torch.cat(live),
             torch.stack([x0, y0], dim=-1).float())
 
@@ -208,7 +224,8 @@ def render_gaussians(
         xy.detach(), depth.detach(), radius.detach(), valid, width, height,
         tile_size, k)
     # ONE width-16 row gather fetches the whole candidate payload; its
-    # autograd transpose is one index_add
+    # transpose is H4 through the plan of these lists, built when the
+    # backward runs (dead entries gather the trash row, whose run H4 skips)
     cand = gather_payload(xy, depth, conic, opacities, rgb_n,
                           top_idx.reshape(-1)).reshape(-1, k, 16)
     rgb_t, depth_norm_t, alpha_t, used = composite_tiles_topk(

@@ -10,6 +10,13 @@ flat slot array. The per-tile chunk ranges (`tile_chunk_start`,
 
 Compositing: the candidate payload is gathered ONCE as row-major
 [c_max, 16] rows (x y conic_a conic_b conic_c opacity r g b depth 1 pad*5)
+through `_PlannedTake`, whose backward is
+
+  H4 `planned_take_bwd` — the gather's transpose, each payload row's
+      cotangent summed over its slots in a fixed order through the plan
+      (`perm`, `bounds`) that build_flat_bins keeps beside the bins
+      (csrc/planned_take_bwd.cu),
+
 and handed to
 
   K1 `flat_fwd` — per tile, a front-to-back walk over its chunks with
@@ -19,8 +26,8 @@ and handed to
 
 joined by the autograd Function `_FlatWalk`. Each wrapper launches its CUDA
 kernel for a CUDA tensor and runs its plain PyTorch version (`*_plain`, same
-semantics, vectorised over tiles) for a CPU tensor. There is no fallback from
-one to the other.
+semantics, vectorised over tiles; H4's adds in the kernel's order) for a CPU
+tensor. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 CHUNK = 128          # candidates per walk step
 CAND_ROWS = 16       # payload row width (11 live columns + pad)
 GRAD_ROWS = 10       # payload columns K2 writes (x..depth); rest stay zero
+BWD_COLS = 11        # payload columns H4 sums (JAX's bwd_cols); rest zero
 TERM_EPS = 1e-4      # tile saturation threshold
 ALPHA_EPS = 1.0 / 255.0
 # slack of the forward walk's per-warp test (warp_may_keep_plain), in units
@@ -257,17 +265,33 @@ def plan_trimmed(plan: FlatPlan, tile_chunk_cnt, used_chunks,
 
 
 @torch.no_grad()
+def take_plan(gidx, n: int):
+    """The transpose plan of a gather of the [n + 1]-row payload by gidx
+    (row n the trash row): perm [c] int32, the positions of gidx sorted by
+    row, stably (so ascending within each row's run), and bounds [n + 2]
+    int32, row s's run being perm[bounds[s]:bounds[s + 1]] (bincount +
+    cumsum, as JAX's build_flat_bins)."""
+    perm = torch.sort(gidx, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(gidx, minlength=n + 1)
+    bounds = F.pad(torch.cumsum(counts, 0), (1, 0)).to(torch.int32)
+    return perm, bounds
+
+
+@torch.no_grad()
 def build_flat_bins(xy, depth, conic, opac, valid,
                     tiles_x: int, tiles_y: int, tile_size: int,
                     plan: FlatPlan, used_chunks=None, trim_slack: int = 2):
     """Index-only binning plan, cacheable across train steps: payload
     VALUES are re-gathered every step, so gradients always use the current
-    parameters. `xy_snap` (every DRIFT_STRIDE-th projected centre) lets a
-    render report its screen drift since binning."""
+    parameters. Besides build_flat_candidates' dict it holds the gather's
+    transpose plan `perm` / `bounds` (take_plan) and `xy_snap` (every
+    DRIFT_STRIDE-th projected centre), with which a render reports its
+    screen drift since binning."""
     meta = build_flat_candidates(
         xy, depth, conic, opac, valid, tiles_x=tiles_x, tiles_y=tiles_y,
         tile_size=tile_size, plan=plan, used_chunks=used_chunks,
         trim_slack=trim_slack)
+    meta["perm"], meta["bounds"] = take_plan(meta["gidx"], xy.shape[0])
     meta["xy_snap"] = xy[::DRIFT_STRIDE].detach().clone()
     return meta
 
@@ -591,18 +615,120 @@ class _FlatWalk(torch.autograd.Function):
         return dcand, None, None, None, None, None, None
 
 
-def gather_payload(xy, depth, conic, opac, rgb, gidx) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# H4: the payload gather's transpose
+# ---------------------------------------------------------------------------
+
+
+def planned_take_bwd_plain(ct, perm, bounds) -> torch.Tensor:
+    """Plain PyTorch H4 (the CPU path and the card's reference), the
+    kernel's additions in the kernel's order: row s < n of the result is
+    0 + ct[perm[bounds[s]]] + ct[perm[bounds[s] + 1]] + ... in float32
+    over its run, in columns < BWD_COLS; the other columns and row n are
+    zero. The rows are walked longest run first, so that the rows still
+    adding at step j are a prefix. ct [c, 16]; returns [n + 1, 16]."""
+    n = bounds.shape[0] - 2
+    out = ct.new_zeros(n + 1, CAND_ROWS)
+    starts = bounds[:n].long()
+    lens = bounds[1:n + 1].long() - starts
+    order = torch.argsort(lens, descending=True, stable=True)
+    starts = starts[order]
+    rows = ct[perm.long(), :BWD_COLS]
+    acc = ct.new_zeros(n, BWD_COLS)
+    # active[j] = rows whose run is longer than j
+    len_hist = torch.bincount(lens.cpu(), minlength=1)
+    active = n - torch.cumsum(len_hist, 0)
+    for j in range(len_hist.shape[0] - 1):
+        m = int(active[j])
+        acc[:m] += rows[starts[:m] + j]
+    out[order, :BWD_COLS] = acc
+    return out
+
+
+def _check_take_args(ct, perm, bounds):
+    """Validate what H4 reads through raw pointers: ct f32 [c, 16], perm
+    int32 [c], bounds int32 [n + 2]; one device, contiguous."""
+    if ct.dtype != torch.float32 or ct.dim() != 2 \
+            or ct.shape[1] != CAND_ROWS:
+        raise ValueError(f"ct must be f32 [c, {CAND_ROWS}], got {ct.dtype} "
+                         f"{tuple(ct.shape)}")
+    if perm.dtype != torch.int32 or perm.shape != (ct.shape[0],):
+        raise ValueError(f"perm must be int32 [{ct.shape[0]}], got "
+                         f"{perm.dtype} {tuple(perm.shape)}")
+    if bounds.dtype != torch.int32 or bounds.dim() != 1 \
+            or bounds.shape[0] < 2:
+        raise ValueError(f"bounds must be int32 [n + 2], got {bounds.dtype} "
+                         f"{tuple(bounds.shape)}")
+    for x in (ct, perm, bounds):
+        if x.device != ct.device or not x.is_contiguous():
+            raise ValueError("H4 tensors must share one device and be "
+                             "contiguous")
+
+
+def planned_take_bwd(ct, perm, bounds) -> torch.Tensor:
+    """H4 wrapper: the transpose of a gather of the [n + 1, 16] payload,
+    through its plan (take_plan). CUDA tensor: launches `planned_take_bwd`
+    of csrc/planned_take_bwd.cu (a half-warp a payload row, each run
+    summed in order) and counts it in `planned_take_bwd.launches`; CPU
+    tensor: planned_take_bwd_plain. Returns [n + 1, 16], the same bits
+    either way."""
+    _check_take_args(ct, perm, bounds)
+    if not ct.is_cuda:
+        return planned_take_bwd_plain(ct, perm, bounds)
+    from holoscene_tpu_torch import kernels
+
+    n = bounds.shape[0] - 2
+    out = torch.empty(n + 1, CAND_ROWS, dtype=torch.float32,
+                      device=ct.device)
+    st = kernels.library().planned_take_bwd(
+        ct.data_ptr(), perm.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+        n, torch.cuda.current_stream(ct.device).cuda_stream)
+    kernels.check(st, "planned_take_bwd")
+    planned_take_bwd.launches += 1
+    return out
+
+
+planned_take_bwd.launches = 0
+
+
+class _PlannedTake(torch.autograd.Function):
+    """payload.index_select(0, gidx) whose backward is H4 through the
+    gather's plan (perm, bounds): the one given (the flat path's, built
+    with its bins), or else take_plan of gidx, built in the backward, so a
+    render that takes no gradient builds none. The counterpart of JAX's
+    _planned_take_sliced with bwd_cols = BWD_COLS."""
+
+    @staticmethod
+    def forward(ctx, payload, gidx, perm, bounds):
+        if bounds is not None and payload.shape[0] != bounds.shape[0] - 1:
+            raise ValueError(f"a plan of {bounds.shape[0] - 1} rows for a "
+                             f"payload of {payload.shape[0]}")
+        ctx.n = payload.shape[0] - 1
+        ctx.save_for_backward(gidx, perm, bounds)
+        return payload.index_select(0, gidx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        gidx, perm, bounds = ctx.saved_tensors
+        if perm is None:
+            perm, bounds = take_plan(gidx, ctx.n)
+        return planned_take_bwd(ct.contiguous(), perm, bounds), None, None, \
+            None
+
+
+def gather_payload(xy, depth, conic, opac, rgb, gidx, perm=None,
+                   bounds=None) -> torch.Tensor:
     """The walks' candidate rows [c_max, 16]: ONE row gather of the
     [N+1, 16] payload (x y conic opacity rgb depth 1 pad*5; row N is the
-    trash row). Its autograd transpose is an index_add (atomics on the
-    card, so its sums are taken in no fixed order)."""
+    trash row). Its transpose is H4 through the gather's plan (perm,
+    bounds: take_plan of gidx, given or built when the backward runs)."""
     n = xy.shape[0]
     payload = torch.cat(
         [xy, conic, opac[:, None], rgb, depth[:, None],
          torch.ones_like(depth)[:, None],
          xy.new_zeros(n, CAND_ROWS - 11)], dim=-1)
     payload = torch.cat([payload, payload.new_zeros(1, CAND_ROWS)], dim=0)
-    return payload.index_select(0, gidx)
+    return _PlannedTake.apply(payload, gidx, perm, bounds)
 
 
 def composite_tiles_flat(
@@ -623,7 +749,8 @@ def composite_tiles_flat(
             xy, depth, conic, opac, valid, tiles_x=tiles_x, tiles_y=tiles_y,
             tile_size=tile_size, plan=plan)
 
-    cand = gather_payload(xy, depth, conic, opac, rgb, bins["gidx"])
+    cand = gather_payload(xy, depth, conic, opac, rgb, bins["gidx"],
+                          bins["perm"], bins["bounds"])
     out = _FlatWalk.apply(cand, bins["tile_chunk_start"],
                           bins["tile_chunk_cnt"], tiles_x, tile_size,
                           width, height)

@@ -25,7 +25,7 @@ import numpy as np
 from holoscene_tpu_torch.training.gs_render import load_dataset
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", choices=["nerf", "colmap", "ns"],
                     default="nerf")
@@ -53,12 +53,15 @@ def main(argv=None):
         "--device", type=str, default="cuda",
         help="torch device; 'cuda' launches the hand-written kernels and "
              "fails without a card, 'cpu' runs their plain versions")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def build_trainer(args: argparse.Namespace):
+    """The dataset and a fresh GSTrainer as the command line's arguments
+    set them up (seed points from the dataset where it has them)."""
     from holoscene_tpu_torch.models.gaussians_free import FreeGaussianConfig
     from holoscene_tpu_torch.training.gs_trainer import GSTrainer
 
-    os.makedirs(args.out, exist_ok=True)
     ds = load_dataset(args.dataset, args.data_root, args.max_num_images)
     seed_pts = seed_cols = None
     # COLMAP reconstructions without points3D.bin fall back to random init
@@ -80,6 +83,13 @@ def main(argv=None):
         strategy=args.strategy, seed=args.seed, quiet=args.quiet,
         device=args.device,
     )
+    return trainer, ds
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    trainer, ds = build_trainer(args)
     ckpt = os.path.join(args.out, "ckpt.pkl")
     if args.resume and os.path.exists(ckpt):
         trainer.load_checkpoint(ckpt)

@@ -1,15 +1,18 @@
-"""Run Stage 1 and Stage 2 of the port twice from one seed and report where
-the two runs part. Needs one NVIDIA GPU with nvcc; run from the repository
-root:
+r"""Run the port's training paths twice from one seed and report where the
+two runs part: Stage 1 and Stage 2, Stage 4 and the free-Gaussian trainer
+(gs_train). Needs one NVIDIA GPU with nvcc; run from the repository root:
 
     python -m holoscene_tpu_torch.utils.repeat_check \
-        [--s1_steps 40] [--ft_iters 60] [--modes default det det_plain] \
-        [--stage2_runs 2] [--out FILE]
+        [--parts a b c d e] [--modes default det det_plain] \
+        [--s1_steps 40] [--ft_iters 60] [--stage2_runs 2] [--out FILE]
 
-The runs are chip_smoke.py's: phase 10b's conf (confs/replica_room0.conf's
-model at the flagship widths on the generated 512^2 scene) and phase 14's
-Stage 2 on its checkpoint (confs/replica_room0_post.conf, mesh resolution
-chip_smoke.S2_MESH_RES, quasi-static physics). For each mode:
+(for example `--parts d e --modes default det` for Stage 4 and gs_train
+alone, ~1.5 min on an H100). The runs are chip_smoke.py's: phase 10b's
+conf (confs/replica_room0.conf's model at the flagship widths on the
+generated 512^2 scene), phase 14's Stage 2 on its checkpoint
+(confs/replica_room0_post.conf, mesh resolution chip_smoke.S2_MESH_RES,
+quasi-static physics), and phase 4's scene (8 generated 512^2 views, the
+analytic meshes, the spheres' orthographic packs). For each mode:
 
   (a) Stage 1 through training/exp_runner.main, s1_steps steps, twice from
       seed 0: the first step after which a parameter differs (the tensor,
@@ -22,25 +25,37 @@ chip_smoke.S2_MESH_RES, quasi-static physics). For each mode:
       the object's best views made once beforehand: the first step and
       tensor where they part;
   (c) Stage2Runner.extract_meshes twice on the parameters after (b):
-      vertices and faces identical or not, per object.
+      vertices and faces identical or not, per object;
+  (d) a flat Stage4Runner (seed 0) on phase 4's scene, twice:
+      S4_FLAT_STEPS flat steps (K1/K2; bins refreshed every
+      S4_REBIN_EVERY visits of a frame, the saturation trim on once every
+      frame has been walked), then S4_INVIS_STEPS iterations that each add
+      an invisible-view step (top-K, K3/K4) on the packs: every parameter
+      after every step;
+  (e) a GSTrainer (gs_train's command line, MCMC, seed 0) on phase 4's
+      scene, GS_STEPS steps twice, a relocation every GS_REFINE_EVERY
+      steps after GS_WARMUP: every parameter after every step.
+(a)-(c) run together when any of them is named; (d) and (e) run at the
+same depths as in chip_smoke.py's phase 20.
 
 Modes: `default` as the port runs; `det` under
 torch.use_deterministic_algorithms(True, warn_only=True) (the script sets
 CUBLAS_WORKSPACE_CONFIG=:4096:8 before CUDA starts, in every mode), whose
 warnings name the torch ops on the path without a deterministic
-implementation; `det_plain` the same with H1-bwd replaced by its plain
-twin on the card (a diagnosis: what is left when no hand-written
+implementation; `det_plain` the same with H1-bwd and H4 replaced by their
+plain twins on the card (a diagnosis: what is left when no hand-written
 accumulation runs).
 
-Then Stage 2 whole (training/exp_runner_post.main at phase 14's settings)
-stage2_runs times from the same checkpoint, in default mode: each object's
-accepted face count, the failed objects, the translations, and whether
-the accepted meshes and translations are the same bits as the first
-run's. The last line of the output is one JSON object with all of it
-(also written to --out).
+Then, with (a)-(c), Stage 2 whole (training/exp_runner_post.main at phase
+14's settings) stage2_runs times from the same checkpoint, in default
+mode: each object's accepted face count, the failed objects, the
+translations, and whether the accepted meshes and translations are the
+same bits as the first run's. The last line of the output is one JSON
+object with all of it (also written to --out).
 
 chip_smoke.py's phase 20 calls stage1_twice, finetune_twice and
-extract_twice at smaller depths.
+extract_twice at smaller depths, stage4_twice and gs_train_twice as they
+are.
 """
 
 from __future__ import annotations
@@ -59,6 +74,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 MODES = ("default", "det", "det_plain")
+PARTS = ("a", "b", "c", "d", "e")
+# (d): bins refreshed every second visit of a frame, so that ten flat steps
+# over phase 4's seven training frames rebuild some, then five iterations
+# with an invisible-view step; (e): one MCMC relocation, after step 39,
+# with 20 steps after it in a 60-step run
+S4_FLAT_STEPS, S4_INVIS_STEPS, S4_REBIN_EVERY = 10, 5, 2
+GS_STEPS, GS_WARMUP, GS_REFINE_EVERY, GS_CAPACITY = 60, 20, 40, 100_000
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -83,7 +105,11 @@ class StepTrace:
         self.max_diff = 0.0
 
     def after_step(self, model) -> None:
-        params = {k: p.detach() for k, p in model.named_parameters()}
+        """Record (or compare) the parameters after a step: a module's
+        named parameters, or a trainer's dict of parameter tensors."""
+        named = model.items() if isinstance(model, dict) \
+            else model.named_parameters()
+        params = {k: p.detach() for k, p in named}
         if self.ref is None:
             self.snaps.append({k: p.clone() for k, p in params.items()})
         elif self.steps < len(self.ref.snaps):
@@ -132,11 +158,26 @@ def traced(module, name: str, trace: StepTrace):
         yield
 
 
+def trace_methods(obj, names, trace: StepTrace, params) -> None:
+    """Wrap the bound methods `names` of obj (a trainer's step functions)
+    so that trace.after_step(params()) follows each call."""
+    for name in names:
+        fn = getattr(obj, name)
+
+        def wrapped(*args, _fn=fn, **kwargs):
+            out = _fn(*args, **kwargs)
+            trace.after_step(params())
+            return out
+
+        setattr(obj, name, wrapped)
+
+
 @contextlib.contextmanager
 def run_mode(mode: str):
     """The mode's switches for the block; yields the list of warnings
     recorded in it."""
     from holoscene_tpu_torch.ops import hashgrid as hg
+    from holoscene_tpu_torch.ops import splat_flat as sf
 
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
@@ -154,6 +195,8 @@ def run_mode(mode: str):
                                           interp=interp)[:2]
 
             stack.enter_context(patched(hg, "fused_bwd", plain_bwd))
+            stack.enter_context(patched(sf, "planned_take_bwd",
+                                        sf.planned_take_bwd_plain))
         try:
             yield caught
         finally:
@@ -310,6 +353,95 @@ def extract_twice(runner) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def stage4_twice(make_runner, plots_dir) -> dict:
+    """(d): a Stage4Runner from make_runner() (flat training renders) runs
+    S4_FLAT_STEPS flat steps, then loads the invisible-view packs of
+    plots_dir and runs S4_INVIS_STEPS iterations, each a flat step and an
+    invisible-view step (top-K); twice. Every parameter after every step
+    (flat and invisible-view alike) is compared; the report adds the
+    second run's bin builds (first visits, refreshes and the trim's
+    rebuilds: more than its distinct frames once a frame's bins were
+    rebuilt), those frames, and whether the trim switched on."""
+    first = StepTrace()
+    second = StepTrace(first)
+    t0 = time.perf_counter()
+    runs = []
+    for trace in (first, second):
+        runner = make_runner()
+        trace_methods(runner, ("_step", "_invis_step"), trace,
+                      lambda r=runner: r.params)
+        runner.run(n_iters=S4_FLAT_STEPS, log_every=1)
+        runner.load_vis_info(str(plots_dir))
+        runner.run(n_iters=S4_INVIS_STEPS, log_every=1)
+        runs.append({"bin_builds": runner.rebin_count,
+                     "frames": len(runner._used_cache),
+                     "trim_active": runner._trim_active,
+                     "invis_steps": runner.invis_steps,
+                     "losses": [h["loss"] for h in runner.history]})
+        del runner
+    rep = second.report()
+    first.snaps.clear()
+    rep.update(runs[1], losses_equal=runs[0]["losses"] == runs[1]["losses"],
+               seconds=time.perf_counter() - t0)
+    return rep
+
+
+def gs_train_twice(gs_args: list[str]) -> dict:
+    """(e): a fresh GSTrainer from gs_train's command line `gs_args` runs
+    GS_STEPS steps, twice; every parameter after every step is compared
+    (a refine event between two steps shows in the next step's). The
+    report adds the refine events of the second run."""
+    from holoscene_tpu_torch.training import gs_train
+
+    first = StepTrace()
+    second = StepTrace(first)
+    t0 = time.perf_counter()
+    refines, losses = [], []
+    for trace in (first, second):
+        trainer, _ = gs_train.build_trainer(gs_train.parse_args(gs_args))
+        trace_methods(trainer, ("step",), trace, lambda t=trainer: t.params)
+        trainer.run(GS_STEPS, log_every=1)
+        refines.append(trainer.refines)
+        losses.append([h["loss"] for h in trainer.history])
+        del trainer
+    rep = second.report()
+    first.snaps.clear()
+    rep.update(refines=refines[1], refines_equal=refines[0] == refines[1],
+               losses_equal=losses[0] == losses[1],
+               seconds=time.perf_counter() - t0)
+    return rep
+
+
+def stage4_factory(meshes, dataset, out_dir, area: float):
+    """make_runner for (d): a fresh flat Stage4Runner (seed 0) on these
+    meshes and dataset on the card, the invisible-view renders at K 256,
+    bins refreshed every S4_REBIN_EVERY visits of a frame, the run's
+    S4_FLAT_STEPS + S4_INVIS_STEPS iterations in its schedule."""
+    from holoscene_tpu_torch.models.gom import GoMConfig
+    from holoscene_tpu_torch.training.stage4 import Stage4Runner
+
+    def make_runner():
+        return Stage4Runner(
+            meshes, dataset,
+            cfg=GoMConfig(max_per_tile=0, rebin_every=S4_REBIN_EVERY),
+            area_to_subdivide=area,
+            max_total_iters=S4_FLAT_STEPS + S4_INVIS_STEPS,
+            out_dir=str(out_dir), quiet=True, device="cuda")
+
+    return make_runner
+
+
+def gs_args(data_root, out) -> list[str]:
+    """gs_train's command line for (e) on an NS-format scene, on the card:
+    MCMC relocation every GS_REFINE_EVERY steps after GS_WARMUP,
+    GS_CAPACITY slots, SH 3."""
+    return ["--dataset", "ns", "--data_root", str(data_root), "--out",
+            str(out), "--capacity", str(GS_CAPACITY), "--sh_degree", "3",
+            "--strategy", "mcmc", "--warmup", str(GS_WARMUP),
+            "--refine_every", str(GS_REFINE_EVERY), "--quiet", "--device",
+            "cuda"]
+
+
 def stage2_whole(args: list[str], runs: int) -> dict:
     """exp_runner_post.main(args) `runs` times: accepted face counts,
     failed objects, translations, and whether each run's accepted meshes
@@ -341,13 +473,69 @@ def stage2_whole(args: list[str], runs: int) -> dict:
     return {"runs": out}
 
 
+def stage4_gs_parts(rep: dict, mode: str, parts: set, make_s4, plots,
+                    work: Path) -> None:
+    """Parts (d) and (e) of one mode into rep, each logged."""
+    import chip_smoke as cs_
+
+    if "d" in parts:
+        rep["d"] = stage4_twice(make_s4, plots)
+        cs_.log(f"== ({mode}) d: {json.dumps(rep['d'])}")
+    if "e" in parts:
+        rep["e"] = gs_train_twice(gs_args(work / "data" / "scene_0",
+                                          work / f"gs_{mode}"))
+        cs_.log(f"== ({mode}) e: {json.dumps(rep['e'])}")
+
+
+def stage12_parts(rep: dict, mode: str, conf: Path, post_conf: Path,
+                  ckpt_exps, work: Path, args):
+    """Parts (a)-(c) of one mode into rep, each logged. (b) and (c) start
+    from ckpt_exps, default mode's first Stage-1 run (this mode's when it
+    is None). Returns the checkpoint's exps folder."""
+    import chip_smoke as cs_
+
+    from holoscene_tpu_torch.training.exp_runner_post import (
+        add_run_args,
+        build_stage2_runner,
+    )
+
+    a = stage1_twice(conf, work / f"exps_{mode}", args.s1_steps)
+    rep["a"] = a
+    cs_.log(f"== ({mode}) a: {json.dumps(a)}")
+    if ckpt_exps is None:
+        # default mode's first run: the one checkpoint file that (b) and
+        # Stage 2 start from in every mode
+        ckpt_exps = Path(a["rundir"]).parents[1]
+    parser2 = argparse.ArgumentParser()
+    add_run_args(parser2, mesh_resolution=cs_.S2_MESH_RES)
+    s2_args = parser2.parse_args(stage2_args(post_conf, ckpt_exps,
+                                             cs_.S2_MESH_RES))
+
+    def make_runner():
+        return build_stage2_runner(s2_args)[0]
+
+    setup = object_setup(make_runner(), args.obj)
+    b, runner = finetune_twice(make_runner, setup, args.obj, args.ft_iters)
+    rep["b"] = b
+    cs_.log(f"== ({mode}) b (object {args.obj}, {setup['faces']} faces, "
+            f"{len(setup['gen_views'])} packs): {json.dumps(b)}")
+    rep["c"] = extract_twice(runner)
+    del runner
+    cs_.log(f"== ({mode}) c: {json.dumps(rep['c'])}")
+    return ckpt_exps
+
+
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser()
+    parser = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--s1_steps", type=int, default=40)
     parser.add_argument("--ft_iters", type=int, default=60)
     parser.add_argument("--obj", type=int, default=1)
     parser.add_argument("--modes", nargs="+", default=list(MODES))
     parser.add_argument("--stage2_runs", type=int, default=2)
+    parser.add_argument("--parts", nargs="+", default=list(PARTS),
+                        choices=PARTS, help="runs to make in each mode")
     parser.add_argument("--work", type=str, default=None,
                         help="work directory (default: a temporary one)")
     parser.add_argument("--out", type=str, default=None)
@@ -364,10 +552,6 @@ def main(argv=None) -> int:
 
     from holoscene_tpu_torch import kernels
     from holoscene_tpu_torch.physics import sim
-    from holoscene_tpu_torch.training.exp_runner_post import (
-        add_run_args,
-        build_stage2_runner,
-    )
 
     card = cs_.card_line()
     cs_.log(card)
@@ -378,48 +562,48 @@ def main(argv=None) -> int:
     os.environ["HOLOSCENE_PHYSICS"] = "quasistatic"
     sim._PROVIDER = None
     report = {"card": card, "torch": torch.__version__,
-              "s1_steps": args.s1_steps, "ft_iters": args.ft_iters,
-              "obj": args.obj, "modes": {}}
+              "args": vars(args), "modes": {}}
     with contextlib.ExitStack() as stack:
         work = Path(args.work) if args.work else Path(
             stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="repeat_check_")))
         work.mkdir(parents=True, exist_ok=True)
-        conf = cs_.stage1_conf(work, "smoke_s1_vjp", cs_.S1_MODEL_DEFAULT)
-        post_conf = cs_.stage2_conf(work)
+        parts = set(args.parts)
+        stage12 = bool(parts & {"a", "b", "c"})
+        if stage12:
+            conf = cs_.stage1_conf(work, "smoke_s1_vjp",
+                                   cs_.S1_MODEL_DEFAULT)
+            post_conf = cs_.stage2_conf(work)
+        if parts & {"d", "e"}:
+            # phase 4's scene: 8 generated 512^2 views and the analytic
+            # meshes, read back as exp_runner_gaussian reads them
+            from holoscene_tpu_torch.datasets.synthetic import write_vis_info
+            from holoscene_tpu_torch.training import exp_runner_gaussian as eg
+
+            _, plots = cs_.write_slice_inputs(work)
+            write_vis_info(str(plots), n_views=cs_.PACK_VIEWS,
+                           res=cs_.PACK_RES)
+            meshes = [eg.read_obj(str(p)) for p in sorted(
+                plots.glob("surface_*.obj"),
+                key=lambda p: int(p.stem.split("_")[-1]))]
+            dataset = eg.NSDataset(
+                data_root_dir=str(work / "data"), data_dir="scene_0",
+                img_res=[cs_.RES, cs_.RES], test_split=True)
+            make_s4 = stage4_factory(meshes, dataset, work / "s4_out",
+                                     cs_.AREA)
         ckpt_exps = None
         for mode in args.modes:
             rep = report["modes"][mode] = {}
             with run_mode(mode) as caught:
-                a = stage1_twice(conf, work / f"exps_{mode}", args.s1_steps)
-                rep["a"] = a
-                cs_.log(f"== ({mode}) a: {json.dumps(a)}")
-                if ckpt_exps is None:
-                    # default mode's first run: the one checkpoint file
-                    # that (b) and Stage 2 start from in every mode
-                    ckpt_exps = Path(a["rundir"]).parents[1]
-                parser2 = argparse.ArgumentParser()
-                add_run_args(parser2, mesh_resolution=cs_.S2_MESH_RES)
-                s2_args = parser2.parse_args(stage2_args(
-                    post_conf, ckpt_exps, cs_.S2_MESH_RES))
-
-                def make_runner():
-                    return build_stage2_runner(s2_args)[0]
-
-                setup = object_setup(make_runner(), args.obj)
-                b, runner = finetune_twice(make_runner, setup, args.obj,
-                                           args.ft_iters)
-                rep["b"] = b
-                cs_.log(f"== ({mode}) b (object {args.obj}, "
-                        f"{setup['faces']} faces, {len(setup['gen_views'])} "
-                        f"packs): {json.dumps(b)}")
-                rep["c"] = extract_twice(runner)
-                del runner
-                cs_.log(f"== ({mode}) c: {json.dumps(rep['c'])}")
+                if parts & {"d", "e"}:
+                    stage4_gs_parts(rep, mode, parts, make_s4, plots, work)
+                if stage12:
+                    ckpt_exps = stage12_parts(rep, mode, conf, post_conf,
+                                              ckpt_exps, work, args)
             rep["warnings"] = warning_lines(caught)
             cs_.log(f"== ({mode}) warnings: {json.dumps(rep['warnings'])}")
             torch.cuda.empty_cache()
-        if args.stage2_runs:
+        if args.stage2_runs and stage12:
             s2 = stage2_whole(stage2_args(
                 post_conf, ckpt_exps, cs_.S2_MESH_RES,
                 ("--finetune_iters", str(cs_.S2_ITERS))), args.stage2_runs)

@@ -18,8 +18,8 @@ through the CLI, and Stage 1 and Stage 4 over torch.distributed ranks
 against the single-process steps; and the Stage-1 network variants (the
 tetrahedral stencil and its extraction, the raw fetch, the jvp gradient
 mode, no colour grid with the nerf head) through the CLI; and last that
-two runs of Stage 1, of a Stage-2 finetune, of Stage 4 and of gs_train
-from one seed give the same bits.
+two runs of Stage 1, of a Stage-2 finetune, of Stage 4, of gs_train and of
+a Stage-3 colour field and its bake from one seed give the same bits.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -52,8 +52,10 @@ Phases, one '== ' line each:
                  visible) and one gs_render view of the exported ply at its
                  calibrated K; H4 (the payload gather's transpose) against
                  its plain twin, bitwise, on K2's d cand at the flat bins
-                 (kernel ms, plain ms, bound, index_add_ ms of the live
-                 slots and of every slot) and on the top-K lists' plan;
+                 (kernel ms warm and cold, plain ms, bound, index_add_ ms
+                 of the live slots warm and cold and of every slot, an
+                 empty kernel's ms, the rows by run length) and on the
+                 top-K lists' plan;
                  select_topk's ms and peak memory and its lists' plan's ms
   9 hash kernels H1-fwd, H1-bwd (exact / sampled / sampled_all) and H2 vs
                  their plain versions on random tables at a 6-level meta
@@ -189,7 +191,7 @@ Phases, one '== ' line each:
                  time; K1 / K2 against plain on the run's training frame 0
                  (its flat bins, tiles far longer than phase 8's): kernel
                  ms, plain ms, bound; H4 there against plain (bitwise) and
-                 index_add_ (ms); select_topk at its gaussians (ms, peak
+                 index_add_ (ms, as phase 8); select_topk at its gaussians (ms, peak
                  memory) and its lists' plan (ms). (c) the chain record as one JSON line
                  (CHAIN_r05.json's shape: each stage's wall s, Stage 1's
                  eval PSNR at the end of phase 10b, Stage 2's meshes and
@@ -210,7 +212,7 @@ Phases, one '== ' line each:
                  JAX CLI renders them); steps/s, ms a step, splats/s; K1/K2
                  against plain on the trainer's training frame 0 (its flat
                  plan and bins over all 100,000 slots, the dead ones at
-                 opacity 0). (b) --resume for 10 more
+                 opacity 0), and H4 there as in phase 8. (b) --resume for 10 more
                  steps from the checkpoint's iteration (K2 ten times). (c)
                  --strategy mcmc, 200 steps, relocations every 50 after
                  50: the alive count kept at each. (d) an OPENCV_FISHEYE
@@ -299,7 +301,12 @@ Phases, one '== ' line each:
                  with a relocation after step 39, twice: every parameter
                  after every step; (f) H4 at phase 8's flat bins, two
                  launches and the plain twin, beside two index_add_ of the
-                 same rows (the noise H4 removed); the phase's seconds
+                 same rows (the noise H4 removed); (g) Stage 3 on phase
+                 15's meshes and scene, one object's colour field (its
+                 best-covered one other than the background) 200 image
+                 steps and its atlas baked at 512^2, twice: every
+                 parameter after every step and the baked OBJ / MTL / PNG
+                 bytes; the phase's seconds
 Wherever a kernel is held against plain (phases 3, 8, 9, 11, 12, 14a, 14,
 15, 16, 17 and 19) it is
 launched twice on the same inputs and the two results must be the same bits
@@ -352,10 +359,14 @@ the dead slots' run is not summed). Bytes: each live slot's cotangent row
 float32 result written once, over 3.35 TB/s; no operations to speak of.
 library_ms is index_add_ of the live slots' cotangent rows (gathered
 beforehand, all 16 columns) by their rows into a buffer made beforehand:
-one call that computes the function H4 computes. H4's entry also gives
-library_all_slots_ms, index_add_ of every slot (the dead slots' run into
-the trash row included), the call the port's first version reached
-through autograd.
+one call that computes the function H4 computes. Both are timed as the
+median of 5 windows of 100 launches (warm) and of 30 launches each after
+128 MB are written (cold: phase 8's ~27 MB of inputs fit in the 50 MB L2),
+each window and launch after a spin of the card that outlasts the host's
+enqueueing, beside an empty kernel (torch.cuda._sleep(0)) timed the same
+way, the launch floor. H4's entry also gives library_all_slots_ms,
+index_add_ of every slot (the dead slots' run into the trash row
+included), the call the port's first version reached through autograd.
 
 The bound of T1, from phase 17 (f)'s selection (tile order). The work
 depends on the data, so it counts what these inputs need. Operations: per
@@ -703,19 +714,112 @@ def h4_cotangent(cand, cs, cc, tiles_x, width, height, seed):
     return sf.flat_bwd(cand, cs, out, v, *geom)
 
 
+# H4's timing: the median of H4_WINDOWS windows of H4_REPS launches back
+# to back (warm: phase 8's ~27 MB of inputs then sit in the 50 MB L2), and
+# the median of H4_COLD launches timed one at a time, each after
+# FLUSH_BYTES are written (cold); each window and launch after a spin of
+# the card that outlasts the host's enqueueing, so the events time the
+# device, not the Python wrapper
+H4_REPS, H4_WINDOWS, H4_COLD = 100, 5, 30
+FLUSH_BYTES = 128 << 20
+SPIN_CYCLES_MS = 2.0e6        # spin cycles a ms, at or above the SM clock
+# other builds of H4 timed beside the tree's wherever compare_h4 times
+# (utils/take_bench.py fills it: {name: fn(ct, perm, bounds) -> out})
+H4_VARIANTS: dict = {}
+
+
+def device_ms(fn, flush, reps: int = H4_REPS, windows: int = H4_WINDOWS,
+              cold: int = H4_COLD) -> dict:
+    """fn's device time: "ms", the median over `windows` windows of `reps`
+    calls back to back (and "windows_ms", each), and "cold_ms", the median
+    over `cold` calls each timed alone after `flush` (a tensor of more
+    bytes than L2 holds) is overwritten. Each window, and each cold call,
+    follows a spin of the card (torch.cuda._sleep) long enough for the host
+    to enqueue it meanwhile (1.5x the host's measured enqueue time); a
+    spin that ran out first shows as "covered": False."""
+    import statistics
+
+    import torch
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(1.5e3 * host_s * SPIN_CYCLES_MS) + SPIN_CYCLES
+    spin_one = spin // reps + SPIN_CYCLES
+    timed, hosts = [], []
+    for _ in range(windows):
+        pre, start, end = events()
+        pre.record()
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hosts.append(time.perf_counter() - t0)
+        timed.append((pre, start, end, reps))
+    for _ in range(cold):
+        pre, start, end = events()
+        flush.fill_(1.0)
+        pre.record()
+        torch.cuda._sleep(spin_one)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        hosts.append(time.perf_counter() - t0)
+        timed.append((pre, start, end, 1))
+    torch.cuda.synchronize()
+    ms = [start.elapsed_time(end) / n for _, start, end, n in timed]
+    covered = all(pre.elapsed_time(start) > 1e3 * h
+                  for (pre, start, _, _), h in zip(timed, hosts))
+    return {"ms": statistics.median(ms[:windows]), "windows_ms": ms[:windows],
+            "cold_ms": statistics.median(ms[windows:]),
+            "cold_range_ms": [min(ms[windows:]), max(ms[windows:])],
+            "covered": covered}
+
+
+def run_histogram(runs) -> dict:
+    """Rows by run length: {"0": rows with no live slot, "1", "2", "3-4",
+    "5-8", ...}."""
+    import torch
+
+    if not runs.numel():
+        return {}
+    edges = [0, 1, 2]
+    while edges[-1] < int(runs.max()):
+        edges.append(2 * edges[-1])
+    counts = torch.bincount(torch.bucketize(runs, torch.tensor(
+        edges, device=runs.device)), minlength=len(edges)).tolist()
+    names = ["0", "1", "2"] + [f"{a + 1}-{b}" for a, b in
+                               zip(edges[2:], edges[3:])]
+    return {k: c for k, c in zip(names, counts) if c}
+
+
 def compare_h4(ct, perm, bounds, gidx, timed):
     """H4 on the card: two launches and the plain twin, all the same bits
     (raises otherwise); beside them the largest difference between two
     index_add_ of the same cotangent rows (float atomics: the order-
-    dependence H4 removed) and between index_add_ and H4. Timed (CUDA
-    events): kernel and plain ms; library_ms, index_add_ of the live
-    slots' cotangent rows (those of rows < n, in slot order, gathered
-    beforehand) into a buffer made beforehand, the one call that computes
-    the function H4 computes (the trash row is not summed); and
-    library_all_slots_ms, index_add_ of every slot, the dead slots' run
-    into the trash row included. The bound counts the bytes the function
-    needs: each live slot's 64-byte cotangent row and its perm entry,
-    bounds, and the [n + 1, 16] result written once."""
+    dependence H4 removed) and between index_add_ and H4, the longest run
+    and the rows by run length. Timed (device_ms: warm windows, cold
+    launches): the kernel; library_ms, index_add_ of the live slots'
+    cotangent rows (those of rows < n, in slot order, gathered beforehand)
+    into a buffer made beforehand, the one call that computes the function
+    H4 computes (the trash row is not summed); launch_floor_ms, an empty
+    kernel (torch.cuda._sleep(0)) timed the same way; every build of
+    H4_VARIANTS, bitwise the tree's or raising, in two rounds (the tree
+    first, then last); and with CUDA events over a few calls the plain
+    twin and library_all_slots_ms, index_add_ of every slot, the dead
+    slots' run into the trash row included. The bound counts the bytes the
+    function needs: each live slot's 64-byte cotangent row and its perm
+    entry, bounds, and the [n + 1, 16] result written once."""
     import torch
 
     from holoscene_tpu_torch.ops import splat_flat as sf
@@ -733,9 +837,14 @@ def compare_h4(ct, perm, bounds, gidx, timed):
     if not same_bits(first, plain):
         raise RuntimeError("H4 disagrees with its plain twin: max abs "
                            f"{float((first - plain).abs().max())}")
+    for name, fn in H4_VARIANTS.items():
+        if not same_bits(fn(ct, perm, bounds), first):
+            raise RuntimeError(f"H4 variant {name} differs from the tree's")
     cols = slice(0, sf.BWD_COLS)
-    noise = float((sums[0][:n, cols] - sums[1][:n, cols]).abs().max())
-    vs_lib = float((sums[0][:n, cols] - first[:n, cols]).abs().max())
+    noise = float((sums[0][:n, cols] - sums[1][:n, cols]).abs().amax(
+    ).nan_to_num(0.0)) if n else 0.0
+    vs_lib = float((sums[0][:n, cols] - first[:n, cols]).abs().amax(
+    ).nan_to_num(0.0)) if n else 0.0
     runs = (bounds[1:n + 1] - bounds[:n]).long()
     live = int(bounds[n])
     nbytes = (live * (ct.shape[1] * 4 + perm.element_size())
@@ -743,34 +852,65 @@ def compare_h4(ct, perm, bounds, gidx, timed):
     res = dict(max_abs_err=0.0, index_add_noise=noise,
                index_add_vs_h4=vs_lib, rows=n, slots=ct.shape[0],
                live_slots=live, longest_run=int(runs.max()) if n else 0,
-               ms=None, plain_ms=None, library_ms=None,
-               library_all_slots_ms=None)
+               runs_by_length=run_histogram(runs), ms=None, plain_ms=None,
+               library_ms=None, library_all_slots_ms=None)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0)
     if timed:
         dst = sums[0]
         alive = torch.nonzero(gidx < n).squeeze(1)
         gidx_live, ct_live = gidx[alive], ct[alive]
-        res["ms"] = cuda_ms(lambda: sf.planned_take_bwd(ct, perm, bounds), 20)
+        flush = torch.empty(FLUSH_BYTES // 4, device=ct.device)
+        fns = {"tree": lambda: sf.planned_take_bwd(ct, perm, bounds),
+               **{name: (lambda f=f: f(ct, perm, bounds))
+                  for name, f in H4_VARIANTS.items()}}
+        order = list(fns)
+        builds = {name: [] for name in order}
+        for rnd in range(2 if H4_VARIANTS else 1):
+            for name in (order if rnd == 0 else order[1:] + order[:1]):
+                builds[name].append(device_ms(fns[name], flush))
+        tree = builds.pop("tree")[0]
+        lib = device_ms(lambda: dst.index_add_(0, gidx_live, ct_live), flush)
+        floor = device_ms(lambda: torch.cuda._sleep(0), flush)
+        res.update(ms=tree["ms"], cold_ms=tree["cold_ms"], timing=tree,
+                   library_ms=lib["ms"], library_cold_ms=lib["cold_ms"],
+                   launch_floor_ms=floor["ms"],
+                   launch_floor_cold_ms=floor["cold_ms"],
+                   covered=tree["covered"] and lib["covered"]
+                   and floor["covered"],
+                   variants={name: [{k: r[k] for k in ("ms", "cold_ms",
+                                                       "covered")}
+                                    for r in rounds]
+                             for name, rounds in builds.items()})
         res["plain_ms"] = cuda_ms(
             lambda: sf.planned_take_bwd_plain(ct, perm, bounds), 3)
-        res["library_ms"] = cuda_ms(
-            lambda: dst.index_add_(0, gidx_live, ct_live), 20)
         res["library_all_slots_ms"] = cuda_ms(
             lambda: dst.index_add_(0, gidx, ct), 20)
+        del flush
     return res
 
 
 def h4_note(r) -> str:
-    times = (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-             f"index_add_ of the live slots {r['library_ms']:.4f} ms (of "
-             f"every slot {r['library_all_slots_ms']:.4f} ms), "
-             if r["ms"] else "")
+    times = ""
+    if r["ms"]:
+        times = (f"kernel {r['ms']:.4f} ms warm / {r['cold_ms']:.4f} cold "
+                 f"({100 * r['bound_ms'] / r['ms']:.1f}% / "
+                 f"{100 * r['bound_ms'] / r['cold_ms']:.1f}% of the bound), "
+                 f"index_add_ of the live slots {r['library_ms']:.4f} / "
+                 f"{r['library_cold_ms']:.4f} (of every slot "
+                 f"{r['library_all_slots_ms']:.4f}), an empty kernel "
+                 f"{r['launch_floor_ms']:.4f} / "
+                 f"{r['launch_floor_cold_ms']:.4f}, spins covered the "
+                 f"host {r['covered']}, plain {r['plain_ms']:.3f} ms; "
+                 + "".join(f"{name} {[round(x['ms'], 4) for x in v]} warm / "
+                           f"{[round(x['cold_ms'], 4) for x in v]} cold, "
+                           f"bitwise the tree's; "
+                           for name, v in r["variants"].items()))
     return (f"{r['rows']} rows, {r['live_slots']} of {r['slots']} slots "
-            f"live, runs up to {r['longest_run']}: two launches and plain "
-            f"bitwise equal; {times}bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}; two index_add_ differ by "
-            f"{r['index_add_noise']:.3g}, index_add_ vs H4 "
-            f"{r['index_add_vs_h4']:.3g}")
+            f"live, runs up to {r['longest_run']} (rows by run length "
+            f"{r['runs_by_length']}): two launches and plain bitwise equal; "
+            f"{times}bound {r['bound_ms']:.4f} ms by {r['bound_by']}; two "
+            f"index_add_ differ by {r['index_add_noise']:.3g}, index_add_ vs "
+            f"H4 {r['index_add_vs_h4']:.3g}")
 
 
 def topk_selection_cost(xy, depth, radius, valid, width, height, k):
@@ -1986,6 +2126,9 @@ S3_ITERS = 5000       # phase 15: exp_runner_texture's --max_niters default
 S3_TEX_RES = 2048     # and its --texture_res
 S3_INVIS_ITERS = 50   # the invisible-view run of one object
 S3_CHUNK = 1 << 16    # Stage3Runner.export_mesh_texture's bake chunk
+# phase 15's meshes, dataset, learning rates and the object phase 20 (g)
+# trains twice (an object other than the background with pixels to fit)
+S3_REPEAT: list = []
 TEX_CONF = Path(__file__).resolve().parent / "confs" / "replica_room0_tex.conf"
 
 
@@ -2138,6 +2281,10 @@ def stage3_phase(work: Path, dev, card: str, gauss_ply: Path,
                for i, span in spans.items()}
     falls = {i: (l[0], l[-1]) for i, l in runner.losses.items()}
     idle = [i for i in range(n_obj) if not covered[i]]
+    # phase 20 (g) trains the best-covered object again, twice
+    S3_REPEAT[:] = (runner.meshes, runner.dataset, runner.lr,
+                    runner.lr_grid, max(range(n_obj), key=lambda i: (
+                        i > 0 and covered[i] > 0, covered[i])))
     if any(not (np.isfinite(a) and b < a) for i, (a, b) in falls.items()
            if covered[i]) \
             or any(float(c["loss"]) for i in idle for c in spans[i]) \
@@ -2705,6 +2852,15 @@ def free_frame_inputs(tr, frame: int) -> tuple:
             -(-w // cfg.tile_size), w, h)
 
 
+def free_frame_h4(tr, frame: int, timed: bool) -> dict:
+    """H4 (compare_h4) at a GSTrainer's training frame: K2's d cand of
+    free_frame_inputs' candidates through the frame's bins' plan."""
+    cand, cs, cc, tiles_x, w, h = free_frame_inputs(tr, frame)
+    bins = tr._get_bins(frame, *tr._pose_intr(tr.dataset.pose_all[frame]))
+    return compare_h4(h4_cotangent(cand, cs, cc, tiles_x, w, h, 15),
+                      bins["perm"], bins["bounds"], bins["gidx"], timed)
+
+
 def walk_note(walks: dict, card: str) -> str:
     return "; ".join(f"{k} max abs err {r['max_abs_err']:.3g}"
                      f"{exact_note(r)}, kernel {r['ms']:.3f} ms, plain "
@@ -2963,6 +3119,9 @@ def free_gaussian_phase(work: Path, dev, card: str, gauss_ply: Path,
         f"{walks['K1']['live_candidate_pixels']} of "
         f"{walks['K1']['candidate_pixels']} candidate-pixels live): "
         + walk_note(walks, card))
+    walks["H4"] = free_frame_h4(tr, 0, timed=True)
+    log(f"   H4 at gs_train's training frame 0 (K2's d cand): "
+        f"{h4_note(walks['H4'])}; on {card}")
 
     # (b) resume from the checkpoint's iteration
     reset_counts()
@@ -4185,8 +4344,12 @@ def repeat_phase(work: Path, card: str, s4runner, plots: Path) -> dict:
     packs, every parameter after every step; (e) gs_train (MCMC) on phase
     4's scene, repeat_check.GS_STEPS steps twice through one relocation,
     every parameter after every step; (f) H4 at phase 8's flat bins: two
-    launches and the plain twin, beside two index_add_ of the same rows.
-    Any nonzero difference fails. Returns the largest differences."""
+    launches and the plain twin, beside two index_add_ of the same rows;
+    (g) Stage 3 on phase 15's meshes and scene twice (repeat_check's part
+    f): the colour field of one object for repeat_check.S3_STEPS image
+    steps, every parameter after every step, then its atlas baked at
+    S3_TEX_RES, the files' bytes. Any nonzero difference fails. Returns
+    the largest differences."""
     import argparse
 
     import torch
@@ -4236,13 +4399,19 @@ def repeat_phase(work: Path, card: str, s4runner, plots: Path) -> dict:
     e = rc.gs_train_twice(rc.gs_args(work / "data" / "scene_0",
                                      work / "repeat_gs"))
     f = compare_h4(*H4_ARGS, timed=False)
+    s3_meshes, s3_data, s3_lr, s3_lr_grid, s3_obj = S3_REPEAT
+    g = rc.stage3_twice(rc.stage3_factory(s3_meshes, s3_data,
+                                          work / "repeat_s3", s3_lr,
+                                          s3_lr_grid), s3_obj)
     res = {"stage1": a["max_abs_diff"], "finetune": b["max_abs_diff"],
            "extraction": max((o["vertex_max_abs_diff"] or 0.0)
                              for o in c["objects"]),
            "h1_bwd": h1, "float_atomics_noise": noise,
            "stage4": d["max_abs_diff"], "gs_train": e["max_abs_diff"],
            "h4": f["max_abs_err"], "h4_index_add_noise": f["index_add_noise"],
-           "stage4_gs_train_h4_seconds": time.perf_counter() - t_de,
+           "stage3": g["max_abs_diff"],
+           "stage3_atlas_equal": g["atlas_bitwise_equal"],
+           "stage4_gs_train_h4_stage3_seconds": time.perf_counter() - t_de,
            "seconds": time.perf_counter() - t0}
     log(f"== 20 repeatability in {res['seconds']:.1f} s on {card}: largest "
         f"absolute difference between two runs from one seed: (a) Stage 1, "
@@ -4264,7 +4433,12 @@ def repeat_phase(work: Path, card: str, s4runner, plots: Path) -> dict:
         f"{d['max_abs_diff']:.3g}; (e) gs_train, {rc.GS_STEPS} MCMC "
         f"steps (relocations {[r['iter'] for r in e['refines']]}) "
         f"{e['max_abs_diff']:.3g}; (f) H4 at phase 8's flat bins: "
-        f"{h4_note(f)}; (d)-(f) in {res['stage4_gs_train_h4_seconds']:.1f} s")
+        f"{h4_note(f)}; (g) Stage 3, object {s3_obj}'s colour field on "
+        f"phase 15's meshes, {rc.S3_STEPS} image steps and its atlas at "
+        f"{rc.S3_TEX_RES}^2 ({g['png_bytes']} PNG bytes) "
+        f"{g['max_abs_diff']:.3g}, baked files differing "
+        f"{g['files_differing']} ({g['seconds']:.1f} s); (d)-(g) in "
+        f"{res['stage4_gs_train_h4_stage3_seconds']:.1f} s")
     bad = [k for k, ok in (
         ("(a)", a["bitwise_equal"] and a["checkpoints_bitwise_equal"]),
         ("(b)", b["bitwise_equal"]), ("(b) extraction", c["bitwise_equal"]),
@@ -4272,11 +4446,13 @@ def repeat_phase(work: Path, card: str, s4runner, plots: Path) -> dict:
         ("(d) rebins", d["bin_builds"] > d["frames"]
          and d["invis_steps"] == rc.S4_INVIS_STEPS),
         ("(e)", e["bitwise_equal"] and e["refines_equal"]),
-        ("(e) relocation", len(e["refines"]) > 0)) if not ok]
+        ("(e) relocation", len(e["refines"]) > 0),
+        ("(g)", g["bitwise_equal"] and g["atlas_bitwise_equal"]
+         and g["steps"] == rc.S3_STEPS)) if not ok]
     if bad:
         raise RuntimeError(f"phase 20: not bitwise repeatable: {bad}; "
                            f"(a) {a}, (b) {b}, extraction {c}, (d) {d}, "
-                           f"(e) {e}")
+                           f"(e) {e}, (g) {g}")
     return res
 
 
@@ -4594,21 +4770,22 @@ def main() -> int:
                                      "plain_max_abs_err_exact")}
         table.append({**meta, "launches": paths[main_path[k]][k], **b,
                       "launches_by_path": {p: c[k] for p, c in paths.items()}})
+    h4_keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "library_cold_ms", "library_all_slots_ms",
+               "launch_floor_ms", "launch_floor_cold_ms", "covered",
+               "index_add_noise", "rows", "live_slots", "longest_run",
+               "runs_by_length", "variants")
     h4_row = {
         "name": "H4 planned_take_bwd", "route": "cuda",
         "source": "holoscene_tpu_torch/csrc/planned_take_bwd.cu",
         "replaces": "holoscene_tpu/ops/splat_flat.py:482",
-        "launches": paths["flat"]["H4"],
-        **{key: h4["flat"][key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_all_slots_ms", "index_add_noise", "rows",
-            "live_slots")},
-        "chain_stage4": {key: other["chain_stage4"]["H4"][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_all_slots_ms", "index_add_noise", "rows",
-            "live_slots")},
+        "launches": paths["flat"]["H4"], "max_abs_err": h4["flat"][
+            "max_abs_err"],
+        **{key: h4["flat"][key] for key in h4_keys},
+        **{tag: {key: other[tag]["H4"][key] for key in h4_keys}
+           for tag in ("chain_stage4", "gs_train")},
         "repeatability": {key: repeat[key] for key in (
-            "stage4", "gs_train", "h4", "h4_index_add_noise")},
+            "stage4", "gs_train", "h4", "h4_index_add_noise", "stage3")},
         "launches_by_path": {p: c["H4"] for p, c in paths.items()
                              if "H4" in c}}
     table.append(h4_row)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from holoscene_tpu_torch import as_tensor
+from holoscene_tpu_torch.ops import draws
 from holoscene_tpu_torch.ops.gaussians import (
     covariance_3d,
     num_sh_bases,
@@ -250,34 +251,15 @@ def refine_gaussians(params, state, cfg: FreeGaussianConfig,
 
 
 @torch.no_grad()
-def draw_by_weight(weights, n: int, generator=None) -> torch.Tensor:
-    """n indices into weights [m] (>= 0), drawn with replacement with
-    probability proportional to the weights, by inverse CDF on the
-    generator's device. The CDF is an int64 prefix sum of the weights
-    scaled to 2^32 at their largest and rounded: integer sums are exact in
-    any order, so the draw is one function of the weights and the
-    generator's state. torch.multinomial's float prefix sum is not on the
-    card (its scan adds in an order that varies from run to run), and a
-    last-bit change in it moves a draw to a neighbouring slot."""
-    dev = generator.device if generator is not None else weights.device
-    w = weights.detach().to(dev, torch.float64)
-    top = w.max()
-    scale = 2.0 ** 32 / torch.where(top > 0, top, torch.ones_like(top))
-    cdf = torch.cumsum(torch.round(w * scale).long(), 0)
-    u = torch.rand(n, generator=generator, device=dev, dtype=torch.float64)
-    r = torch.minimum((u * cdf[-1]).long(), cdf[-1] - 1)
-    return torch.searchsorted(cdf, r, right=True)
-
-
-@torch.no_grad()
 def mcmc_relocate(params, state, cfg: FreeGaussianConfig,
                   fraction: float = 0.05, target_idx=None,
                   generator: torch.Generator | None = None):
     """MCMC-style relocation: the weakest `fraction` of the capacity (alive
     slots by opacity) moves to the sites of `target_idx` [n_move], drawn
-    with probability proportional to opacity (draw_by_weight) when None;
-    mover and target share the opacity 1 - sqrt(1 - o) (binomial split
-    with n = 2). Returns (params, state, stats) with stats["reset_mask"]."""
+    with probability proportional to opacity (ops/draws.py::draw_by_weight)
+    when None; mover and target share the opacity 1 - sqrt(1 - o)
+    (binomial split with n = 2). Returns (params, state, stats) with
+    stats["reset_mask"]."""
     alive = state["alive"]
     dev = alive.device
     opac = torch.sigmoid(params["opacity_logits"]) * alive
@@ -287,7 +269,7 @@ def mcmc_relocate(params, state, cfg: FreeGaussianConfig,
     dead_score = torch.where(alive, opac, torch.full_like(opac, float("inf")))
     move_idx = torch.argsort(dead_score, stable=True)[:n_move]
     if target_idx is None:
-        target_idx = draw_by_weight(opac, n_move, generator)
+        target_idx = draws.draw_by_weight(opac, n_move, generator)
     if not torch.is_tensor(target_idx):
         target_idx = np.array(target_idx)
     target_idx = torch.as_tensor(target_idx, device=dev).long()

@@ -647,7 +647,8 @@ def planned_take_bwd_plain(ct, perm, bounds) -> torch.Tensor:
 
 def _check_take_args(ct, perm, bounds):
     """Validate what H4 reads through raw pointers: ct f32 [c, 16], perm
-    int32 [c], bounds int32 [n + 2]; one device, contiguous."""
+    int32 [c], bounds int32 [n + 2]; one device, contiguous; on the card
+    ct at a 16-byte boundary."""
     if ct.dtype != torch.float32 or ct.dim() != 2 \
             or ct.shape[1] != CAND_ROWS:
         raise ValueError(f"ct must be f32 [c, {CAND_ROWS}], got {ct.dtype} "
@@ -663,13 +664,17 @@ def _check_take_args(ct, perm, bounds):
         if x.device != ct.device or not x.is_contiguous():
             raise ValueError("H4 tensors must share one device and be "
                              "contiguous")
+    if ct.is_cuda and ct.data_ptr() % 16:
+        raise ValueError("ct must start at a 16-byte boundary (the kernel "
+                         "copies its rows 16 bytes at a time)")
 
 
 def planned_take_bwd(ct, perm, bounds) -> torch.Tensor:
     """H4 wrapper: the transpose of a gather of the [n + 1, 16] payload,
     through its plan (take_plan). CUDA tensor: launches `planned_take_bwd`
-    of csrc/planned_take_bwd.cu (a half-warp a payload row, each run
-    summed in order) and counts it in `planned_take_bwd.launches`; CPU
+    of csrc/planned_take_bwd.cu (a block a span of rows, their slots
+    staged in shared memory by async copies, each run summed in order by
+    its row's thread) and counts it in `planned_take_bwd.launches`; CPU
     tensor: planned_take_bwd_plain. Returns [n + 1, 16], the same bits
     either way."""
     _check_take_args(ct, perm, bounds)

@@ -24,10 +24,12 @@ Where it differs from the JAX step, and why the results stay the same:
     device. Both JAX rasterizations are traced with a traced pose, which
     skips the screen-size split, so these take auto_subdivide=False.
   * The pixel indices are an argument of `color_step`, drawn with
-    torch.multinomial (with replacement, over mask x instance mask;
-    uniform on a frame with no valid pixel, whose loss is 0 while Adam
-    still steps) from one torch.Generator seeded by `seed`, where JAX
-    draws jax.random.choice. The frame choice keeps JAX's numpy stream.
+    replacement by ops/draws.py::draw_by_weight (an exact integer inverse
+    CDF, so two runs from one seed draw the same pixels on the card; over
+    mask x instance mask, uniform on a frame with no valid pixel, whose
+    loss is 0 while Adam still steps) from one torch.Generator seeded by
+    `seed`, where JAX draws jax.random.choice. The frame choice keeps
+    JAX's numpy stream.
 `timer` (utils/logging.py::StepTimer) keeps the wall table by part,
 `losses` each object's losses as train_object returns them and `steps`
 each object's count of image and invisible-view steps.
@@ -46,6 +48,7 @@ from holoscene_tpu_torch.models.fields import (
     ColorFieldConfig,
     color_field_forward,
 )
+from holoscene_tpu_torch.ops import draws
 from holoscene_tpu_torch.ops.rasterizer import rasterize_mesh
 from holoscene_tpu_torch.utils.logging import StepTimer
 from holoscene_tpu_torch.utils.mesh import Mesh, write_obj
@@ -198,8 +201,8 @@ class Stage3Runner:
             np.asarray(pack["mask"], np.float32) > 0.5)
 
     def _draw(self, weights: torch.Tensor) -> torch.Tensor:
-        return torch.multinomial(weights, self.pixels_per_step,
-                                 replacement=True, generator=self.generator)
+        return draws.draw_by_weight(weights, self.pixels_per_step,
+                                    self.generator)
 
     def train_object(self, obj_i: int, n_iters: int | None = None,
                      vis_info: list[dict] | None = None):

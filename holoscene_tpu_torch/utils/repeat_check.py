@@ -1,9 +1,10 @@
 r"""Run the port's training paths twice from one seed and report where the
 two runs part: Stage 1 and Stage 2, Stage 4 and the free-Gaussian trainer
-(gs_train). Needs one NVIDIA GPU with nvcc; run from the repository root:
+(gs_train), Stage 3. Needs one NVIDIA GPU with nvcc; run from the
+repository root:
 
     python -m holoscene_tpu_torch.utils.repeat_check \
-        [--parts a b c d e] [--modes default det det_plain] \
+        [--parts a b c d e f] [--modes default det det_plain multinomial] \
         [--s1_steps 40] [--ft_iters 60] [--stage2_runs 2] [--out FILE]
 
 (for example `--parts d e --modes default det` for Stage 4 and gs_train
@@ -34,9 +35,14 @@ analytic meshes, the spheres' orthographic packs). For each mode:
       after every step;
   (e) a GSTrainer (gs_train's command line, MCMC, seed 0) on phase 4's
       scene, GS_STEPS steps twice, a relocation every GS_REFINE_EVERY
-      steps after GS_WARMUP: every parameter after every step.
-(a)-(c) run together when any of them is named; (d) and (e) run at the
-same depths as in chip_smoke.py's phase 20.
+      steps after GS_WARMUP: every parameter after every step;
+  (f) a Stage3Runner (seed 0) on phase 4's scene and its analytic meshes,
+      object S3_OBJ's colour field trained for S3_STEPS image steps and
+      its chart atlas baked at S3_TEX_RES, twice: every parameter after
+      every step, then the baked OBJ, MTL and PNG bytes.
+(a)-(c) run together when any of them is named; (d), (e) and (f) run at
+the same depths as in chip_smoke.py's phase 20 ((f) there on phase 15's
+meshes and scene).
 
 Modes: `default` as the port runs; `det` under
 torch.use_deterministic_algorithms(True, warn_only=True) (the script sets
@@ -44,7 +50,11 @@ CUBLAS_WORKSPACE_CONFIG=:4096:8 before CUDA starts, in every mode), whose
 warnings name the torch ops on the path without a deterministic
 implementation; `det_plain` the same with H1-bwd and H4 replaced by their
 plain twins on the card (a diagnosis: what is left when no hand-written
-accumulation runs).
+accumulation runs); `multinomial` as `default` with ops/draws.py::
+draw_by_weight replaced by torch.multinomial (with replacement, the same
+generator), the draw Stage 3 and MCMC made before their exact integer
+CDF (a diagnosis: does the float draw part two runs). --modes defaults to
+the first three.
 
 Then, with (a)-(c), Stage 2 whole (training/exp_runner_post.main at phase
 14's settings) stage2_runs times from the same checkpoint, in default
@@ -73,14 +83,17 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
-MODES = ("default", "det", "det_plain")
-PARTS = ("a", "b", "c", "d", "e")
+MODES = ("default", "det", "det_plain", "multinomial")
+PARTS = ("a", "b", "c", "d", "e", "f")
 # (d): bins refreshed every second visit of a frame, so that ten flat steps
 # over phase 4's seven training frames rebuild some, then five iterations
 # with an invisible-view step; (e): one MCMC relocation, after step 39,
 # with 20 steps after it in a 60-step run
 S4_FLAT_STEPS, S4_INVIS_STEPS, S4_REBIN_EVERY = 10, 5, 2
 GS_STEPS, GS_WARMUP, GS_REFINE_EVERY, GS_CAPACITY = 60, 20, 40, 100_000
+# (f): object 1 (a sphere of the generated scene: 0/1 pixel weights over
+# its instance mask), 200 image steps and a bake at 512^2
+S3_OBJ, S3_STEPS, S3_TEX_RES = 1, 200, 512
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -176,12 +189,13 @@ def trace_methods(obj, names, trace: StepTrace, params) -> None:
 def run_mode(mode: str):
     """The mode's switches for the block; yields the list of warnings
     recorded in it."""
+    from holoscene_tpu_torch.ops import draws
     from holoscene_tpu_torch.ops import hashgrid as hg
     from holoscene_tpu_torch.ops import splat_flat as sf
 
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    det = mode != "default"
+    det = mode in ("det", "det_plain")
     before = torch.are_deterministic_algorithms_enabled()
     with warnings.catch_warnings(record=True) as caught, \
             contextlib.ExitStack() as stack:
@@ -197,6 +211,13 @@ def run_mode(mode: str):
             stack.enter_context(patched(hg, "fused_bwd", plain_bwd))
             stack.enter_context(patched(sf, "planned_take_bwd",
                                         sf.planned_take_bwd_plain))
+        if mode == "multinomial":
+            def multinomial(weights, n, generator=None):
+                return torch.multinomial(weights, n, replacement=True,
+                                         generator=generator)
+
+            stack.enter_context(patched(draws, "draw_by_weight",
+                                        multinomial))
         try:
             yield caught
         finally:
@@ -442,6 +463,54 @@ def gs_args(data_root, out) -> list[str]:
             "cuda"]
 
 
+def stage3_twice(make_runner, obj_i: int) -> dict:
+    """(f): a fresh Stage3Runner from make_runner(run) trains object
+    obj_i's colour field for S3_STEPS image steps, then bakes its chart
+    atlas at S3_TEX_RES; twice. Every parameter after every step is
+    compared, then the baked files' bytes (surface_{obj_i}.obj / .mtl /
+    .png); the report adds the texture's size and the losses."""
+    from holoscene_tpu_torch.training import stage3 as s3
+
+    first = StepTrace()
+    second = StepTrace(first)
+    t0 = time.perf_counter()
+    files, losses = [], []
+    for i, trace in enumerate((first, second)):
+        runner = make_runner(i)
+        with traced(s3, "color_step", trace):
+            losses.append(runner.train_object(obj_i, n_iters=S3_STEPS))
+        obj = Path(runner.export_mesh_texture(obj_i, texture_res=S3_TEX_RES))
+        files.append({p.name: p.read_bytes() for p in (
+            obj, obj.with_suffix(".mtl"), obj.with_suffix(".png"))})
+        del runner
+    rep = second.report()
+    first.snaps.clear()
+    rep.update(files_differing=sorted(k for k in files[0]
+                                      if files[0][k] != files[1].get(k)),
+               png_bytes=len(files[0][f"surface_{obj_i}.png"]),
+               losses=losses[1], losses_equal=losses[0] == losses[1],
+               seconds=time.perf_counter() - t0)
+    rep["atlas_bitwise_equal"] = not rep["files_differing"]
+    return rep
+
+
+def stage3_factory(meshes, dataset, out_dir, lr: float = 5e-4,
+                   lr_factor_for_grid: float = 20.0):
+    """make_runner for (f): a fresh Stage3Runner (seed 0) on these meshes
+    and dataset on the card, writing into out_dir/run{i}."""
+    from holoscene_tpu_torch.training.stage3 import Stage3Runner
+
+    def make_runner(i: int):
+        return Stage3Runner(meshes, dataset, lr=lr,
+                            lr_factor_for_grid=lr_factor_for_grid,
+                            max_total_iters=S3_STEPS,
+                            out_dir=str(Path(out_dir) / f"run{i}"),
+                            texture_res=S3_TEX_RES, quiet=True,
+                            device="cuda")
+
+    return make_runner
+
+
 def stage2_whole(args: list[str], runs: int) -> dict:
     """exp_runner_post.main(args) `runs` times: accepted face counts,
     failed objects, translations, and whether each run's accepted meshes
@@ -473,9 +542,10 @@ def stage2_whole(args: list[str], runs: int) -> dict:
     return {"runs": out}
 
 
-def stage4_gs_parts(rep: dict, mode: str, parts: set, make_s4, plots,
-                    work: Path) -> None:
-    """Parts (d) and (e) of one mode into rep, each logged."""
+def scene_parts(rep: dict, mode: str, parts: set, make_s4, meshes, plots,
+                work: Path) -> None:
+    """Parts (d), (e) and (f) of one mode on phase 4's scene (its
+    analytic `meshes`) into rep, each logged."""
     import chip_smoke as cs_
 
     if "d" in parts:
@@ -485,6 +555,14 @@ def stage4_gs_parts(rep: dict, mode: str, parts: set, make_s4, plots,
         rep["e"] = gs_train_twice(gs_args(work / "data" / "scene_0",
                                           work / f"gs_{mode}"))
         cs_.log(f"== ({mode}) e: {json.dumps(rep['e'])}")
+    if "f" in parts:
+        from holoscene_tpu_torch.datasets.ns_dataset import NSDataset
+
+        dataset = NSDataset(data_root_dir=str(work / "data"),
+                            data_dir="scene_0", img_res=[cs_.RES, cs_.RES])
+        rep["f"] = stage3_twice(stage3_factory(
+            meshes, dataset, work / f"s3_{mode}"), S3_OBJ)
+        cs_.log(f"== ({mode}) f: {json.dumps(rep['f'])}")
 
 
 def stage12_parts(rep: dict, mode: str, conf: Path, post_conf: Path,
@@ -532,7 +610,8 @@ def main(argv=None) -> int:
     parser.add_argument("--s1_steps", type=int, default=40)
     parser.add_argument("--ft_iters", type=int, default=60)
     parser.add_argument("--obj", type=int, default=1)
-    parser.add_argument("--modes", nargs="+", default=list(MODES))
+    parser.add_argument("--modes", nargs="+", default=list(MODES[:3]),
+                        choices=MODES)
     parser.add_argument("--stage2_runs", type=int, default=2)
     parser.add_argument("--parts", nargs="+", default=list(PARTS),
                         choices=PARTS, help="runs to make in each mode")
@@ -574,7 +653,7 @@ def main(argv=None) -> int:
             conf = cs_.stage1_conf(work, "smoke_s1_vjp",
                                    cs_.S1_MODEL_DEFAULT)
             post_conf = cs_.stage2_conf(work)
-        if parts & {"d", "e"}:
+        if parts & {"d", "e", "f"}:
             # phase 4's scene: 8 generated 512^2 views and the analytic
             # meshes, read back as exp_runner_gaussian reads them
             from holoscene_tpu_torch.datasets.synthetic import write_vis_info
@@ -595,8 +674,9 @@ def main(argv=None) -> int:
         for mode in args.modes:
             rep = report["modes"][mode] = {}
             with run_mode(mode) as caught:
-                if parts & {"d", "e"}:
-                    stage4_gs_parts(rep, mode, parts, make_s4, plots, work)
+                if parts & {"d", "e", "f"}:
+                    scene_parts(rep, mode, parts, make_s4, meshes, plots,
+                                work)
                 if stage12:
                     ckpt_exps = stage12_parts(rep, mode, conf, post_conf,
                                               ckpt_exps, work, args)

@@ -259,11 +259,11 @@ def test_gather_payload_transposes_through_h4():
 
 
 def test_mcmc_draw_is_an_exact_inverse_cdf():
-    """gs_train's relocation targets (models/gaussians_free.py::
+    """gs_train's relocation targets and Stage 3's pixels (ops/draws.py::
     draw_by_weight): proportional to the weights, zero weights never
     drawn, the same indices from the same generator state, and each draw
     the inverse of the integer CDF at its uniform."""
-    from holoscene_tpu_torch.models.gaussians_free import draw_by_weight
+    from holoscene_tpu_torch.ops.draws import draw_by_weight
 
     w = torch.tensor([0.0, 0.1, 0.3, 0.0, 0.6, 0.0])
     idx = draw_by_weight(w, 100_000, torch.Generator().manual_seed(0))
@@ -280,6 +280,47 @@ def test_mcmc_draw_is_an_exact_inverse_cdf():
     assert draw_by_weight(torch.zeros(4), 3).shape == (3,)
 
 
+def test_stage3_and_mcmc_draw_through_draw_by_weight(tmp_path, monkeypatch):
+    """Stage3Runner._draw and mcmc_relocate both call ops/draws.py::
+    draw_by_weight (looked up on the module, so one swap reaches both),
+    and each returns its draw unchanged: the indices of draw_by_weight on
+    the same weights from the same generator state."""
+    from holoscene_tpu_torch.models import gaussians_free as tgf
+    from holoscene_tpu_torch.ops import draws
+    from holoscene_tpu_torch.training.stage3 import Stage3Runner
+
+    calls = []
+    draw = draws.draw_by_weight
+
+    def recording(weights, n, generator=None):
+        calls.append(n)
+        return draw(weights, n, generator)
+
+    monkeypatch.setattr(draws, "draw_by_weight", recording)
+    runner = Stage3Runner([], None, pixels_per_step=64, seed=3,
+                          out_dir=str(tmp_path), quiet=True, device="cpu")
+    w = (torch.arange(50) % 3 == 0).float()
+    idx = runner._draw(w)
+    assert torch.equal(idx, draw(w, 64, torch.Generator().manual_seed(3)))
+    assert (idx % 3 == 0).all()
+
+    cfg = tgf.FreeGaussianConfig(capacity=200)
+    params, state = tgf.init_free_gaussians(
+        cfg, generator=torch.Generator().manual_seed(0))
+    params["opacity_logits"] = torch.linspace(-3.0, 3.0, 200)
+    _, _, stats = tgf.mcmc_relocate(params, state, cfg,
+                                    generator=torch.Generator().manual_seed(5))
+    opac = torch.sigmoid(params["opacity_logits"]) * state["alive"]
+    target = draw(opac, 10, torch.Generator().manual_seed(5))
+    assert calls == [64, 10]
+    want = torch.zeros(200, dtype=torch.bool)
+    want[torch.argsort(torch.where(state["alive"], opac,
+                                   torch.full_like(opac, float("inf"))),
+                       stable=True)[:10]] = True
+    want[target] = True
+    assert torch.equal(stats["reset_mask"], want)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -292,9 +333,73 @@ def cuda():
     return torch.device("cuda")
 
 
+# plans made from a seed with numpy (rows, live slots a row, dead slots):
+# 100 runs of 40-299 slots, each crossing the kernel's 128-slot chunks and
+# some its blocks' shares of the work, one row of 12,000 slots (a run many
+# shares long), mostly empty rows, no rows at all, every slot dead, and
+# the chain frame's ~0.82 live slots a row with 10x as many dead
+H4_SYNTHETIC = ("straddle", "long_run", "empty_rows", "no_rows", "all_dead",
+                "chain_scale")
+
+
+def _synthetic_plan(name, dev):
+    """(ct, perm, bounds, n) of a plan by name (H4_SYNTHETIC): the runs'
+    lengths from a seed, the slots in random order, the dead slots' rows
+    of ct NaN (a sum that took one would show)."""
+    rng = np.random.default_rng(H4_SYNTHETIC.index(name))
+    n, dead = {"straddle": (1000, 500), "long_run": (600, 1000),
+               "empty_rows": (2000, 300), "no_rows": (0, 100),
+               "all_dead": (500, 700), "chain_scale": (200_000, 1_640_000)
+               }[name]
+    lens = rng.integers(0, 3, n)
+    if name == "straddle":
+        lens[200:300] = rng.integers(40, 300, 100)
+    elif name == "long_run":
+        lens[300] = 12_000
+    elif name == "empty_rows":
+        lens = np.where(rng.uniform(size=n) < 0.9, 0, rng.integers(1, 6, n))
+    elif name == "all_dead":
+        lens[:] = 0
+    elif name == "chain_scale":
+        lens = rng.poisson(0.82, n)
+    gidx = rng.permutation(np.concatenate(
+        [np.repeat(np.arange(n), lens), np.full(dead, n)]))
+    gidx = torch.as_tensor(gidx, device=dev)
+    perm, bounds = tflat.take_plan(gidx, n)
+    ct = torch.randn(gidx.shape[0], 16, device=dev,
+                     generator=torch.Generator(dev).manual_seed(1))
+    ct[gidx == n] = float("nan")
+    return ct, perm, bounds, n
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["flat", "topk"])
+@pytest.mark.parametrize("path", ("flat", "topk") + H4_SYNTHETIC)
 def test_h4_matches_plain_bitwise_twice(cuda, path):
+    """H4 on the card: two launches and the plain twin the same bits, on
+    the flat bins and the top-K lists of a projected scene (the top-K
+    plan's dead entries in the trash row) and on the synthetic plans;
+    columns 11-15 and the trash row zero, no dead slot summed."""
+    if path in H4_SYNTHETIC:
+        ct, perm, bounds, n = _synthetic_plan(path, cuda)
+    else:
+        ct, perm, bounds, n = _scene_plan(path, cuda)
+    before = tflat.planned_take_bwd.launches
+    a = tflat.planned_take_bwd(ct, perm, bounds)
+    b = tflat.planned_take_bwd(ct, perm, bounds)
+    torch.cuda.synchronize()
+    assert tflat.planned_take_bwd.launches == before + 2
+    plain = tflat.planned_take_bwd_plain(ct, perm, bounds)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.view(torch.int32), plain.view(torch.int32))
+    assert a.shape == (n + 1, 16) and torch.isfinite(a).all()
+    assert not a[n].any() and not a[:, tflat.BWD_COLS:].any()
+    live = int(bounds[n])
+    assert bool(a[:n, :tflat.BWD_COLS].abs().sum() > 0) == (live > 0)
+
+
+def _scene_plan(path, dev):
+    """(ct, perm, bounds, n): the flat bins' or the top-K lists' plan of
+    3000 random gaussians projected to 96^2, a random cotangent."""
     from holoscene_tpu_torch.ops import gaussians as tg
 
     rng = np.random.default_rng(4)
@@ -302,15 +407,15 @@ def test_h4_matches_plain_bitwise_twice(cuda, path):
     means = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n),
                       rng.uniform(1.2, 3.0, n)], -1)
     intr = torch.tensor([[res * 0.8, 0, res / 2], [0, res * 0.8, res / 2],
-                         [0, 0, 1.0]], device=cuda)
-    f32 = dict(dtype=torch.float32, device=cuda)
+                         [0, 0, 1.0]], device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
     xy, depth, conic, radius, valid = tg.project_gaussians_fused(
         torch.as_tensor(means, **f32),
         torch.as_tensor(rng.normal(size=(n, 4)), **f32),
         torch.as_tensor(rng.uniform(0.02, 0.08, (n, 3)), **f32),
-        torch.eye(4, device=cuda), intr, res, res)
+        torch.eye(4, device=dev), intr, res, res)
     if path == "flat":
-        opac = torch.full((n,), 0.8, device=cuda)
+        opac = torch.full((n,), 0.8, device=dev)
         tiles = res // 16
         plan = tflat.plan_flat(xy, conic, opac, valid, tiles, tiles, 16)
         bins = tflat.build_flat_bins(xy, depth, conic, opac, valid,
@@ -321,14 +426,7 @@ def test_h4_matches_plain_bitwise_twice(cuda, path):
         idx = tsplat.select_topk(xy, depth, radius, valid, res, res, 16,
                                  256)[0]
         perm, bounds = tflat.take_plan(idx.reshape(-1), n)
-    ct = torch.randn(perm.shape[0], 16, device=cuda,
-                     generator=torch.Generator(cuda).manual_seed(0))
-    before = tflat.planned_take_bwd.launches
-    a = tflat.planned_take_bwd(ct, perm, bounds)
-    b = tflat.planned_take_bwd(ct, perm, bounds)
-    torch.cuda.synchronize()
-    assert tflat.planned_take_bwd.launches == before + 2
-    plain = tflat.planned_take_bwd_plain(ct, perm, bounds)
-    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    assert torch.equal(a.view(torch.int32), plain.view(torch.int32))
-    assert a[:n, :tflat.BWD_COLS].abs().sum() > 0
+        assert int(bounds[n + 1] - bounds[n]) > 0    # dead entries
+    ct = torch.randn(perm.shape[0], 16, device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    return ct, perm, bounds, n
